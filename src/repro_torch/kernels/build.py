@@ -1,0 +1,110 @@
+"""Build and load the hand-written CUDA kernels (``csrc/*.cu``).
+
+Each source is compiled by ``nvcc`` for ``sm_90a`` into its own shared
+library with a plain C interface and loaded with ``ctypes``. Nothing
+here runs at import: the first CUDA launch of a kernel builds (or
+finds) its library, so ``import repro_torch`` works on a machine with
+no ``nvcc``. Libraries are named by a hash of their source and go to
+``build/kernels`` at the repository root (git-ignored), so an edited
+source is rebuilt and an unchanged one is reused. ``build_all`` starts
+one ``nvcc`` per source at once and waits for all of them.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import time
+
+_PKG = pathlib.Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parents[1] / "build" / "kernels"
+
+SOURCES = {
+    "sidebar_mlp": "sidebar_mlp.cu",
+    "paged_gqa": "paged_gqa.cu",
+}
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_loaded: dict[str, ctypes.CDLL] = {}
+# name -> nvcc's stderr (ptxas register/shared-memory/spill report)
+build_log: dict[str, str] = {}
+# kernel name -> CUDA launches so far; each wrapper adds one where it
+# launches its kernel and nowhere else (the plain versions never count)
+launches: collections.Counter = collections.Counter()
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError(
+            "nvcc not found: the CUDA kernels are built at first use and "
+            "need the CUDA toolkit (on PATH or under /usr/local/cuda)")
+    return path
+
+
+def _lib_path(name: str) -> pathlib.Path:
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [CSRC / SOURCES[name], *sorted(CSRC.glob("*.cuh"))]:
+        digest.update(path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
+
+
+def build_all(names=None) -> float:
+    """Compile every stale library in parallel; returns wall seconds.
+    Raises with nvcc's output if any build fails."""
+    names = list(SOURCES) if names is None else list(names)
+    todo = [n for n in names if not _lib_path(n).exists()]
+    t0 = time.perf_counter()
+    if not todo:
+        return 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    for n in todo:
+        out = _lib_path(n)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[n])]
+        procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True),
+                    tmp, out)
+    failed = []
+    for n, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        build_log[n] = log
+        if proc.returncode != 0:
+            failed.append(f"--- {n} (rc {proc.returncode}) ---\n{log}")
+            continue
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return time.perf_counter() - t0
+
+
+def entry(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
+    """C entry point ``symbol`` of kernel ``name``'s library (built and
+    loaded first if needed), with its argument types declared and an
+    int (``cudaError_t``) result."""
+    lib = _loaded.get(name)
+    if lib is None:
+        build_all([name])
+        lib = _loaded[name] = ctypes.CDLL(str(_lib_path(name)))
+    fn = getattr(lib, symbol)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def check(err: int, what: str) -> None:
+    """Raise on a nonzero ``cudaError_t`` returned by a C entry point."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} at launch")

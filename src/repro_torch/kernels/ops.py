@@ -1,0 +1,190 @@
+"""Public entry points of the port's kernels (mirror of
+``repro.kernels.ops``: the ambient execution plan, ``layer_scope``,
+``record_dispatches`` and the ``sidebar_mlp`` / ``paged_attention_gqa``
+ops).
+
+Each op resolves the ambient plan for the current layer, records its
+dispatch, and calls the kernel wrapper — which launches the Hopper
+kernel for a CUDA tensor and takes the plain version for a CPU tensor.
+Only ``SIDEBAR`` and ``MONOLITHIC`` plans are served; the others raise
+``NotImplementedError`` until their kernels are ported.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import threading
+from typing import Callable
+
+import torch
+
+from repro_torch.core.function_table import DEFAULT_TABLE, FunctionTable
+from repro_torch.core.modes import (
+    ExecutionMode,
+    ExecutionPlan,
+    LayerPlan,
+    coerce_layer_plan,
+    require_served,
+)
+from repro_torch.kernels import build
+from repro_torch.kernels.paged_attention import paged_gqa
+from repro_torch.kernels.sidebar_mlp import sidebar_mlp as _mlp_kernel
+
+Tensor = torch.Tensor
+
+# -- execution-plan selection ------------------------------------------------
+# Models call the ops unconditionally; which kernel variant backs them
+# is a deployment choice carried as thread-local ambient state. Models
+# announce the layer index they run via ``layer_scope`` and
+# ``current_plan()`` resolves ``plan.for_layer(index)``.
+
+_PLAN_STATE = threading.local()
+
+_DEFAULT_PLAN = LayerPlan(ExecutionMode.SIDEBAR, depth=1)
+
+
+def current_layer() -> str | int | None:
+    return getattr(_PLAN_STATE, "layer", None)
+
+
+@contextlib.contextmanager
+def layer_scope(key: str | int | None):
+    """Announce the layer being run so a layer-indexed plan resolves."""
+    prev = current_layer()
+    _PLAN_STATE.layer = key
+    try:
+        yield
+    finally:
+        _PLAN_STATE.layer = prev
+
+
+def current_full_plan() -> LayerPlan | ExecutionPlan:
+    return getattr(_PLAN_STATE, "plan", _DEFAULT_PLAN)
+
+
+def current_plan() -> LayerPlan:
+    plan = current_full_plan()
+    if isinstance(plan, ExecutionPlan):
+        return plan.for_layer(current_layer())
+    return plan
+
+
+def set_plan(plan: LayerPlan | ExecutionPlan | ExecutionMode | str,
+             depth: int | None = None) -> LayerPlan | ExecutionPlan:
+    """Set the ambient plan; returns the previous one."""
+    prev = current_full_plan()
+    if isinstance(plan, ExecutionPlan):
+        _PLAN_STATE.plan = plan
+    else:
+        _PLAN_STATE.plan = coerce_layer_plan(plan, depth)
+    return prev
+
+
+@contextlib.contextmanager
+def execution_plan(plan: LayerPlan | ExecutionPlan | ExecutionMode | str,
+                   depth: int | None = None):
+    prev = set_plan(plan, depth)
+    try:
+        yield
+    finally:
+        set_plan(prev)
+
+
+# -- dispatch recording --------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class PlanDispatch:
+    """One op's dispatch decision."""
+
+    op: str                       # "sidebar_mlp" | "paged_attention" | ...
+    layer: str | int | None       # ambient layer_scope key
+    mode: ExecutionMode
+    depth: int
+    variant: str                  # "serial" | "paged" | "ref" | "dma"
+    used_kernel: bool             # the CUDA kernel was launched
+
+
+@contextlib.contextmanager
+def record_dispatches(into: list):
+    """Append a ``PlanDispatch`` per op call into ``into``."""
+    prev = getattr(_PLAN_STATE, "recorder", None)
+    _PLAN_STATE.recorder = into
+    try:
+        yield into
+    finally:
+        _PLAN_STATE.recorder = prev
+
+
+def _record(op: str, mode: ExecutionMode, depth: int, variant: str,
+            used_kernel: bool) -> None:
+    rec = getattr(_PLAN_STATE, "recorder", None)
+    if rec is not None:
+        rec.append(PlanDispatch(op, current_layer(), mode, depth, variant,
+                                used_kernel))
+
+
+def record_dispatch(op: str, variant: str, used_kernel: bool = False) -> None:
+    """Dispatch record for non-kernel hot-path ops (``kvpool``'s
+    ``gather_blocks``/``scatter_blocks``)."""
+    plan = current_plan()
+    _record(op, plan.mode, plan.depth, variant, used_kernel)
+
+
+# -- launch counts -------------------------------------------------------------
+
+
+def launch_counts() -> dict[str, int]:
+    """CUDA launches per kernel since the last reset."""
+    return {name: build.launches[name] for name in build.SOURCES}
+
+
+def reset_launch_counts() -> None:
+    build.launches.clear()
+
+
+# -- ops -----------------------------------------------------------------------
+
+
+def _served_plan() -> LayerPlan:
+    plan = current_plan()
+    require_served(plan)
+    return plan
+
+
+def sidebar_mlp(
+    x: Tensor,
+    w1: Tensor,
+    w2: Tensor,
+    activation: str | Callable = "relu",
+    *,
+    table: FunctionTable = DEFAULT_TABLE,
+) -> Tensor:
+    """y = f(x @ w1) @ w2 through the fused serial Sidebar kernel (the
+    SIDEBAR / MONOLITHIC route)."""
+    plan = _served_plan()
+    _record("sidebar_mlp", plan.mode, plan.depth,
+            "serial" if x.is_cuda else "ref", x.is_cuda)
+    return _mlp_kernel(x, w1, w2, activation, table=table)
+
+
+def paged_attention_gqa(
+    q: Tensor,                    # (B, H, Dh) — one decode token per row
+    k_pool: Tensor,               # (P, Hkv, bs, Dh) pooled blocks
+    v_pool: Tensor,
+    block_tables: Tensor,         # (B, nb) int32, host-validated in-bounds
+    lengths: Tensor,              # (B,) int32 — row attends kpos < length
+    *,
+    scale: float,
+    k_scale: Tensor | None = None,
+    v_scale: Tensor | None = None,
+    compute_dtype: torch.dtype | None = None,
+) -> Tensor:
+    """Paged GQA decode attention, in place on the block pool."""
+    plan = _served_plan()
+    _record("paged_attention", plan.mode, plan.depth,
+            "paged" if q.is_cuda else "ref", q.is_cuda)
+    return paged_gqa(q, k_pool, v_pool, block_tables, lengths, scale=scale,
+                     k_scale=k_scale, v_scale=v_scale,
+                     compute_dtype=compute_dtype)

@@ -1,0 +1,85 @@
+"""Plain PyTorch versions (mirror of ``repro.kernels.ref``) and the
+contraction/softmax helpers every plain path of the port uses.
+
+On a CPU tensor the helpers accumulate in a FIXED order, one term at a
+time from index 0 up (``dot``, ``softmax``). A row's result then depends
+only on that row's operands — not on how many rows share the call, nor
+on how many masked (exactly zero) terms trail the live ones. That is
+what keeps the port's in-framework gates bit-exact on the CPU (paged
+== slab == solo decode), as XLA's CPU dot does for the JAX package;
+torch's blocked CPU GEMM gives no such guarantee. On a CUDA tensor they
+are plain ``torch.matmul``/``torch.sum`` calls with fp32 accumulation.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from repro_torch.core.function_table import DEFAULT_TABLE, FunctionTable
+
+Tensor = torch.Tensor
+
+
+def dot(a: Tensor, b: Tensor, out_dtype: torch.dtype = torch.float32
+        ) -> Tensor:
+    """``a (..., M, K) @ b (..., K, N)`` accumulated in fp32, cast to
+    ``out_dtype`` (``preferred_element_type`` of the jnp dot)."""
+    if a.is_cuda:
+        if a.dtype == b.dtype == out_dtype:
+            return torch.matmul(a, b)
+        return torch.matmul(a.float(), b.float()).to(out_dtype)
+    af, bf = a.float(), b.float()
+    acc = af[..., :, 0:1] * bf[..., 0:1, :]
+    for k in range(1, af.shape[-1]):
+        acc = acc + af[..., :, k:k + 1] * bf[..., k:k + 1, :]
+    return acc.to(out_dtype)
+
+
+def row_sum(x: Tensor) -> Tensor:
+    """Sum over the last dim, keepdim (fixed order on the CPU)."""
+    if x.is_cuda:
+        return x.sum(-1, keepdim=True)
+    acc = x[..., 0:1]
+    for t in range(1, x.shape[-1]):
+        acc = acc + x[..., t:t + 1]
+    return acc
+
+
+def softmax(x: Tensor) -> Tensor:
+    """``jax.nn.softmax`` over the last dim: exp(x - max) / sum."""
+    e = torch.exp(x - torch.amax(x, dim=-1, keepdim=True))
+    return e / row_sum(e)
+
+
+def _resolve(activation: str | Callable, table: FunctionTable) -> Callable:
+    if callable(activation):
+        return activation
+    return table.lookup(activation)
+
+
+def sidebar_mlp_ref(
+    x: Tensor,
+    w1: Tensor,
+    w2: Tensor,
+    activation: str | Callable = "relu",
+    table: FunctionTable = DEFAULT_TABLE,
+) -> Tensor:
+    """y = f(x @ w1) @ w2: fp32 ``h``, ``f`` in fp32, ``f(h)`` cast to
+    ``w2.dtype`` before the second product, fp32 accumulation, output in
+    ``x.dtype`` — the rounding points of ``repro.kernels.ref``."""
+    fn = _resolve(activation, table)
+    h = fn(dot(x, w1))
+    y = dot(h.to(w2.dtype), w2)
+    return y.to(x.dtype)
+
+
+def activation_ref(
+    x: Tensor,
+    activation: str | Callable = "relu",
+    table: FunctionTable = DEFAULT_TABLE,
+) -> Tensor:
+    """Standalone host activation (the FLEXIBLE_DMA 'host step')."""
+    fn = _resolve(activation, table)
+    return fn(x.float()).to(x.dtype)

@@ -13,3 +13,7 @@ def pytest_configure(config):
         "markers",
         "slow: long-running subprocess tests (deselect with -m 'not slow')",
     )
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA device (the port's kernels); skipped without one",
+    )

@@ -1,0 +1,200 @@
+"""The port stands alone: no JAX, no ``repro``, no build at import.
+
+  * no module of ``src/repro_torch`` nor ``chip_smoke.py`` imports
+    ``jax`` or any ``repro`` module (AST scan);
+  * importing every module of the port needs neither ``nvcc`` nor
+    ``triton`` and builds nothing;
+  * entry points run on ``cuda`` unless asked for the CPU, and never
+    pick the CPU on their own;
+  * ``chip_smoke.py`` fails without a card, and fails in a directory
+    that holds nothing else of the repository;
+  * on the card (tests marked ``gpu``, skipped without one): each CUDA
+    kernel against its plain version, and the wrappers' refusals. They
+    live here because this file imports no JAX, which the card's
+    machine does not have. ``chip_smoke.py`` repeats the comparisons at
+    full width.
+"""
+
+import ast
+import os
+import pathlib
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imports(path: pathlib.Path) -> set[str]:
+    mods = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            mods.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            mods.add(node.module)
+    return mods
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_and_no_repro_imports(path):
+    bad = {m for m in _imports(path)
+           if m.split(".")[0] in ("jax", "jaxlib", "repro")}
+    assert not bad, f"{path}: imports {sorted(bad)}"
+
+
+def test_scan_sees_the_whole_port():
+    names = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
+    assert {"kernels/sidebar_mlp.py", "kernels/paged_attention.py",
+            "launch/scheduler.py", "bridge.py"} <= names
+
+
+def test_import_needs_no_nvcc_no_triton_and_builds_nothing(tmp_path):
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import repro_torch\n"
+        "for m in pkgutil.walk_packages(repro_torch.__path__, "
+        "'repro_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "from repro_torch.kernels import build\n"
+        "assert 'triton' not in sys.modules\n"
+        "assert not any(k.startswith(('jax', 'repro.')) or k == 'repro' "
+        "for k in sys.modules), 'JAX or repro imported'\n"
+        "assert build._loaded == {} and not build.launches\n"
+        "import torch\n"
+        "assert not torch.backends.cuda.matmul.allow_tf32\n"
+        "assert not torch.backends.cudnn.allow_tf32\n"
+        "print('ok')\n")
+    env = {**os.environ, "PATH": str(tmp_path),
+           "PYTHONPATH": str(ROOT / "src")}
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_entry_points_default_to_cuda():
+    from repro_torch import configs, resolve_device
+    from repro_torch.launch.scheduler import PagedContinuousBatchingServer
+    from repro_torch.models import transformer as T
+
+    assert resolve_device("cpu") == torch.device("cpu")
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device exists")
+    cfg = configs.get_smoke_config("nemotron-4-15b")
+    params = T.init(cfg, device="cpu")
+    for make in (lambda: resolve_device(),
+                 lambda: T.init(cfg),
+                 lambda: T.init_cache(cfg, 1, 8),
+                 lambda: PagedContinuousBatchingServer(
+                     cfg, params, num_slots=1, max_len=16, block_size=8)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+
+
+def _run_smoke(cwd):
+    return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                          capture_output=True, text=True, timeout=300,
+                          env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+
+
+def test_chip_smoke_fails_without_a_card():
+    out = _run_smoke(ROOT)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path)
+    out = _run_smoke(tmp_path)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+
+
+# ---------------------------------------------------------------------------
+# On the card: each CUDA kernel against its plain version. Tolerance 1e-4:
+# fp32 on both sides, summed in different orders (and, for paged decode,
+# an online softmax against a two-pass one).
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel runs only on the card")
+    return torch.device("cuda")
+
+
+def _mlp_problem(seed, m, d=64, f=256):
+    rng = np.random.RandomState(seed)
+    return (rng.randn(m, d).astype(np.float32),
+            (rng.randn(d, f) / np.sqrt(d)).astype(np.float32),
+            (rng.randn(f, d) / np.sqrt(f)).astype(np.float32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 3, 4, 64, 130])
+@pytest.mark.parametrize("act", ["squared_relu", "relu", "gelu"])
+def test_sidebar_mlp_kernel_matches_plain(cuda, m, act):
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import sidebar_mlp as sm
+
+    x, w1, w2 = (torch.from_numpy(a).to(cuda) for a in _mlp_problem(7, m))
+    before = kops.launch_counts()["sidebar_mlp"]
+    out = sm.sidebar_mlp(x, w1, w2, act)
+    ref = sm.sidebar_mlp_plain(x, w1, w2, act)
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+    assert kops.launch_counts()["sidebar_mlp"] == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quantized", [False, True], ids=["fp32", "int8"])
+def test_paged_gqa_kernel_matches_plain(cuda, quantized):
+    """Ragged lengths, a duplicated (prefix-shared) block and a
+    scratch-padded tail row."""
+    from repro_torch.kernels import paged_attention as pa
+
+    rng = np.random.RandomState(8)
+    P, Hkv, bs, Dh, B, nb, group = 9, 2, 8, 16, 3, 4, 4
+    tables = rng.randint(1, P, size=(B, nb)).astype(np.int32)
+    tables[0, 1:] = 0
+    tables[1, 2] = tables[1, 1]
+    lengths = np.array([5, bs * 2, bs * nb], np.int32)
+    q = rng.randn(B, Hkv * group, Dh).astype(np.float32)
+    if quantized:
+        k, v = (rng.randint(-127, 128, (P, Hkv, bs, Dh)).astype(np.int8)
+                for _ in range(2))
+        ks, vs = (((rng.rand(P, Hkv, bs) + .5) / 127).astype(np.float32)
+                  for _ in range(2))
+    else:
+        k, v = (rng.randn(P, Hkv, bs, Dh).astype(np.float32)
+                for _ in range(2))
+        ks = vs = None
+    q, k, v, ks, vs, tables, lengths = (
+        None if a is None else torch.from_numpy(a).to(cuda)
+        for a in (q, k, v, ks, vs, tables, lengths))
+    out = pa.paged_gqa(q, k, v, tables, lengths, scale=Dh ** -0.5,
+                       k_scale=ks, v_scale=vs)
+    ref = pa.paged_gqa_reference(q, k, v, tables, lengths, scale=Dh ** -0.5,
+                                 k_scale=ks, v_scale=vs)
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_kernel_wrappers_reject_what_they_do_not_take(cuda):
+    from repro_torch.kernels import sidebar_mlp as sm
+
+    x = torch.zeros(4, 64, device=cuda)
+    w1 = torch.zeros(64, 128, device=cuda)
+    w2 = torch.zeros(128, 64, device=cuda)
+    with pytest.raises(NotImplementedError, match="kernel-side"):
+        sm.sidebar_mlp(x, w1, w2, "softmax")
+    with pytest.raises(TypeError):
+        sm.sidebar_mlp(x.double(), w1.double(), w2.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        sm.sidebar_mlp(x, torch.zeros(128, 64, device=cuda).t(), w2)
