@@ -4,26 +4,34 @@ Run from the repository root on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
-Phases (each prints one JSON object on its own line; any failure exits
-non-zero):
+Phases (each prints JSON objects on lines of their own; any failure
+exits non-zero):
 
   0. the card (``nvidia-smi`` name and power limit) and the build of
      every CUDA kernel from ``src/repro_torch/csrc`` (one ``nvcc`` per
      source, started together);
   1. op level: each kernel against its plain PyTorch version on the
-     card — smoke shapes in fp32 (ragged rows, ragged lengths,
-     duplicate table entries, scratch-padded tails, several
-     activations) and nemotron-4-15b shapes in bf16, fp and int8 KV —
-     with the kernel's time, the plain version's time, the bound of the
-     work and, for the MLP, the time of the same function as PyTorch
-     calls;
+     card — smoke shapes in fp32 (ragged rows, columns and contractions,
+     ragged lengths, duplicate table entries, scratch-padded tails,
+     several activations and epilogues, the rowwise softmax and rmsnorm)
+     and nemotron-4-15b shapes in bf16, fp and int8 KV — with the
+     kernel's time, the plain version's time, the bound of the work and
+     the time of one PyTorch call of the same function where there is
+     one; the ring MLP at depths 1-4, bitwise equal across depths;
   2. nemotron-4-15b at full width (bf16 weights from a seed) served by
      ``PagedContinuousBatchingServer(kernel="paged")`` with the kernels
-     on: 8 requests, half sharing a 128-token prefix, 32 greedy tokens
-     each; launch counts are reset before and read after the run;
+     on under the default SIDEBAR plan: 8 requests, half sharing a
+     128-token prefix, 32 greedy tokens each; launch counts are reset
+     before and read after the run;
+  5. the same weights and traffic under the paper's other execution
+     modes — SIDEBAR_PIPELINED at depth 2, a per-layer plan of depths 2
+     and 4, and FLEXIBLE_DMA — with exact launch counts per mode and a
+     summary line of tokens/s per mode;
   3. the same widths with int8 KV (depth cut to 4 layers);
-  4. the fp32 smoke config on the card, ``kernel="paged"`` against
-     ``kernel="slab"`` on the same traffic, compared by logits.
+  4. the fp32 smoke config on the card: ``kernel="paged"`` against
+     ``kernel="slab"``, and the SIDEBAR_PIPELINED, FLEXIBLE_DMA and a
+     mixed per-layer plan against SIDEBAR, on the same traffic, compared
+     by tokens and logits.
 
 The line before the last holds the kernel table, the last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or of the JAX
@@ -47,8 +55,12 @@ ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 # H100 SXM, NVIDIA data sheet (dense): HBM rate and peak operation rates
+# (bf16 on the tensor cores; fp32 outside them, for elementwise work)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {torch.bfloat16: 989e12}
+PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+D_MODEL, D_FF = 6144, 24576           # nemotron-4-15b
+KERNELS = ("sidebar_mlp", "paged_gqa", "sidebar_mlp_pipelined",
+           "sidebar_matmul", "activation")
 
 
 def emit(obj: dict) -> None:
@@ -252,8 +264,199 @@ def paged_ops(seed: int = 1) -> dict:
     return main
 
 
+def full_weights(g) -> tuple[torch.Tensor, torch.Tensor]:
+    """nemotron-4-15b's W1 (6144, 24576) and W2 (24576, 6144) in bf16."""
+    d, f = D_MODEL, D_FF
+    w1 = (torch.randn(d, f, generator=g, device="cuda") / d ** 0.5
+          ).bfloat16()
+    w2 = (torch.randn(f, d, generator=g, device="cuda") / f ** 0.5
+          ).bfloat16()
+    return w1, w2
+
+
+def matmul_ops(seed: int = 2) -> dict:
+    """sidebar_matmul: the FLEXIBLE_DMA producer and consumer products."""
+    from repro_torch.kernels import sidebar_matmul as smm
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dev = "cuda"
+    worst = 0.0
+    # fp32 smoke shapes, ragged M, K and N (K split across blocks under
+    # the identity epilogue, whole under the others): 1e-4 relative, the
+    # two sum K in different orders
+    shapes = ((1, 64, 128), (3, 100, 130), (4, 4096, 64), (17, 513, 257),
+              (64, 1000, 384))
+    for m, k, n in shapes:
+        for act in ("identity", "squared_relu", "gelu", "sigmoid"):
+            a = torch.randn(m, k, generator=g, device=dev)
+            b = torch.randn(k, n, generator=g, device=dev) / k ** 0.5
+            out = smm.sidebar_matmul(a, b, act)
+            torch.cuda.synchronize()
+            ref = smm.sidebar_matmul_plain(a, b, act)
+            _, rel = rel_err(out, ref)
+            check(out.shape == ref.shape and rel <= 1e-4,
+                  f"sidebar_matmul fp32 {m}x{k}x{n} {act}: rel {rel}")
+            worst = max(worst, rel)
+    emit({"phase": 1, "op": "sidebar_matmul", "dtype": "float32",
+          "shapes": shapes, "max_rel_err": worst, "tol": 1e-4})
+    # the DMA route's two products at full width, bf16, decode (4 rows)
+    # and a staging round (64 rows); against the plain version in fp32
+    # on the same values (2e-2 relative: bf16 rounding of the output)
+    w1, w2 = full_weights(g)
+    pair = None
+    for m in (4, 64):
+        x = torch.randn(m, D_MODEL, generator=g, device=dev).bfloat16()
+        h = torch.relu(torch.randn(m, D_FF, generator=g, device=dev)
+                       ).bfloat16()
+        rows = []
+        for role, a, b in (("producer", x, w1), ("consumer", h, w2)):
+            out = smm.sidebar_matmul(a, b)
+            torch.cuda.synchronize()
+            ref = smm.sidebar_matmul_plain(a.float(), b.float())
+            err, rel = rel_err(out, ref)
+            check(rel <= 2e-2, f"sidebar_matmul bf16 {role} m={m}: "
+                               f"rel {rel}")
+            k, n = b.shape
+            b_ms, b_by = bound(2 * (a.numel() + b.numel() + m * n),
+                               2 * m * k * n, torch.bfloat16)
+            row = {"phase": 1, "op": "sidebar_matmul", "dtype": "bfloat16",
+                   "role": role, "shape": [m, k, n],
+                   "k_range": smm.k_range(m, k, n, True),
+                   "max_abs_err": err, "max_rel_err": rel, "tol": 2e-2,
+                   "ms": cuda_ms(lambda: smm.sidebar_matmul(a, b)),
+                   "plain_ms": cuda_ms(
+                       lambda: smm.sidebar_matmul_plain(a, b)),
+                   "library_ms": cuda_ms(lambda: torch.matmul(a, b)),
+                   "bound_ms": b_ms, "bound_by": b_by}
+            emit(row)
+            rows.append(row)
+        if m == 4:
+            # one decode-step MLP's pair of products, summed
+            pair = {key: rows[0][key] + rows[1][key]
+                    for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+            pair["bound_by"] = rows[0]["bound_by"]
+            pair["max_abs_err"] = max(r["max_abs_err"] for r in rows)
+    del w1, w2
+    return pair
+
+
+def activation_ops(seed: int = 3) -> dict:
+    """activation: the FLEXIBLE_DMA host step, its own launch."""
+    from repro_torch.core.function_table import DEFAULT_TABLE
+    from repro_torch.kernels import activations as ak
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dev = "cuda"
+    worst = 0.0
+    # fp32 smoke shapes, every table entry (softmax and rmsnorm rowwise),
+    # ragged widths and a tensor of rank 3: 1e-4 relative
+    shapes = ((1, 1), (3, 7), (4, 256), (5, 1001), (2, 3, 4099))
+    for shape in shapes:
+        for act in DEFAULT_TABLE.names():
+            x = torch.randn(*shape, generator=g, device=dev) * 3
+            out = ak.activation(x, act)
+            torch.cuda.synchronize()
+            ref = ak.activation_plain(x, act)
+            _, rel = rel_err(out, ref)
+            check(out.shape == ref.shape and rel <= 1e-4,
+                  f"activation fp32 {shape} {act}: rel {rel}")
+            worst = max(worst, rel)
+    emit({"phase": 1, "op": "activation", "dtype": "float32",
+          "shapes": shapes, "max_rel_err": worst, "tol": 1e-4})
+    main = None
+    for m in (4, 64):
+        x = torch.randn(m, D_FF, generator=g, device=dev).bfloat16()
+        out = ak.activation_2d(x, "squared_relu")
+        torch.cuda.synchronize()
+        ref = ak.activation_plain(x, "squared_relu")
+        err, rel = rel_err(out, ref)
+        check(rel <= 2e-2, f"activation bf16 m={m}: rel {rel}")
+        b_ms, b_by = bound(2 * 2 * x.numel(), 2 * x.numel(), torch.float32)
+        row = {"phase": 1, "op": "activation", "dtype": "bfloat16",
+               "shape": [m, D_FF], "max_abs_err": err, "max_rel_err": rel,
+               "tol": 2e-2,
+               "ms": cuda_ms(lambda: ak.activation_2d(x, "squared_relu")),
+               "plain_ms": cuda_ms(
+                   lambda: ak.activation_plain(x, "squared_relu")),
+               "library_ms": cuda_ms(lambda: torch.square(torch.relu(x))),
+               "bound_ms": b_ms, "bound_by": b_by}
+        emit(row)
+        if m == 4:
+            main = row
+    return main
+
+
+def pipelined_ops(seed: int = 4) -> dict:
+    """sidebar_mlp_pipelined at depths 1-4: each against the plain
+    version, and bitwise equal across depths."""
+    from repro_torch.kernels import sidebar_mlp as sm
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dev = "cuda"
+    depths = (1, 2, 3, 4)
+    worst = 0.0
+    # fp32 smoke shapes: ragged rows, ragged F (a partial sub-tile),
+    # several F splits; 1e-4 relative
+    for m, d, f in ((1, 64, 256), (3, 64, 200), (4, 96, 1000),
+                    (64, 64, 320), (130, 64, 2048)):
+        for act in ("squared_relu", "relu", "gelu", "exp_decay"):
+            x = torch.randn(m, d, generator=g, device=dev)
+            w1 = torch.randn(d, f, generator=g, device=dev) / d ** 0.5
+            w2 = torch.randn(f, d, generator=g, device=dev) / f ** 0.5
+            ref = sm.sidebar_mlp_plain(x, w1, w2, act)
+            outs = [sm.sidebar_mlp_pipelined(x, w1, w2, act, depth=t)
+                    for t in depths]
+            torch.cuda.synchronize()
+            _, rel = rel_err(outs[0], ref)
+            check(rel <= 1e-4, f"pipelined fp32 m={m} f={f} {act}: "
+                               f"rel {rel}")
+            check(all(torch.equal(outs[0], o) for o in outs[1:]),
+                  f"pipelined fp32 m={m} f={f} {act}: depths differ")
+            worst = max(worst, rel)
+    emit({"phase": 1, "op": "sidebar_mlp_pipelined", "dtype": "float32",
+          "depths": depths, "max_rel_err": worst, "tol": 1e-4,
+          "bitwise_equal_across_depths": True})
+    w1, w2 = full_weights(g)
+    main = None
+    for m in (4, 64):
+        x = torch.randn(m, D_MODEL, generator=g, device=dev).bfloat16()
+        ref = sm.sidebar_mlp_plain(x.float(), w1.float(), w2.float(),
+                                   "squared_relu")
+        outs = [sm.sidebar_mlp_pipelined(x, w1, w2, "squared_relu",
+                                         depth=t) for t in depths]
+        torch.cuda.synchronize()
+        err, rel = rel_err(outs[0], ref)
+        check(rel <= 2e-2, f"pipelined bf16 m={m}: rel {rel}")
+        check(all(torch.equal(outs[0], o) for o in outs[1:]),
+              f"pipelined bf16 m={m}: depths differ")
+        per_depth = {t: cuda_ms(lambda t=t: sm.sidebar_mlp_pipelined(
+            x, w1, w2, "squared_relu", depth=t)) for t in depths}
+        nbytes = 2 * (x.numel() + w1.numel() + w2.numel() + m * D_MODEL)
+        b_ms, b_by = bound(nbytes, 2 * 2 * m * D_MODEL * D_FF,
+                           torch.bfloat16)
+        row = {"phase": 1, "op": "sidebar_mlp_pipelined",
+               "dtype": "bfloat16", "shape": [m, D_MODEL, D_FF],
+               "f_range": sm.f_range_pipelined(m, D_FF),
+               "smem_bytes": {t: sm.pipelined_smem_bytes(
+                   m, D_FF, t, torch.bfloat16) for t in depths},
+               "bitwise_equal_across_depths": True,
+               "max_abs_err": err, "max_rel_err": rel, "tol": 2e-2,
+               "ms_by_depth": per_depth, "ms": per_depth[2],
+               "plain_ms": cuda_ms(lambda: sm.sidebar_mlp_plain(
+                   x, w1, w2, "squared_relu")),
+               "library_ms": cuda_ms(
+                   lambda: (torch.relu(x @ w1) ** 2).to(torch.bfloat16)
+                   @ w2),
+               "bound_ms": b_ms, "bound_by": b_by}
+        emit(row)
+        if m == 4:
+            main = row
+    del w1, w2
+    return main
+
+
 # ---------------------------------------------------------------------------
-# Phases 2-4: serving
+# Phases 2-5: serving
 # ---------------------------------------------------------------------------
 
 
@@ -274,13 +477,45 @@ def traffic(seed: int, n: int, vocab: int, *, shared: int, lo: int, hi: int):
     return out
 
 
-def serve(cfg, params, prompts, gen: int, *, phase: int, **kw) -> dict:
-    """Drive the paged server once with fresh launch counts; returns the
-    finished requests, stats and counts."""
+def layer_plan(plan, layer: int):
+    """The ``LayerPlan`` that ``plan`` (any spelling) gives ``layer``."""
+    from repro_torch.core.modes import ExecutionPlan, coerce_layer_plan
+
+    return (plan.for_layer(layer) if isinstance(plan, ExecutionPlan)
+            else coerce_layer_plan(plan))
+
+
+def expected_launches(plan, layers: int, decode: int, prefill: int) -> dict:
+    """Launches each kernel must count in a drain under ``plan``: per
+    layer and forward call, one MLP launch of the plan's route (two
+    products and one activation on the FLEXIBLE_DMA route), and per
+    layer and decode call one paged_gqa launch unless the layer is
+    FLEXIBLE_DMA (gathered-view attention, no kernel)."""
+    from repro_torch.core.modes import ExecutionMode as M
+
+    calls = decode + prefill
+    want = dict.fromkeys(KERNELS, 0)
+    for i in range(layers):
+        lp = layer_plan(plan, i)
+        if lp.mode is M.FLEXIBLE_DMA:
+            want["sidebar_matmul"] += 2 * calls
+            want["activation"] += calls
+            continue
+        mlp = ("sidebar_mlp_pipelined" if lp.mode is M.SIDEBAR_PIPELINED
+               else "sidebar_mlp")
+        want[mlp] += calls
+        want["paged_gqa"] += decode
+    return want
+
+
+def serve(cfg, params, prompts, gen: int, *, phase: int, mode: str,
+          plan=None, **kw) -> tuple[dict, list]:
+    """Drive the paged server once under ``plan`` with fresh launch
+    counts; returns its JSON row and the generated tokens by rid."""
     from repro_torch.kernels import ops as kops
     from repro_torch.launch.scheduler import PagedContinuousBatchingServer
 
-    srv = PagedContinuousBatchingServer(cfg, params, **kw)
+    srv = PagedContinuousBatchingServer(cfg, params, plan=plan, **kw)
     calls = {"decode": 0, "prefill": 0}
     step, pre = srv._serve_step, srv._prefill_step
 
@@ -308,8 +543,10 @@ def serve(cfg, params, prompts, gen: int, *, phase: int, **kw) -> dict:
     n_tok = sum(r.generated for r in done)
     toks = np.concatenate([r.tokens for r in done])
     st = srv.stats
+    L = cfg.num_layers
+    want = expected_launches(srv.plan, L, calls["decode"], calls["prefill"])
     row = {
-        "phase": phase, "arch": cfg.arch_id, "layers": cfg.num_layers,
+        "phase": phase, "mode": mode, "arch": cfg.arch_id, "layers": L,
         "kv_cache_dtype": str(cfg.kv_cache_dtype).replace("torch.", ""),
         "requests": len(prompts), "finished": len(done),
         "generated": n_tok, "wall_s": wall, "tokens_per_s": n_tok / wall,
@@ -318,29 +555,32 @@ def serve(cfg, params, prompts, gen: int, *, phase: int, **kw) -> dict:
         "prefix_block_hits": st.prefix_block_hits,
         "prefix_prompt_blocks": st.prefix_prompt_blocks,
         "decode_calls": calls["decode"], "prefill_calls": calls["prefill"],
-        "launches": counts,
+        "launches": counts, "expected_launches": want,
         "gather_blocks": sum(r.op == "gather_blocks" for r in recs),
         "scatter_blocks": sum(r.op == "scatter_blocks" for r in recs),
     }
     emit(row)
-    L = cfg.num_layers
     check(len(done) == len(prompts) and all(r.generated == gen
                                             for r in done),
-          f"phase {phase}: not every request finished")
+          f"phase {phase} {mode}: not every request finished")
     check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
-          f"phase {phase}: token out of vocab")
-    check(st.prefix_block_hits > 0, f"phase {phase}: no prefix hits")
-    check(counts["paged_gqa"] == L * calls["decode"],
-          f"phase {phase}: paged_gqa launches {counts['paged_gqa']} != "
-          f"{L} x {calls['decode']}")
-    check(counts["sidebar_mlp"] == L * (calls["decode"] + calls["prefill"]),
-          f"phase {phase}: sidebar_mlp launches {counts['sidebar_mlp']}")
+          f"phase {phase} {mode}: token out of vocab")
+    check(st.prefix_block_hits > 0, f"phase {phase} {mode}: no prefix hits")
+    check(counts == want, f"phase {phase} {mode}: launches {counts} != "
+                          f"expected {want}")
     check("gather_blocks" not in ops and "scatter_blocks" not in ops,
-          f"phase {phase}: the paged route gathered or scattered blocks")
-    return row
+          f"phase {phase} {mode}: the paged route gathered or scattered "
+          "blocks")
+    attn = [r for r in recs if r.op == "paged_attention"]
+    dma_layers = {i for i in range(L) if layer_plan(srv.plan, i).mode
+                  is kops.ExecutionMode.FLEXIBLE_DMA}
+    check(bool(attn) and all((r.variant == "dma") == (r.layer in dma_layers)
+                             for r in attn),
+          f"phase {phase} {mode}: decode attention off its planned route")
+    return row, [r.tokens for r in done]
 
 
-def full_width(phase: int, *, int8: bool, layers: int | None) -> dict:
+def full_width_params(layers: int | None, *, int8: bool = False):
     from repro_torch import configs
     from repro_torch.models import transformer
 
@@ -353,68 +593,146 @@ def full_width(phase: int, *, int8: bool, layers: int | None) -> dict:
     t0 = time.perf_counter()
     params = transformer.init(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
+    return cfg, params, time.perf_counter() - t0
+
+
+FULL_SERVER = dict(device="cuda", num_slots=4, block_size=16, max_len=1024,
+                   segment=8, kernel="paged")
+
+
+def full_width(phase: int, cfg, params, init_s: float) -> tuple[dict, list]:
     prompts = traffic(phase, 8, cfg.vocab_size, shared=128, lo=32, hi=256)
-    row = serve(cfg, params, prompts, 32, phase=phase, device="cuda",
-                num_slots=4, block_size=16, max_len=1024, segment=8,
-                kernel="paged")
+    row, tokens = serve(cfg, params, prompts, 32, phase=phase,
+                        mode="sidebar", **FULL_SERVER)
     emit({"phase": phase, "init_s": init_s,
-          "depth_cut": layers is not None,
+          "depth_cut": cfg.num_layers != 32,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
-    del params
-    torch.cuda.empty_cache()
-    return row
+    return row, tokens
 
 
-def paged_vs_slab() -> None:
-    """fp32 smoke config on the card: the paged route (kernel) and the
-    slab route (gather + dense plain attention) on the same traffic,
-    compared step by step by their logits while their tokens agree."""
-    from repro_torch import configs
+def plan_modes(cfg, params, sidebar_tokens: list) -> dict:
+    """Phase 5: phase 2's weights and traffic under the paper's execution
+    modes. The drains run in the order S P L D D L P S, so every mode has
+    one early and one late run (host-side time drifts between drains);
+    each run's exact launch counts are checked. Greedy tokens equal to
+    phase 2's SIDEBAR run are counted and reported (bf16 routes round
+    differently: not gated)."""
+    from repro_torch.core.modes import ExecutionMode, ExecutionPlan, LayerPlan
+
+    d2 = LayerPlan(ExecutionMode.SIDEBAR_PIPELINED, 2)
+    d4 = LayerPlan(ExecutionMode.SIDEBAR_PIPELINED, 4)
+    plans = {
+        "sidebar": None,
+        "sidebar_pipelined_d2": d2,
+        "per_layer_d2_d4": ExecutionPlan(
+            default=d2,
+            layers={i: (d4 if i % 2 else d2)
+                    for i in range(cfg.num_layers)}),
+        "flexible_dma": ExecutionMode.FLEXIBLE_DMA,
+    }
+    prompts = traffic(2, 8, cfg.vocab_size, shared=128, lo=32, hi=256)
+    n = sum(t.size for t in sidebar_tokens)
+    runs = {mode: [] for mode in plans}
+    for mode in [*plans, *reversed(plans)]:
+        row, tokens = serve(cfg, params, prompts, 32, phase=5, mode=mode,
+                            plan=plans[mode], **FULL_SERVER)
+        same = sum(int((a == b).sum())
+                   for a, b in zip(tokens, sidebar_tokens))
+        runs[mode].append((row, same))
+    for mode, rr in runs.items():
+        tps = [r["tokens_per_s"] for r, _ in rr]
+        emit({"phase": 5, "mode": mode, "tokens_per_s": tps,
+              "tokens_per_s_mean": sum(tps) / len(tps),
+              "ttft_s_median": [r["ttft_s_median"] for r, _ in rr],
+              "launches": rr[0][0]["launches"],
+              "greedy_tokens_equal_to_sidebar": [same for _, same in rr],
+              "of": n})
+    emit({"phase": 5, "summary": "tokens_per_s by execution mode",
+          "layers": cfg.num_layers, "order": "S P L D D L P S",
+          "tokens_per_s_mean": {
+              m: sum(r["tokens_per_s"] for r, _ in rr) / len(rr)
+              for m, rr in runs.items()},
+          "tokens_per_s_runs": {
+              m: [r["tokens_per_s"] for r, _ in rr]
+              for m, rr in runs.items()}})
+    # the first run of each mode other than SIDEBAR (phase 2 is its row)
+    return {mode: rr[0][0] for mode, rr in runs.items() if mode != "sidebar"}
+
+
+def _capture(cfg, params, prompts, gen: int, **kw) -> tuple[list, list]:
+    """Serve ``prompts`` recording every decode step's logits; returns
+    (logits per step, tokens per request)."""
     from repro_torch.launch.scheduler import PagedContinuousBatchingServer
     from repro_torch.models import layers as L
+
+    srv = PagedContinuousBatchingServer(cfg, params, device="cuda",
+                                        num_slots=3, max_len=64,
+                                        block_size=8, segment=4, **kw)
+    seen = []
+
+    def step(p, tok, cache, pos, block_tables=None):
+        logits, cache = srv.api.decode_step(p, cfg, tok, cache, pos,
+                                            block_tables=block_tables)
+        logits = L.mask_pad_logits(logits, cfg.vocab_size)[:, -1]
+        seen.append(logits.clone())
+        return torch.argmax(logits, -1).to(torch.int32)[:, None], cache
+
+    srv._serve_step = step
+    for p in prompts:
+        srv.submit(p, gen)
+    return seen, [r.tokens for r in srv.run()]
+
+
+def smoke_routes() -> None:
+    """Phase 4, fp32 smoke config on the card: the paged route (kernel)
+    against the slab route (gather + dense plain attention), and the
+    pipelined, DMA and a mixed per-layer plan against SIDEBAR, on the
+    same traffic, compared step by step by their logits while their
+    tokens agree. fp32 end to end: the routes differ only in summation
+    order, 1e-4."""
+    from repro_torch import configs
+    from repro_torch.core.modes import ExecutionMode, ExecutionPlan, LayerPlan
+    from repro_torch.kernels import ops as kops
     from repro_torch.models import transformer
 
     cfg = dataclasses.replace(configs.get_smoke_config("nemotron-4-15b"),
                               use_pallas=True)
     params = transformer.init(cfg, seed=0, device="cuda")
     prompts = traffic(4, 6, cfg.vocab_size, shared=16, lo=4, hi=30)
-    logs = {}
-    for kernel in ("paged", "slab"):
-        srv = PagedContinuousBatchingServer(
-            cfg, params, device="cuda", num_slots=3, max_len=64,
-            block_size=8, segment=4, kernel=kernel)
-        seen = []
-
-        def step(p, tok, cache, pos, block_tables=None, srv=srv, seen=seen):
-            logits, cache = srv.api.decode_step(p, cfg, tok, cache, pos,
-                                                block_tables=block_tables)
-            logits = L.mask_pad_logits(logits, cfg.vocab_size)[:, -1]
-            seen.append(logits.clone())
-            return torch.argmax(logits, -1).to(torch.int32)[:, None], cache
-
-        srv._serve_step = step
-        for p in prompts:
-            srv.submit(p, 12)
-        done = srv.run()
-        logs[kernel] = (seen, [r.tokens for r in done])
-    (la, ta), (lb, tb) = logs["paged"], logs["slab"]
-    same = all(np.array_equal(a, b) for a, b in zip(ta, tb))
-    err = max((a - b).abs().max().item() for a, b in zip(la, lb)) \
-        if same else float("nan")
-    emit({"phase": 4, "tokens_equal": same, "steps": len(la),
-          "max_abs_logit_err": err, "tol": 1e-4})
-    # fp32 end to end: the two routes differ only in summation order
-    check(same and len(la) == len(lb) and err <= 1e-4,
-          "phase 4: paged route disagrees with the slab route")
+    la, ta = _capture(cfg, params, prompts, 12, kernel="paged")
+    mixed = ExecutionPlan(
+        default=LayerPlan(ExecutionMode.SIDEBAR, 1),
+        layers={0: LayerPlan(ExecutionMode.FLEXIBLE_DMA, 1),
+                1: LayerPlan(ExecutionMode.SIDEBAR_PIPELINED, 3)})
+    for name, kw in (("slab", dict(kernel="slab")),
+                     ("sidebar_pipelined_d2", dict(
+                         plan=LayerPlan(ExecutionMode.SIDEBAR_PIPELINED, 2))),
+                     ("flexible_dma", dict(plan=ExecutionMode.FLEXIBLE_DMA)),
+                     ("mixed_dma_pipelined_d3", dict(plan=mixed))):
+        kops.reset_launch_counts()
+        lb, tb = _capture(cfg, params, prompts, 12, **kw)
+        counts = kops.launch_counts()
+        same = all(np.array_equal(a, b) for a, b in zip(ta, tb))
+        err = max((a - b).abs().max().item() for a, b in zip(la, lb)) \
+            if same and len(la) == len(lb) else float("nan")
+        emit({"phase": 4, "against": "paged sidebar", "route": name,
+              "tokens_equal": same, "steps": len(lb),
+              "max_abs_logit_err": err, "tol": 1e-4, "launches": counts})
+        check(same and len(la) == len(lb) and err <= 1e-4,
+              f"phase 4: {name} disagrees with the paged SIDEBAR route")
+        if name != "slab":
+            mlp = [k for k in KERNELS if k not in ("sidebar_mlp",
+                                                   "paged_gqa")]
+            check(any(counts[k] for k in mlp),
+                  f"phase 4: {name} launched none of {mlp}")
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="0,1,2,3,4",
+    ap.add_argument("--phases", default="0,1,2,3,4,5",
                     help="comma-separated subset of phases to run")
     ap.add_argument("--layers", type=int, default=None,
-                    help="cut the depth of the full-width phase 2")
+                    help="cut the depth of the full-width phases 2 and 5")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
     if not torch.cuda.is_available():
@@ -437,26 +755,56 @@ def main() -> None:
           "device": torch.cuda.get_device_name(0)})
     rows = {}
     if 1 in phases:
-        rows["mlp"] = mlp_ops()
-        rows["paged"] = paged_ops()
-    served = None
-    if 2 in phases:
-        served = full_width(2, int8=False, layers=args.layers)
+        rows["sidebar_mlp"] = mlp_ops()
+        rows["paged_gqa"] = paged_ops()
+        rows["sidebar_mlp_pipelined"] = pipelined_ops()
+        rows["sidebar_matmul"] = matmul_ops()
+        rows["activation"] = activation_ops()
+    served = {}
+    if phases & {2, 5}:
+        cfg, params, init_s = full_width_params(args.layers)
+        row, tokens = full_width(2, cfg, params, init_s)
+        served["sidebar"] = row
+        if 5 in phases:
+            served.update(plan_modes(cfg, params, tokens))
+        del params
+        torch.cuda.empty_cache()
     if 3 in phases:
-        full_width(3, int8=True, layers=4)
+        cfg, params, init_s = full_width_params(4, int8=True)
+        full_width(3, cfg, params, init_s)
+        del params
+        torch.cuda.empty_cache()
     if 4 in phases:
-        paged_vs_slab()
-    if served is not None and rows:
+        smoke_routes()
+    if len(served) == 4 and len(rows) == len(KERNELS):
+        # launches: the drain of the main path (phase 2) or of the mode
+        # (phase 5) that runs the kernel
+        run_of = {"sidebar_mlp": "sidebar", "paged_gqa": "sidebar",
+                  "sidebar_mlp_pipelined": "sidebar_pipelined_d2",
+                  "sidebar_matmul": "flexible_dma",
+                  "activation": "flexible_dma"}
+        sources = {
+            "sidebar_mlp": ("sidebar_mlp.cu",
+                            "src/repro/kernels/sidebar_mlp.py:171"),
+            "paged_gqa": ("paged_gqa.cu",
+                          "src/repro/kernels/paged_attention.py:218"),
+            "sidebar_mlp_pipelined": (
+                "sidebar_mlp_pipelined.cu",
+                "src/repro/kernels/sidebar_mlp.py:227"),
+            "sidebar_matmul": ("sidebar_matmul.cu",
+                               "src/repro/kernels/sidebar_matmul.py:71"),
+            "activation": ("activation.cu",
+                           "src/repro/kernels/activations.py:127"),
+        }
         kernels = []
-        for name, key, source, replaces in (
-                ("sidebar_mlp", "mlp", "src/repro_torch/csrc/sidebar_mlp.cu",
-                 "src/repro/kernels/sidebar_mlp.py:171"),
-                ("paged_gqa", "paged", "src/repro_torch/csrc/paged_gqa.cu",
-                 "src/repro/kernels/paged_attention.py:218")):
-            r = rows[key]
+        for name in KERNELS:
+            r = rows[name]
+            src, replaces = sources[name]
             kernels.append({
-                "name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": served["launches"][name],
+                "name": name, "route": "cuda",
+                "source": f"src/repro_torch/csrc/{src}",
+                "replaces": replaces,
+                "launches": served[run_of[name]]["launches"][name],
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": r["library_ms"]})

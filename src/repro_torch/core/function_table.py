@@ -1,12 +1,14 @@
 """The host function table (paper §3.3), as torch callables.
 
 Mirror of ``repro.core.function_table``: the same 15 names and
-``rowwise`` flags as its ``make_default_table``. Each elementwise entry
-also carries ``device_id``, the compile-time id of its ``__device__``
-counterpart in the fused Sidebar MLP kernel (``csrc/sidebar_mlp.cu``,
-``apply_activation``). An entry without one (the rowwise ``softmax`` and
-``rmsnorm``, or a function registered at run time) can serve the plain
-versions but not the kernel, whose wrapper raises for it.
+``rowwise`` flags as its ``make_default_table``. Each default entry also
+carries ``device_id``, the compile-time id of its kernel-side
+counterpart (``csrc/activation.cuh``): elementwise entries are applied
+by ``apply_activation``, which every kernel takes; the rowwise
+``softmax`` and ``rmsnorm`` are taken only by the standalone activation
+kernel (``csrc/activation.cu``), and the fused kernels' wrappers reject
+rowwise entries. An entry without an id (a function registered at run
+time) serves the plain versions but no kernel, whose wrapper raises.
 """
 
 from __future__ import annotations
@@ -127,8 +129,9 @@ def _exp_decay(x: Tensor) -> Tensor:
     return torch.exp(-torch.exp(x.float())).to(x.dtype)
 
 
-# name -> (fn, rowwise, device id). The ids are the ``case`` labels of
-# ``apply_activation`` in csrc/sidebar_mlp.cu: keep the two in step.
+# name -> (fn, rowwise, device id). The ids are those of
+# csrc/activation.cuh (``apply_activation``'s ``case`` labels, and
+# ``kSoftmax``/``kRmsnorm``): keep the two in step.
 _DEFAULTS = (
     ("identity", lambda x: x, False, 0),
     ("heaviside", _heaviside, False, 1),
@@ -142,8 +145,8 @@ _DEFAULTS = (
     ("silu", _silu, False, 9),
     ("gelu", _gelu, False, 10),
     ("abs", torch.abs, False, 11),
-    ("softmax", _softmax, True, None),
-    ("rmsnorm", _rmsnorm, True, None),
+    ("softmax", _softmax, True, 13),
+    ("rmsnorm", _rmsnorm, True, 14),
     ("exp_decay", _exp_decay, False, 12),
 )
 

@@ -1,18 +1,19 @@
 """Execution modes and plans (mirror of ``repro.core.modes``).
 
 ``LayerPlan``/``ExecutionPlan`` carry the deployment choice per layer;
-``kernels.ops`` resolves them at call time. The port serves ``SIDEBAR``
-(the fused kernel with the intermediate on chip) and ``MONOLITHIC``
-(which routes the same way). ``SIDEBAR_PIPELINED`` and ``FLEXIBLE_DMA``
-need kernels that are still to be ported; ``require_served`` rejects
-them.
+``kernels.ops`` resolves them at call time. Every mode is served:
+``SIDEBAR`` and ``MONOLITHIC`` take the fused serial kernel,
+``SIDEBAR_PIPELINED`` the T-deep ring kernel at the plan's depth, and
+``FLEXIBLE_DMA`` the unfused three-launch route (producer product,
+standalone activation, consumer product) with gathered-view decode
+attention.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import enum
-from typing import Mapping
+from typing import Mapping, Sequence
 
 
 class ExecutionMode(enum.Enum):
@@ -20,15 +21,6 @@ class ExecutionMode(enum.Enum):
     FLEXIBLE_DMA = "flexible_dma"
     SIDEBAR = "sidebar"
     SIDEBAR_PIPELINED = "sidebar_pipelined"
-
-
-# mode -> the ROADMAP.md item (Queue 2) that ports its kernels
-_UNPORTED = {
-    ExecutionMode.SIDEBAR_PIPELINED:
-        "ROADMAP Queue 2 item 5 (sidebar_mlp_pipelined)",
-    ExecutionMode.FLEXIBLE_DMA:
-        "ROADMAP Queue 2 items 7-8 (sidebar_matmul, activation)",
-}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,6 +46,27 @@ class ExecutionPlan:
     layers: Mapping[str | int, LayerPlan] = dataclasses.field(
         default_factory=dict)
 
+    @classmethod
+    def uniform(cls, mode: ExecutionMode | str, depth: int = 2,
+                fuse: bool = True) -> "ExecutionPlan":
+        if isinstance(mode, str):
+            mode = ExecutionMode(mode)
+        return cls(default=LayerPlan(mode, depth, fuse))
+
+    @classmethod
+    def by_index(cls, plans: Sequence[LayerPlan],
+                 default: LayerPlan | None = None) -> "ExecutionPlan":
+        """Plan for a model's layer stack: plans[i] applies to layer i;
+        the default is the most common plan unless given."""
+        if default is None:
+            if not plans:
+                raise ValueError("by_index needs at least one LayerPlan")
+            counts: dict[LayerPlan, int] = {}
+            for p in plans:
+                counts[p] = counts.get(p, 0) + 1
+            default = max(counts, key=counts.get)
+        return cls(default=default, layers=dict(enumerate(plans)))
+
     def for_layer(self, key: str | int | None) -> LayerPlan:
         if key is None:
             return self.default
@@ -65,8 +78,19 @@ class ExecutionPlan:
                 hit = self.layers.get(int(key))
         return hit if hit is not None else self.default
 
-    def all_plans(self) -> list[LayerPlan]:
-        return [self.default, *self.layers.values()]
+    @property
+    def is_uniform(self) -> bool:
+        """True when every per-layer entry equals the default."""
+        return all(lp == self.default for lp in self.layers.values())
+
+    def cache_key(self) -> tuple:
+        """Hashable fingerprint (``layers`` is a plain dict, so the
+        dataclass itself is not hashable)."""
+        return (
+            self.default,
+            tuple(sorted(((str(k), v) for k, v in self.layers.items()),
+                         key=lambda kv: kv[0])),
+        )
 
 
 def coerce_layer_plan(
@@ -86,15 +110,3 @@ def coerce_layer_plan(
     elif depth is not None and depth != plan.depth:
         plan = dataclasses.replace(plan, depth=depth)
     return plan
-
-
-def require_served(plan: "LayerPlan | ExecutionPlan") -> None:
-    """Raise ``NotImplementedError`` for a plan whose mode needs a kernel
-    the port does not have yet."""
-    plans = plan.all_plans() if isinstance(plan, ExecutionPlan) else [plan]
-    for lp in plans:
-        item = _UNPORTED.get(lp.mode)
-        if item is not None:
-            raise NotImplementedError(
-                f"execution mode {lp.mode.value!r} is not ported yet: "
-                f"see {item}")

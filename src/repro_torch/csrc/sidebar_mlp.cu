@@ -35,10 +35,12 @@
 // f(h) cast to W2's type, fp32 accumulation, output in x's type.
 // Ragged M, D, F and D2 are masked, so any shape works.
 
-#include "common.cuh"
+#include "activation.cuh"
+#include "stream.cuh"
 
 namespace {
 
+using repro::apply_activation;
 using repro::from_f;
 using repro::to_f;
 
@@ -48,102 +50,9 @@ constexpr int BK = 64;        // contraction chunk (one pipeline stage)
 constexpr int THREADS = 256;  // BN columns x 2 groups of 8 rows
 constexpr int ROWS = BM / (THREADS / BN);
 
-__device__ __forceinline__ float sigmoid_f(float x) {
-  return 1.f / (1.f + expf(-x));
-}
-
-// The function table's elementwise entries, by device id
-// (src/repro_torch/core/function_table.py, _DEFAULTS).
-__device__ __forceinline__ float apply_activation(int id, float x) {
-  switch (id) {
-    case 0: return x;                                  // identity
-    case 1: return x > 0.f ? 1.f : 0.f;                // heaviside
-    case 2: return fmaxf(x, 0.f);                      // relu
-    case 3: return x > 0.f ? x : 0.01f * x;            // leaky_relu
-    case 4: return x > 0.f ? x : expf(fminf(x, 0.f)) - 1.f;  // elu
-    case 5: return tanhf(x);                           // tanh
-    case 6: return sigmoid_f(x);                       // sigmoid
-    case 7: return fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));  // softplus
-    case 8: { float r = fmaxf(x, 0.f); return r * r; }       // squared_relu
-    case 9: return x * sigmoid_f(x);                   // silu
-    case 10: {                                         // gelu (tanh)
-      const float c = 0.7978845608028654f;
-      return 0.5f * x * (1.f + tanhf(c * (x + 0.044715f * x * x * x)));
-    }
-    case 11: return fabsf(x);                          // abs
-    case 12: return expf(-expf(x));                    // exp_decay
-    default: return x;
-  }
-}
-
-// One pipeline stage of a weight matrix: a (BK, BN) chunk, loaded by
-// every thread as 16-byte vectors where the rows allow it.
 template <typename T>
-struct Stage {
-  static constexpr int VEC = 16 / sizeof(T);         // elements per vector
-  static constexpr int PER = BK * BN / THREADS;      // elements per thread
-  static constexpr int NV = PER / VEC;               // vectors per thread
-  static constexpr int VPR = BN / VEC;               // vectors per row
-};
-
-// rows [k0, k0 + BK) x columns [n0, n0 + BN) of row-major ``w`` (leading
-// dimension ``ld``, K x N valid) into registers, zeros outside
-template <typename T>
-__device__ __forceinline__ void fetch(uint4* reg, const T* __restrict__ w,
-                                      size_t ld, int k0, int K, int n0,
-                                      int N, bool vec_ok, int tid) {
-  using S = Stage<T>;
-#pragma unroll
-  for (int i = 0; i < S::NV; ++i) {
-    const int v = tid + i * THREADS;
-    const int k = k0 + v / S::VPR, c = n0 + (v % S::VPR) * S::VEC;
-    if (vec_ok && k < K && c + S::VEC <= N) {
-      reg[i] = __ldg(reinterpret_cast<const uint4*>(w + (size_t)k * ld + c));
-    } else {  // ragged edge or unaligned rows: element by element
-      uint4 u;
-      T* e_out = reinterpret_cast<T*>(&u);
-#pragma unroll
-      for (int e = 0; e < S::VEC; ++e)
-        e_out[e] = (k < K && c + e < N) ? w[(size_t)k * ld + c + e]
-                                        : from_f<T>(0.f);
-      reg[i] = u;
-    }
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ void stash(T (*sb)[BN], const uint4* reg,
-                                      int tid) {
-  using S = Stage<T>;
-#pragma unroll
-  for (int i = 0; i < S::NV; ++i) {
-    const int v = tid + i * THREADS;
-    *reinterpret_cast<uint4*>(&sb[v / S::VPR][(v % S::VPR) * S::VEC]) =
-        reg[i];
-  }
-}
-
-// x rows [m0, m0 + BM) x columns [k0, k0 + BK), zeros outside
-template <typename T>
-__device__ __forceinline__ void fetch_x(float* xr, const T* __restrict__ x,
-                                        int m0, int M, int k0, int D,
-                                        int tid) {
-#pragma unroll
-  for (int j = 0; j < BM * BK / THREADS; ++j) {
-    const int i = tid + j * THREADS;
-    const int gr = m0 + i / BK, gk = k0 + i % BK;
-    xr[j] = (gr < M && gk < D) ? to_f(x[(size_t)gr * D + gk]) : 0.f;
-  }
-}
-
-__device__ __forceinline__ void stash_x(float (*sa)[BK], const float* xr,
-                                        int tid) {
-#pragma unroll
-  for (int j = 0; j < BM * BK / THREADS; ++j) {
-    const int i = tid + j * THREADS;
-    sa[i / BK][i % BK] = xr[j];
-  }
-}
+using W = repro::WeightChunk<T, BK, BN, THREADS>;
+using X = repro::RowPanel<BM, BK, THREADS>;
 
 // Both products stream their weight panel through a two-stage pipeline:
 // while the block multiplies the chunk in shared memory, each thread
@@ -169,8 +78,8 @@ sidebar_partial(const T* __restrict__ x, const T* __restrict__ w1,
   const int col = tid % BN;
   const int r0 = (tid / BN) * ROWS;
   const bool live = m0 + r0 < M;  // warp-uniform
-  uint4 reg[Stage<T>::NV];
-  float xr[BM * BK / THREADS];
+  uint4 reg[W<T>::NV];
+  float xr[X::PER];
   float acc[ROWS];
 
   // columns [flen, frange) of the Sidebar are read (as zeros) by the
@@ -184,10 +93,10 @@ sidebar_partial(const T* __restrict__ x, const T* __restrict__ w1,
   const T* w1p = w1 + f_begin;
   const int nk1 = (D + BK - 1) / BK;
   const int n1 = ((flen + BN - 1) / BN) * nk1;
-  fetch(reg, w1p, F, 0, D, 0, flen, vec1, tid);
-  fetch_x(xr, x, m0, M, 0, D, tid);
-  stash(sb, reg, tid);
-  stash_x(sa, xr, tid);
+  W<T>::fetch(reg, w1p, F, 0, D, 0, flen, vec1, tid);
+  X::fetch(xr, x, D, m0, M, 0, D, tid);
+  W<T>::stash(sb, reg, tid);
+  X::stash(sa, xr, tid);
   __syncthreads();
   for (int it = 0; it < n1; ++it) {
     const int kc = it % nk1, n0 = (it / nk1) * BN;
@@ -197,8 +106,9 @@ sidebar_partial(const T* __restrict__ x, const T* __restrict__ w1,
     }
     if (it + 1 < n1) {
       const int k1 = ((it + 1) % nk1) * BK;
-      fetch(reg, w1p, F, k1, D, ((it + 1) / nk1) * BN, flen, vec1, tid);
-      fetch_x(xr, x, m0, M, k1, D, tid);
+      W<T>::fetch(reg, w1p, F, k1, D, ((it + 1) / nk1) * BN, flen, vec1,
+                  tid);
+      X::fetch(xr, x, D, m0, M, k1, D, tid);
     }
     if (live) {
 #pragma unroll
@@ -216,8 +126,8 @@ sidebar_partial(const T* __restrict__ x, const T* __restrict__ w1,
     }
     __syncthreads();
     if (it + 1 < n1) {
-      stash(sb, reg, tid);
-      stash_x(sa, xr, tid);
+      W<T>::stash(sb, reg, tid);
+      X::stash(sa, xr, tid);
     }
     __syncthreads();
   }
@@ -227,8 +137,8 @@ sidebar_partial(const T* __restrict__ x, const T* __restrict__ w1,
   float* out = ws + (size_t)blockIdx.y * M * D2;
   const int nk2 = (flen + BK - 1) / BK;
   const int n2 = ((D2 + BN - 1) / BN) * nk2;
-  fetch(reg, w2p, D2, 0, flen, 0, D2, vec2, tid);
-  stash(sb, reg, tid);
+  W<T>::fetch(reg, w2p, D2, 0, flen, 0, D2, vec2, tid);
+  W<T>::stash(sb, reg, tid);
   __syncthreads();
   for (int it = 0; it < n2; ++it) {
     const int kc = it % nk2, n0 = (it / nk2) * BN, k0 = kc * BK;
@@ -237,8 +147,8 @@ sidebar_partial(const T* __restrict__ x, const T* __restrict__ w1,
       for (int r = 0; r < ROWS; ++r) acc[r] = 0.f;
     }
     if (it + 1 < n2)
-      fetch(reg, w2p, D2, ((it + 1) % nk2) * BK, flen,
-            ((it + 1) / nk2) * BN, D2, vec2, tid);
+      W<T>::fetch(reg, w2p, D2, ((it + 1) % nk2) * BK, flen,
+                  ((it + 1) / nk2) * BN, D2, vec2, tid);
     if (live) {
 #pragma unroll
       for (int k = 0; k < BK; ++k) {
@@ -257,19 +167,9 @@ sidebar_partial(const T* __restrict__ x, const T* __restrict__ w1,
       }
     }
     __syncthreads();
-    if (it + 1 < n2) stash(sb, reg, tid);
+    if (it + 1 < n2) W<T>::stash(sb, reg, tid);
     __syncthreads();
   }
-}
-
-template <typename T>
-__global__ void sidebar_reduce(const float* __restrict__ ws,
-                               T* __restrict__ y, size_t total, int nsplit) {
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  float s = 0.f;
-  for (int sp = 0; sp < nsplit; ++sp) s += ws[(size_t)sp * total + i];
-  y[i] = from_f<T>(s);
 }
 
 template <typename T>
@@ -295,12 +195,9 @@ int launch(const void* x, const void* w1, const void* w2, void* y, void* ws,
       frange, act, vec1, vec2);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const size_t total = (size_t)M * D2;
-  const int threads = 256;
-  sidebar_reduce<T><<<(unsigned)((total + threads - 1) / threads), threads, 0,
-                      stream>>>(static_cast<const float*>(ws),
-                                static_cast<T*>(y), total, nsplit);
-  return cudaGetLastError();
+  return repro::launch_split_reduce(static_cast<const float*>(ws),
+                                    static_cast<T*>(y), (size_t)M * D2,
+                                    nsplit, stream);
 }
 
 }  // namespace

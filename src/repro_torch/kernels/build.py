@@ -28,6 +28,9 @@ BUILD_DIR = _PKG.parents[1] / "build" / "kernels"
 SOURCES = {
     "sidebar_mlp": "sidebar_mlp.cu",
     "paged_gqa": "paged_gqa.cu",
+    "sidebar_mlp_pipelined": "sidebar_mlp_pipelined.cu",
+    "sidebar_matmul": "sidebar_matmul.cu",
+    "activation": "activation.cu",
 }
 
 NVCC_FLAGS = (

@@ -1,13 +1,22 @@
 """Public entry points of the port's kernels (mirror of
 ``repro.kernels.ops``: the ambient execution plan, ``layer_scope``,
-``record_dispatches`` and the ``sidebar_mlp`` / ``paged_attention_gqa``
-ops).
+``record_dispatches`` and the ``sidebar_mlp`` / ``sidebar_matmul`` /
+``host_activation`` / ``paged_attention_gqa`` ops).
 
 Each op resolves the ambient plan for the current layer, records its
-dispatch, and calls the kernel wrapper — which launches the Hopper
-kernel for a CUDA tensor and takes the plain version for a CPU tensor.
-Only ``SIDEBAR`` and ``MONOLITHIC`` plans are served; the others raise
-``NotImplementedError`` until their kernels are ported.
+dispatch, and calls the kernel wrapper for that plan's route — which
+launches the Hopper kernel for a CUDA tensor and takes the plain version
+for a CPU tensor. Every ``ExecutionMode`` is served:
+
+  * ``SIDEBAR`` / ``MONOLITHIC``: the fused serial MLP kernel and the
+    paged decode kernel;
+  * ``SIDEBAR_PIPELINED``: the T-deep ring MLP kernel at the plan's
+    depth, and the paged decode kernel;
+  * ``FLEXIBLE_DMA``: the unfused MLP (producer ``sidebar_matmul``,
+    standalone ``host_activation`` with its input and output in HBM,
+    consumer ``sidebar_matmul``) and the gather route for decode
+    attention — that mode's semantics on every device, as in the JAX
+    package.
 """
 
 from __future__ import annotations
@@ -25,11 +34,21 @@ from repro_torch.core.modes import (
     ExecutionPlan,
     LayerPlan,
     coerce_layer_plan,
-    require_served,
 )
 from repro_torch.kernels import build
-from repro_torch.kernels.paged_attention import paged_gqa
+
+# The ops ``sidebar_matmul`` (the single static primitive c = f(a @ b))
+# and ``host_activation`` (the FLEXIBLE_DMA host step: its own launch,
+# input and output in HBM) need no plan of their own: they are the
+# kernel wrappers themselves, which take the plain version for a CPU
+# tensor.
+from repro_torch.kernels.activations import activation as host_activation
+from repro_torch.kernels.paged_attention import paged_gqa, paged_gqa_reference
+from repro_torch.kernels.sidebar_matmul import sidebar_matmul
 from repro_torch.kernels.sidebar_mlp import sidebar_mlp as _mlp_kernel
+from repro_torch.kernels.sidebar_mlp import (
+    sidebar_mlp_pipelined as _mlp_kernel_pipelined,
+)
 
 Tensor = torch.Tensor
 
@@ -102,7 +121,8 @@ class PlanDispatch:
     layer: str | int | None       # ambient layer_scope key
     mode: ExecutionMode
     depth: int
-    variant: str                  # "serial" | "paged" | "ref" | "dma"
+    variant: str                  # "serial" | "pipelined" | "paged" |
+                                  # "dma" | "ref"
     used_kernel: bool             # the CUDA kernel was launched
 
 
@@ -147,12 +167,6 @@ def reset_launch_counts() -> None:
 # -- ops -----------------------------------------------------------------------
 
 
-def _served_plan() -> LayerPlan:
-    plan = current_plan()
-    require_served(plan)
-    return plan
-
-
 def sidebar_mlp(
     x: Tensor,
     w1: Tensor,
@@ -161,11 +175,27 @@ def sidebar_mlp(
     *,
     table: FunctionTable = DEFAULT_TABLE,
 ) -> Tensor:
-    """y = f(x @ w1) @ w2 through the fused serial Sidebar kernel (the
-    SIDEBAR / MONOLITHIC route)."""
-    plan = _served_plan()
-    _record("sidebar_mlp", plan.mode, plan.depth,
-            "serial" if x.is_cuda else "ref", x.is_cuda)
+    """y = f(x @ w1) @ w2 by the ambient plan's route for this layer:
+    SIDEBAR_PIPELINED => the ring kernel at the plan's depth,
+    FLEXIBLE_DMA => the unfused three-launch route, SIDEBAR / MONOLITHIC
+    => the serial fused kernel. All routes compute the same function.
+    On a CPU tensor the kernel routes record variant "ref" (the plain
+    version ran); the DMA route records "dma" on every device."""
+    plan = current_plan()
+    if plan.mode is ExecutionMode.FLEXIBLE_DMA:
+        _record("sidebar_mlp", plan.mode, 1, "dma", x.is_cuda)
+        # rounding points of the JAX route: h and f(h) in x's type
+        h = sidebar_matmul(x, w1, "identity", table=table)
+        h = host_activation(h.to(x.dtype), activation, table=table)
+        return sidebar_matmul(h.to(x.dtype), w2, "identity", table=table)
+    if plan.mode is ExecutionMode.SIDEBAR_PIPELINED:
+        _record("sidebar_mlp", plan.mode, plan.depth,
+                "pipelined" if x.is_cuda else "ref", x.is_cuda)
+        return _mlp_kernel_pipelined(x, w1, w2, activation, table=table,
+                                     depth=plan.depth)
+    # the serial kernel has no ring: depth 1, as the JAX op records it
+    _record("sidebar_mlp", plan.mode, 1, "serial" if x.is_cuda else "ref",
+            x.is_cuda)
     return _mlp_kernel(x, w1, w2, activation, table=table)
 
 
@@ -181,10 +211,16 @@ def paged_attention_gqa(
     v_scale: Tensor | None = None,
     compute_dtype: torch.dtype | None = None,
 ) -> Tensor:
-    """Paged GQA decode attention, in place on the block pool."""
-    plan = _served_plan()
+    """Paged GQA decode attention: in place on the block pool, or — for
+    a layer planned FLEXIBLE_DMA — through the gathered dense view
+    (recorded as variant "dma")."""
+    plan = current_plan()
+    kw = dict(scale=scale, k_scale=k_scale, v_scale=v_scale,
+              compute_dtype=compute_dtype)
+    if plan.mode is ExecutionMode.FLEXIBLE_DMA:
+        _record("paged_attention", plan.mode, plan.depth, "dma", False)
+        return paged_gqa_reference(q, k_pool, v_pool, block_tables,
+                                   lengths, **kw)
     _record("paged_attention", plan.mode, plan.depth,
             "paged" if q.is_cuda else "ref", q.is_cuda)
-    return paged_gqa(q, k_pool, v_pool, block_tables, lengths, scale=scale,
-                     k_scale=k_scale, v_scale=v_scale,
-                     compute_dtype=compute_dtype)
+    return paged_gqa(q, k_pool, v_pool, block_tables, lengths, **kw)

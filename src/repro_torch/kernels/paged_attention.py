@@ -9,6 +9,10 @@ logits are -1e30, which underflow to exactly 0.0 in fp32, so junk behind
 the mask and the width of the table change no sum. The kernel
 accumulates online instead and matches it to fp32 tolerance.
 
+``paged_gqa_reference`` is also the FLEXIBLE_DMA route, on every device:
+the dense view's round trip through HBM is that mode's memory
+discipline (the JAX package serves both routes with one function too).
+
 Tables must be validated in-bounds host-side before every call
 (``launch.kvpool.validate_tables``): the gathers index without a check
 and the kernel's table-indexed loads have none either.
@@ -21,11 +25,9 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import dot, softmax
+from repro_torch.kernels.ref import attend_direct_offset
 
 Tensor = torch.Tensor
-
-NEG_INF = -1e30
 
 _QTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KVTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -57,11 +59,10 @@ def paged_gqa_reference(
     v_scale: Tensor | None = None,
     compute_dtype: torch.dtype | None = None,
 ) -> Tensor:
-    """``models.attention._attend_direct_offset`` at s=1, fed by the
-    table gather (mirror of the jnp ``paged_gqa_reference``)."""
-    b, h, dh = q.shape
-    hkv = k_pool.shape[1]
-    group = h // hkv
+    """The table's blocks gathered into a dense (B, Hkv, nb*bs, Dh) view,
+    then ``attend_direct_offset`` with the row's query at position
+    length - 1 (mirror of the jnp ``paged_gqa_reference``)."""
+    h = q.shape[1]
     dt = compute_dtype if compute_dtype is not None else q.dtype
     k = gather_kv(k_pool, tables)
     v = gather_kv(v_pool, tables)
@@ -70,16 +71,10 @@ def paged_gqa_reference(
         v = (v.float() * gather_scale(v_scale, tables)[..., None]).to(dt)
     else:
         k, v = k.to(dt), v.to(dt)
-    t = k.shape[2]
-    qg = q.reshape(b, hkv, group, 1, dh)
-    logits = dot(qg, k.unsqueeze(2).transpose(-1, -2)) * scale
-    mask = (torch.arange(t, device=q.device)[None, :]
-            <= (lengths.to(q.device) - 1)[:, None])      # (B, t)
-    logits = torch.where(mask[:, None, None, None, :], logits,
-                         torch.full((), NEG_INF, device=q.device))
-    p = softmax(logits)
-    out = dot(p.to(v.dtype), v.unsqueeze(2))             # (B,Hkv,G,1,Dh)
-    return out.reshape(b, h, dh).to(q.dtype)
+    pos = lengths.to(device=q.device, dtype=torch.int64) - 1
+    out = attend_direct_offset(q[:, :, None, :], k, v, h // k.shape[1],
+                               scale, True, pos)
+    return out[:, :, 0, :]
 
 
 def paged_gqa(

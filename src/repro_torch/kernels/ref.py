@@ -21,6 +21,8 @@ from repro_torch.core.function_table import DEFAULT_TABLE, FunctionTable
 
 Tensor = torch.Tensor
 
+NEG_INF = -1e30
+
 
 def dot(a: Tensor, b: Tensor, out_dtype: torch.dtype = torch.float32
         ) -> Tensor:
@@ -53,6 +55,36 @@ def softmax(x: Tensor) -> Tensor:
     return e / row_sum(e)
 
 
+def rowwise_pos(pos) -> bool:
+    """True when ``cache_pos`` is a per-row ``(B,)`` vector."""
+    return isinstance(pos, Tensor) and pos.ndim == 1
+
+
+def attend_direct_offset(q: Tensor, k: Tensor, v: Tensor, group: int,
+                         scale: float, causal: bool, offset) -> Tensor:
+    """q (B, H, S, Dh) against k/v (B, Hkv, T, Dh); ``offset`` is the
+    global position of query row 0, scalar or per-row (B,). Masked
+    logits are -1e30, which underflow to exactly 0.0 in fp32."""
+    b, h, s, dh = q.shape
+    t = k.shape[2]
+    qg = q.reshape(b, k.shape[1], group, s, dh)
+    logits = dot(qg, k.unsqueeze(2).transpose(-1, -2)) * scale
+    if causal:
+        kpos = torch.arange(t, device=q.device)
+        if rowwise_pos(offset):
+            qpos = (torch.arange(s, device=q.device)[None, :]
+                    + offset.to(q.device)[:, None])              # (B, s)
+            mask = (kpos[None, None, :] <= qpos[:, :, None])[:, None, None]
+        else:
+            qpos = torch.arange(s, device=q.device)[:, None] + offset
+            mask = kpos[None, :] <= qpos
+        logits = torch.where(mask, logits,
+                             torch.full((), NEG_INF, device=q.device))
+    p = softmax(logits)
+    out = dot(p.to(v.dtype), v.unsqueeze(2))
+    return out.reshape(b, h, s, v.shape[-1]).to(q.dtype)
+
+
 def _resolve(activation: str | Callable, table: FunctionTable) -> Callable:
     if callable(activation):
         return activation
@@ -73,6 +105,18 @@ def sidebar_mlp_ref(
     h = fn(dot(x, w1))
     y = dot(h.to(w2.dtype), w2)
     return y.to(x.dtype)
+
+
+def sidebar_matmul_ref(
+    a: Tensor,
+    b: Tensor,
+    activation: str | Callable = "identity",
+    table: FunctionTable = DEFAULT_TABLE,
+) -> Tensor:
+    """c = f(a @ b): fp32 product, ``f`` on the fp32 result, cast to
+    ``a.dtype`` — one static primitive with a function-table epilogue."""
+    fn = _resolve(activation, table)
+    return fn(dot(a, b)).to(a.dtype)
 
 
 def activation_ref(

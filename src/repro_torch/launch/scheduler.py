@@ -22,6 +22,12 @@ What the paged server does, as in the JAX package:
   * **Table validation** — every block table is bounds-checked on the
     host (``kvpool.validate_tables``) before each step that launches
     kernels on it: a table-indexed load in CUDA has no bounds check.
+  * **Execution plans** — ``plan=`` takes any ``LayerPlan``,
+    ``ExecutionPlan`` (uniform or per layer), ``ExecutionMode`` or mode
+    name, as the JAX server does. Every step runs under it, so each
+    layer's MLP and decode attention take that layer's route
+    (``kernels.ops``): the serial or ring Sidebar kernel, or the
+    FLEXIBLE_DMA three-launch MLP with gathered-view decode attention.
 
 Differences from the JAX server: a segment is a Python loop of eager
 steps, not one scanned program; a request's whole KV span (prompt +
@@ -51,7 +57,6 @@ from repro_torch.core.modes import (
     ExecutionPlan,
     LayerPlan,
     coerce_layer_plan,
-    require_served,
 )
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
@@ -172,7 +177,6 @@ class ContinuousBatchingServer:
             plan = ExecutionMode.SIDEBAR
         if not isinstance(plan, ExecutionPlan):
             plan = coerce_layer_plan(plan)
-        require_served(plan)
         self.cfg = cfg
         self.params = params
         self.plan = plan

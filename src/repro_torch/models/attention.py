@@ -25,12 +25,10 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.paged_attention import gather_kv, gather_scale
-from repro_torch.kernels.ref import dot, softmax
+from repro_torch.kernels.ref import attend_direct_offset, rowwise_pos
 from repro_torch.models.layers import apply_rope, linear
 
 Tensor = torch.Tensor
-
-NEG_INF = -1e30
 
 
 def gqa_param_shapes(cfg: ModelConfig) -> dict:
@@ -54,11 +52,6 @@ def kv_cache_shapes(cfg: ModelConfig, batch: int, max_len: int) -> dict:
         shapes["k_scale"] = ((batch, hkv, max_len), torch.float32)
         shapes["v_scale"] = ((batch, hkv, max_len), torch.float32)
     return shapes
-
-
-def rowwise_pos(pos) -> bool:
-    """True when ``cache_pos`` is a per-row ``(B,)`` vector."""
-    return isinstance(pos, Tensor) and pos.ndim == 1
 
 
 def paged_write_index(block_tables: Tensor, cache_pos, s: int, bs: int,
@@ -93,30 +86,6 @@ def quantize_kv(x: Tensor) -> tuple[Tensor, Tensor]:
 
 def dequantize_kv(q: Tensor, scale: Tensor, dtype) -> Tensor:
     return (q.float() * scale[..., None]).to(dtype)
-
-
-def attend_direct_offset(q: Tensor, k: Tensor, v: Tensor, group: int,
-                         scale: float, causal: bool, offset) -> Tensor:
-    """q (B, H, S, Dh) against k/v (B, Hkv, T, Dh); ``offset`` is the
-    global position of query row 0, scalar or per-row (B,)."""
-    b, h, s, dh = q.shape
-    t = k.shape[2]
-    qg = q.reshape(b, k.shape[1], group, s, dh)
-    logits = dot(qg, k.unsqueeze(2).transpose(-1, -2)) * scale
-    if causal:
-        kpos = torch.arange(t, device=q.device)
-        if rowwise_pos(offset):
-            qpos = (torch.arange(s, device=q.device)[None, :]
-                    + offset.to(q.device)[:, None])              # (B, s)
-            mask = (kpos[None, None, :] <= qpos[:, :, None])[:, None, None]
-        else:
-            qpos = torch.arange(s, device=q.device)[:, None] + offset
-            mask = kpos[None, :] <= qpos
-        logits = torch.where(mask, logits,
-                             torch.full((), NEG_INF, device=q.device))
-    p = softmax(logits)
-    out = dot(p.to(v.dtype), v.unsqueeze(2))
-    return out.reshape(b, h, s, v.shape[-1]).to(q.dtype)
 
 
 def _write_slab(cache: dict, name: str, vals: Tensor, cache_pos,

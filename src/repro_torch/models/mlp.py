@@ -2,8 +2,10 @@
 y = f(x @ W1) @ W2 (nemotron's squared ReLU).
 
 With ``cfg.use_pallas`` every call goes through ``kops.sidebar_mlp``:
-the fused Sidebar kernel on a CUDA tensor (any row count — the TPU's
-rows % 8 rule is a TPU tile rule), its plain version on a CPU tensor.
+the ambient plan's route for the layer (the serial or ring Sidebar
+kernel, or the FLEXIBLE_DMA three launches) on a CUDA tensor, at any row
+count — the TPU's rows % 8 rule is a TPU tile rule — and the plain
+version on a CPU tensor.
 Without it the block is two ``linear``s around the activation, as in
 the JAX package's non-kernel branch.
 """

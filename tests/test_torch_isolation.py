@@ -198,3 +198,83 @@ def test_kernel_wrappers_reject_what_they_do_not_take(cuda):
         sm.sidebar_mlp(x.double(), w1.double(), w2.double())
     with pytest.raises(ValueError, match="contiguous"):
         sm.sidebar_mlp(x, torch.zeros(128, 64, device=cuda).t(), w2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [(1, 64, 128), (3, 100, 130),
+                                   (4, 4096, 64), (17, 513, 257)])
+@pytest.mark.parametrize("act", ["identity", "squared_relu", "gelu"])
+def test_sidebar_matmul_kernel_matches_plain(cuda, m, k, n, act):
+    """Ragged M, K and N; K split across blocks under the identity."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import sidebar_matmul as smm
+
+    rng = np.random.RandomState(9)
+    a = torch.from_numpy(rng.randn(m, k).astype(np.float32)).to(cuda)
+    b = torch.from_numpy((rng.randn(k, n) / np.sqrt(k)).astype(np.float32)
+                         ).to(cuda)
+    before = kops.launch_counts()["sidebar_matmul"]
+    out = smm.sidebar_matmul(a, b, act)
+    ref = smm.sidebar_matmul_plain(a, b, act)
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+    assert kops.launch_counts()["sidebar_matmul"] == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1, 1), (3, 7), (5, 1001), (2, 3, 4099)])
+@pytest.mark.parametrize("act", ["squared_relu", "gelu", "exp_decay",
+                                 "softmax", "rmsnorm"])
+def test_activation_kernel_matches_plain(cuda, shape, act):
+    """Elementwise and rowwise entries, ragged widths, rank 3."""
+    from repro_torch.kernels import activations as ak
+    from repro_torch.kernels import ops as kops
+
+    x = torch.from_numpy(np.random.RandomState(10).randn(*shape).astype(
+        np.float32) * 3).to(cuda)
+    before = kops.launch_counts()["activation"]
+    out = ak.activation(x, act)
+    torch.testing.assert_close(out, ak.activation_plain(x, act), rtol=1e-4,
+                               atol=1e-4)
+    assert kops.launch_counts()["activation"] == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,d,f", [(1, 64, 256), (3, 64, 200),
+                                   (4, 96, 1000), (130, 64, 2048)])
+def test_pipelined_kernel_matches_plain_and_ignores_depth(cuda, m, d, f):
+    """Each depth against the plain version, and bitwise equal across
+    depths (the F partition does not depend on the depth)."""
+    from repro_torch.kernels import sidebar_mlp as sm
+
+    x, w1, w2 = (torch.from_numpy(a).to(cuda)
+                 for a in _mlp_problem(11, m, d, f))
+    ref = sm.sidebar_mlp_plain(x, w1, w2, "squared_relu")
+    outs = [sm.sidebar_mlp_pipelined(x, w1, w2, "squared_relu", depth=t)
+            for t in (1, 2, 3, 4, 7)]
+    torch.testing.assert_close(outs[0], ref, rtol=1e-4, atol=1e-4)
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+
+
+@pytest.mark.gpu
+def test_new_wrappers_reject_what_they_do_not_take(cuda):
+    from repro_torch.core.function_table import make_default_table
+    from repro_torch.kernels import activations as ak
+    from repro_torch.kernels import sidebar_matmul as smm
+    from repro_torch.kernels import sidebar_mlp as sm
+
+    x = torch.zeros(4, 64, device=cuda)
+    w1 = torch.zeros(64, 128, device=cuda)
+    w2 = torch.zeros(128, 64, device=cuda)
+    with pytest.raises(NotImplementedError, match="kernel-side"):
+        sm.sidebar_mlp_pipelined(x, w1, w2, "softmax")
+    with pytest.raises(NotImplementedError, match="kernel-side"):
+        smm.sidebar_matmul(x, w1, "rmsnorm")
+    table = make_default_table()
+    table.register("mish", lambda t: t * torch.tanh(
+        torch.nn.functional.softplus(t)))
+    with pytest.raises(NotImplementedError, match="kernel-side"):
+        ak.activation_2d(x, "mish", table=table)
+    with pytest.raises(TypeError):
+        smm.sidebar_matmul(x.double(), w1.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        ak.activation_2d(torch.zeros(64, 4, device=cuda).t())

@@ -36,15 +36,18 @@ ELEMENTWISE = [n for n in ft.DEFAULT_TABLE.names()
 
 
 def test_function_table_mirrors_jax():
-    """Same names and rowwise flags as make_default_table; every
-    elementwise entry has a distinct kernel-side id, rowwise ones none."""
+    """Same names and rowwise flags as make_default_table; every default
+    entry has a distinct kernel-side id (csrc/activation.cuh): 0-12 for
+    the elementwise entries, 13 and 14 for the rowwise softmax and
+    rmsnorm, which only the standalone activation kernel takes."""
     jt, tt = jax_table(), ft.make_default_table()
     assert tt.names() == jt.names()
     for n in jt.names():
         assert tt[n].rowwise == jt[n].rowwise, n
-        assert (tt[n].device_id is None) == tt[n].rowwise, n
-    ids = [tt[n].device_id for n in ELEMENTWISE]
-    assert len(set(ids)) == len(ids)
+        assert tt[n].device_id is not None, n
+        assert (tt[n].device_id >= 13) == tt[n].rowwise, n
+    ids = [tt[n].device_id for n in tt.names()]
+    assert sorted(ids) == list(range(15))
 
 
 @pytest.mark.parametrize("name", ft.DEFAULT_TABLE.names())
@@ -189,16 +192,28 @@ def test_ops_record_plain_route_on_cpu():
         kops.sidebar_mlp(_t(x), _t(w1), _t(w2), "relu")
     assert [(r.op, r.variant, r.used_kernel) for r in recs] == [
         ("paged_attention", "ref", False), ("sidebar_mlp", "ref", False)]
-    assert kops.launch_counts() == {"sidebar_mlp": 0, "paged_gqa": 0}
+    assert kops.launch_counts() == {
+        "sidebar_mlp": 0, "paged_gqa": 0, "sidebar_mlp_pipelined": 0,
+        "sidebar_matmul": 0, "activation": 0}
 
 
 @pytest.mark.parametrize("mode", [ExecutionMode.SIDEBAR_PIPELINED,
                                   ExecutionMode.FLEXIBLE_DMA])
 def test_unported_plans_raise(mode):
+    """Both plans that raised before their kernels were ported now route:
+    the ring kernel's plain version at the plan's depth, or the DMA
+    three-step route, each the serial op's function bit for bit on the
+    CPU, and each recorded as planned."""
     x, w1, w2 = _mlp_problem(5, m=4, d=64, f=128)
-    with kops.execution_plan(mode), pytest.raises(NotImplementedError,
-                                                  match="ROADMAP"):
-        kops.sidebar_mlp(_t(x), _t(w1), _t(w2), "relu")
+    recs = []
+    with kops.execution_plan(mode), kops.record_dispatches(recs):
+        got = kops.sidebar_mlp(_t(x), _t(w1), _t(w2), "relu")
+    want = sm.sidebar_mlp(_t(x), _t(w1), _t(w2), "relu")
+    assert torch.equal(got, want)
+    variant, depth = (("ref", 2) if mode is ExecutionMode.SIDEBAR_PIPELINED
+                      else ("dma", 1))
+    assert [(r.op, r.mode, r.variant, r.depth, r.used_kernel)
+            for r in recs] == [("sidebar_mlp", mode, variant, depth, False)]
 
 
 def test_monolithic_plan_routes_like_sidebar():

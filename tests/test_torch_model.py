@@ -189,19 +189,23 @@ def test_unported_paths_raise():
 
 
 def test_layer_scope_reaches_per_layer_plans(weights):
-    """A layer-indexed ExecutionPlan resolves per layer: a pipelined
-    layer 1 raises (not ported) while layer 0 ran."""
+    """A layer-indexed ExecutionPlan resolves per layer: layer 0 takes
+    the serial route, the pipelined layer 1 the ring route at its depth,
+    and the logits equal the SIDEBAR plan's bit for bit on the CPU."""
     from repro_torch.core.modes import ExecutionPlan, LayerPlan
 
     _, ct = _cfgs("kernels")
     _, pt = weights
     plan = ExecutionPlan(default=LayerPlan(ExecutionMode.SIDEBAR, 1),
                          layers={1: LayerPlan(
-                             ExecutionMode.SIDEBAR_PIPELINED, 2)})
+                             ExecutionMode.SIDEBAR_PIPELINED, 3)})
+    batch = {"tokens": torch.arange(4, dtype=torch.long)[None]}
     recs = []
-    cache = T.init_cache(ct, 1, 8, device="cpu")
-    with kops.record_dispatches(recs), kops.execution_plan(plan), \
-            pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.prefill(pt, ct, {"tokens": torch.zeros(1, 4, dtype=torch.long)},
-                  cache)
-    assert [(r.op, r.layer) for r in recs] == [("sidebar_mlp", 0)]
+    with kops.record_dispatches(recs), kops.execution_plan(plan):
+        got, _ = T.prefill(pt, ct, batch, T.init_cache(ct, 1, 8,
+                                                       device="cpu"))
+    want, _ = T.prefill(pt, ct, batch, T.init_cache(ct, 1, 8, device="cpu"))
+    assert torch.equal(got, want)
+    assert [(r.op, r.layer, r.mode, r.depth) for r in recs] == [
+        ("sidebar_mlp", 0, ExecutionMode.SIDEBAR, 1),
+        ("sidebar_mlp", 1, ExecutionMode.SIDEBAR_PIPELINED, 3)]

@@ -25,6 +25,7 @@ from repro.models import attention as jattn
 from repro.models.registry import get_model as jget
 from repro_torch import bridge
 from repro_torch import configs as tcfg
+from repro_torch.core.modes import ExecutionMode, LayerPlan
 from repro_torch.kernels import ops as kops
 from repro_torch.launch import kvpool as kvp
 from repro_torch.launch.sampling import SamplingParams
@@ -188,7 +189,21 @@ def test_cancel_releases_blocks(models):
     dict(rag=object()), dict(faults=object()), dict(plan="sidebar_pipelined"),
 ])
 def test_unsupported_server_arguments_raise(kw, models):
+    """Arguments of features not ported raise. ``plan=`` no longer does:
+    every mode is served, and a pipelined plan drains with the tokens of
+    the default SIDEBAR plan, its MLP dispatches recorded as planned."""
     _, ct, _, pt = models["fp32"]
+    if "plan" in kw:
+        ct = dataclasses.replace(ct, use_pallas=True)
+        reqs = _traffic(11, n=3)
+        srv, got, recs = _serve(ct, pt, reqs, **kw)
+        _, want, _ = _serve(ct, pt, reqs)
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a.tokens, b.tokens)
+        assert srv.plan == LayerPlan(ExecutionMode.SIDEBAR_PIPELINED, 2)
+        mlps = {(r.mode, r.depth) for r in recs if r.op == "sidebar_mlp"}
+        assert mlps == {(ExecutionMode.SIDEBAR_PIPELINED, 2)}
+        return
     err = ValueError if "kernel" in kw else NotImplementedError
     with pytest.raises(err):
         PagedContinuousBatchingServer(ct, pt, **{**SERVER, **kw})
