@@ -8,16 +8,21 @@ Phases (each prints JSON objects on lines of their own; any failure
 exits non-zero):
 
   0. the card (``nvidia-smi`` name and power limit) and the build of
-     every CUDA kernel from ``src/repro_torch/csrc`` (one ``nvcc`` per
-     source, started together);
+     every CUDA kernel from ``src/repro_torch/csrc``, and of a
+     ``device_expr`` variant (mish) of every kernel that applies an
+     activation (one ``nvcc`` per library, all started together);
   1. op level: each kernel against its plain PyTorch version on the
      card — smoke shapes in fp32 (ragged rows, columns and contractions,
      ragged lengths, duplicate table entries, scratch-padded tails,
      several activations and epilogues, the rowwise softmax and rmsnorm)
-     and nemotron-4-15b shapes in bf16, fp and int8 KV — with the
-     kernel's time, the plain version's time, the bound of the work and
-     the time of one PyTorch call of the same function where there is
-     one; the ring MLP at depths 1-4, bitwise equal across depths;
+     and nemotron-4-15b and deepseek-7b shapes in bf16, fp and int8 KV
+     (paged decode at group 6 and at group 1) — with the kernel's time,
+     the plain version's time, the bound of the work and the time of one
+     PyTorch call of the same function where there is one; the ring MLP
+     at depths 1-4, bitwise equal across depths; and the run-time
+     activation check: mish registered with a ``device_expr`` on a fresh
+     function table, through all five wrappers that take an activation,
+     and an entry without one refused;
   2. nemotron-4-15b at full width (bf16 weights from a seed) served by
      ``PagedContinuousBatchingServer(kernel="paged")`` with the kernels
      on under the default SIDEBAR plan: 8 requests, half sharing a
@@ -28,10 +33,14 @@ exits non-zero):
      and 4, and FLEXIBLE_DMA — with exact launch counts per mode and a
      summary line of tokens/s per mode;
   3. the same widths with int8 KV (depth cut to 4 layers);
-  4. the fp32 smoke config on the card: ``kernel="paged"`` against
-     ``kernel="slab"``, and the SIDEBAR_PIPELINED, FLEXIBLE_DMA and a
-     mixed per-layer plan against SIDEBAR, on the same traffic, compared
-     by tokens and logits.
+  4. the fp32 smoke configs of nemotron-4-15b and deepseek-7b on the
+     card: ``kernel="paged"`` against ``kernel="slab"``, and the
+     SIDEBAR_PIPELINED, FLEXIBLE_DMA and a mixed per-layer plan against
+     SIDEBAR, on the same traffic, compared by tokens and logits;
+  6. deepseek-7b at full width (all 30 layers, bf16 weights from a
+     seed) served like phase 2: every layer's MLP through the gated
+     kernel, decode attention at group 1, exact launch counts, tokens/s,
+     TTFT and peak memory.
 
 The line before the last holds the kernel table, the last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or of the JAX
@@ -59,8 +68,16 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 D_MODEL, D_FF = 6144, 24576           # nemotron-4-15b
+DS_MODEL, DS_FF = 4096, 11008         # deepseek-7b
 KERNELS = ("sidebar_mlp", "paged_gqa", "sidebar_mlp_pipelined",
-           "sidebar_matmul", "activation")
+           "sidebar_matmul", "activation", "sidebar_gated_mlp")
+# the run-time activation of phase 0's variant builds and phase 1's check
+MISH_EXPR = "x * tanhf(log1pf(expf(x)))"
+
+
+def mish(t: torch.Tensor) -> torch.Tensor:
+    return (t.float() * torch.tanh(torch.nn.functional.softplus(t.float()))
+            ).to(t.dtype)
 
 
 def emit(obj: dict) -> None:
@@ -201,7 +218,7 @@ def paged_ops(seed: int = 1) -> dict:
     worst = 0.0
     # smoke widths in fp32 (and int8 KV): tolerance 1e-4 relative — the
     # kernel's online softmax against the plain two-pass softmax
-    for dh, bs, group in ((16, 8, 4), (8, 8, 4)):
+    for dh, bs, group in ((16, 8, 4), (8, 8, 4), (16, 8, 1)):
         for kvdt in (torch.float32, torch.int8):
             probs, t, ln, scale = _pool_problem(
                 g, b=3, hkv=2, group=group, dh=dh, bs=bs, nb=4,
@@ -213,21 +230,27 @@ def paged_ops(seed: int = 1) -> dict:
             ref = pa.paged_gqa_reference(q, k, v, t, ln, scale=scale,
                                          k_scale=ks, v_scale=vs)
             _, rel = rel_err(out, ref)
-            check(rel <= 1e-4, f"paged_gqa fp32 dh={dh} {kvdt}: rel {rel}")
+            check(rel <= 1e-4, f"paged_gqa fp32 dh={dh} group={group} "
+                               f"{kvdt}: rel {rel}")
             worst = max(worst, rel)
     emit({"phase": 1, "op": "paged_gqa", "dtype": "float32",
-          "max_rel_err": worst, "tol": 1e-4})
-    # nemotron-4-15b widths: 4 rows, 48 query / 8 KV heads, head_dim 128,
-    # block 16, lengths up to 256; bf16 out against a plain run on the
-    # same values (2e-2 relative: bf16 rounding of p and the output).
-    # Twelve copies of the problem cycle so the 50 MB L2 starts cold, as
-    # it does after a layer's MLP has streamed its weights through.
+          "groups": [4, 1], "max_rel_err": worst, "tol": 1e-4})
+    # nemotron-4-15b widths (48 query / 8 KV heads: group 6) and
+    # deepseek-7b's (32 / 32: group 1, MHA): 4 rows, head_dim 128, block
+    # 16, lengths up to 256; bf16 out against a plain run on the same
+    # values (2e-2 relative: bf16 rounding of p and the output). Twelve
+    # copies of the problem cycle so the 50 MB L2 starts cold, as it does
+    # after a layer's MLP has streamed its weights through.
     main = None
     lengths = [256, 241, 200, 129]
-    for kvdt in (torch.bfloat16, torch.int8):
+    for arch, hkv, group, kvdt in (
+            ("nemotron-4-15b", 8, 6, torch.bfloat16),
+            ("nemotron-4-15b", 8, 6, torch.int8),
+            ("deepseek-7b", 32, 1, torch.bfloat16),
+            ("deepseek-7b", 32, 1, torch.int8)):
         probs, t, ln, scale = _pool_problem(
-            g, b=4, hkv=8, group=6, dh=128, bs=16, nb=16, lengths=lengths,
-            qdtype=torch.bfloat16, kvdtype=kvdt, copies=12)
+            g, b=4, hkv=hkv, group=group, dh=128, bs=16, nb=16,
+            lengths=lengths, qdtype=torch.bfloat16, kvdtype=kvdt, copies=12)
         q, k, v, ks, vs = probs[0]
         out = pa.paged_gqa(q, k, v, t, ln, scale=scale, k_scale=ks,
                            v_scale=vs)
@@ -235,7 +258,8 @@ def paged_ops(seed: int = 1) -> dict:
         ref = pa.paged_gqa_reference(q, k, v, t, ln, scale=scale,
                                      k_scale=ks, v_scale=vs)
         err, rel = rel_err(out, ref)
-        check(rel <= 2e-2, f"paged_gqa bf16 {kvdt}: rel {rel}")
+        check(rel <= 2e-2, f"paged_gqa bf16 group={group} {kvdt}: "
+                           f"rel {rel}")
         it = {"i": 0}
 
         def run(fn):
@@ -249,17 +273,19 @@ def paged_ops(seed: int = 1) -> dict:
         plain_ms = cuda_ms(run(pa.paged_gqa_reference), iters=48)
         kv_item = 1 if kvdt == torch.int8 else 2
         live = sum(lengths)
-        nbytes = (2 * live * 8 * 128 * kv_item          # K and V read once
-                  + (2 * live * 8 * 4 if kvdt == torch.int8 else 0)
+        nbytes = (2 * live * hkv * 128 * kv_item        # K and V read once
+                  + (2 * live * hkv * 4 if kvdt == torch.int8 else 0)
                   + 2 * 2 * q.numel() + 4 * t.numel() + 4 * 4)
-        b_ms, b_by = bound(nbytes, 4 * live * 48 * 128, torch.bfloat16)
-        row = {"phase": 1, "op": "paged_gqa",
+        b_ms, b_by = bound(nbytes, 4 * live * hkv * group * 128,
+                           torch.bfloat16)
+        row = {"phase": 1, "op": "paged_gqa", "arch": arch,
+               "heads": [hkv * group, hkv], "group": group,
                "kv_dtype": str(kvdt).replace("torch.", ""),
                "lengths": lengths, "max_abs_err": err, "max_rel_err": rel,
                "tol": 2e-2, "ms": ms, "plain_ms": plain_ms,
                "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
         emit(row)
-        if kvdt == torch.bfloat16:
+        if kvdt == torch.bfloat16 and group == 6:
             main = row
     return main
 
@@ -455,6 +481,157 @@ def pipelined_ops(seed: int = 4) -> dict:
     return main
 
 
+def gated_ops(seed: int = 5) -> dict:
+    """sidebar_gated_mlp: every MLP launch of deepseek-7b."""
+    from repro_torch.kernels import sidebar_gated_mlp as sg
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dev = "cuda"
+    worst = 0.0
+    # fp32 smoke shapes: ragged rows, an F that 64 does not divide, a
+    # ragged last F split, several activations; 1e-4 relative (the two
+    # sum D and F in different orders)
+    shapes = ((1, 64, 192), (3, 64, 200), (4, 96, 1000), (64, 64, 192),
+              (130, 64, 2048))
+    for m, d, f in shapes:
+        for act in ("silu", "gelu", "relu", "squared_relu"):
+            x = torch.randn(m, d, generator=g, device=dev)
+            wg, wu = (torch.randn(d, f, generator=g, device=dev) / d ** 0.5
+                      for _ in range(2))
+            wd = torch.randn(f, d, generator=g, device=dev) / f ** 0.5
+            out = sg.sidebar_gated_mlp(x, wg, wu, wd, act)
+            torch.cuda.synchronize()
+            ref = sg.sidebar_gated_mlp_plain(x, wg, wu, wd, act)
+            _, rel = rel_err(out, ref)
+            check(out.shape == ref.shape and rel <= 1e-4,
+                  f"sidebar_gated_mlp fp32 {m}x{d}x{f} {act}: rel {rel}")
+            worst = max(worst, rel)
+    emit({"phase": 1, "op": "sidebar_gated_mlp", "dtype": "float32",
+          "shapes": shapes, "max_rel_err": worst, "tol": 1e-4})
+    # deepseek-7b widths in bf16, decode (4 rows) and a staging round (64
+    # rows), against the plain version run in fp32 on the same values:
+    # 2e-2 relative covers bf16 rounding of h and the output
+    d, f = DS_MODEL, DS_FF
+    wg, wu = ((torch.randn(d, f, generator=g, device=dev) / d ** 0.5
+               ).bfloat16() for _ in range(2))
+    wd = (torch.randn(f, d, generator=g, device=dev) / f ** 0.5).bfloat16()
+    silu = torch.nn.functional.silu
+    main = None
+    for m in (4, 64):
+        x = torch.randn(m, d, generator=g, device=dev).bfloat16()
+        out = sg.sidebar_gated_mlp(x, wg, wu, wd, "silu")
+        torch.cuda.synchronize()
+        ref = sg.sidebar_gated_mlp_plain(x.float(), wg.float(), wu.float(),
+                                         wd.float(), "silu")
+        err, rel = rel_err(out, ref)
+        check(rel <= 2e-2, f"sidebar_gated_mlp bf16 m={m}: rel {rel}")
+        nbytes = 2 * (x.numel() + wg.numel() + wu.numel() + wd.numel()
+                      + m * d)
+        b_ms, b_by = bound(nbytes, 3 * 2 * m * d * f, torch.bfloat16)
+        row = {"phase": 1, "op": "sidebar_gated_mlp", "dtype": "bfloat16",
+               "shape": [m, d, f], "f_range": sg.f_range(m, f),
+               "max_abs_err": err, "max_rel_err": rel, "tol": 2e-2,
+               "ms": cuda_ms(lambda: sg.sidebar_gated_mlp(
+                   x, wg, wu, wd, "silu")),
+               "plain_ms": cuda_ms(lambda: sg.sidebar_gated_mlp_plain(
+                   x, wg, wu, wd, "silu")),
+               "library_ms": cuda_ms(
+                   lambda: torch.matmul(silu(torch.matmul(x, wg))
+                                        * torch.matmul(x, wu), wd)),
+               "bound_ms": b_ms, "bound_by": b_by}
+        emit(row)
+        if m == 4:
+            main = row
+    del wg, wu, wd
+    return main
+
+
+def user_activation_ops(seed: int = 6) -> None:
+    """A function registered at run time reaches every kernel that takes
+    an activation: mish with a ``device_expr`` on a fresh table, through
+    the five wrappers, against their plain versions under the same table
+    (fp32, 1e-4 relative; bf16 at a decode shape, 2e-2); an entry without
+    a ``device_expr`` is refused on the card."""
+    from repro_torch.core.function_table import make_default_table
+    from repro_torch.kernels import activations as ak
+    from repro_torch.kernels import build
+    from repro_torch.kernels import sidebar_gated_mlp as sg
+    from repro_torch.kernels import sidebar_matmul as smm
+    from repro_torch.kernels import sidebar_mlp as sm
+
+    table = make_default_table()
+    table.register("mish", mish, device_expr=MISH_EXPR)
+    table.register("mish_host_only", mish)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dev = "cuda"
+
+    def problem(m, d, f, dtype):
+        def w(rows, cols):
+            return (torch.randn(rows, cols, generator=g, device=dev)
+                    / rows ** 0.5).to(dtype)
+        return (torch.randn(m, d, generator=g, device=dev).to(dtype),
+                w(d, f), w(d, f), w(f, d))
+
+    wrappers = {
+        "sidebar_mlp": (
+            lambda x, wg, wu, wd, a: sm.sidebar_mlp(x, wg, wd, a,
+                                                    table=table),
+            lambda x, wg, wu, wd, a: sm.sidebar_mlp_plain(x, wg, wd, a,
+                                                          table)),
+        "sidebar_mlp_pipelined": (
+            lambda x, wg, wu, wd, a: sm.sidebar_mlp_pipelined(
+                x, wg, wd, a, table=table, depth=2),
+            lambda x, wg, wu, wd, a: sm.sidebar_mlp_plain(x, wg, wd, a,
+                                                          table)),
+        "sidebar_gated_mlp": (
+            lambda x, wg, wu, wd, a: sg.sidebar_gated_mlp(
+                x, wg, wu, wd, a, table=table),
+            lambda x, wg, wu, wd, a: sg.sidebar_gated_mlp_plain(
+                x, wg, wu, wd, a, table)),
+        "sidebar_matmul": (
+            lambda x, wg, wu, wd, a: smm.sidebar_matmul(x, wg, a,
+                                                        table=table),
+            lambda x, wg, wu, wd, a: smm.sidebar_matmul_plain(x, wg, a,
+                                                              table)),
+        "activation": (
+            lambda x, wg, wu, wd, a: ak.activation_2d(x, a, table=table),
+            lambda x, wg, wu, wd, a: ak.activation_plain(x, a, table)),
+    }
+    worst = {"float32": dict.fromkeys(wrappers, 0.0),
+             "bfloat16": dict.fromkeys(wrappers, 0.0)}
+    for m, d, f, dtype, tol in ((3, 64, 200, torch.float32, 1e-4),
+                                (64, 96, 384, torch.float32, 1e-4),
+                                (4, DS_MODEL, 2048, torch.bfloat16, 2e-2)):
+        ops = problem(m, d, f, dtype)
+        for name, (kernel, plain) in wrappers.items():
+            before = build.launches[name]
+            out = kernel(*ops, "mish")
+            torch.cuda.synchronize()
+            check(build.launches[name] == before + 1,
+                  f"run-time activation: {name} did not launch")
+            ref = plain(*(t.float() for t in ops), "mish")
+            _, rel = rel_err(out, ref)
+            check(rel <= tol, f"run-time activation: {name} {dtype} "
+                              f"{m}x{d}x{f}: rel {rel}")
+            per = worst[str(dtype).removeprefix("torch.")]
+            per[name] = max(per[name], rel)
+            try:
+                kernel(*ops, "mish_host_only")
+            except NotImplementedError:
+                pass
+            else:
+                check(False, f"{name} ran an entry without a device_expr "
+                             "on the card")
+    check(all((n, MISH_EXPR) in build._loaded for n in wrappers),
+          "run-time activation: a wrapper did not load its mish library")
+    emit({"phase": 1, "op": "run_time_activation", "name": "mish",
+          "device_expr": MISH_EXPR, "max_rel_err": worst,
+          "tol": {"float32": 1e-4, "bfloat16": 2e-2},
+          "libraries": sorted(build._lib_path(n, MISH_EXPR).name
+                              for n in wrappers),
+          "entry_without_device_expr": "refused by every wrapper"})
+
+
 # ---------------------------------------------------------------------------
 # Phases 2-5: serving
 # ---------------------------------------------------------------------------
@@ -485,26 +662,31 @@ def layer_plan(plan, layer: int):
             else coerce_layer_plan(plan))
 
 
-def expected_launches(plan, layers: int, decode: int, prefill: int) -> dict:
+def expected_launches(plan, layers: int, decode: int, prefill: int,
+                      gated: bool = False) -> dict:
     """Launches each kernel must count in a drain under ``plan``: per
     layer and forward call, one MLP launch of the plan's route (two
-    products and one activation on the FLEXIBLE_DMA route), and per
-    layer and decode call one paged_gqa launch unless the layer is
-    FLEXIBLE_DMA (gathered-view attention, no kernel)."""
+    products and one activation on the FLEXIBLE_DMA route; the gated
+    kernel under every plan for a gated MLP), and per layer and decode
+    call one paged_gqa launch unless the layer is FLEXIBLE_DMA
+    (gathered-view attention, no kernel)."""
     from repro_torch.core.modes import ExecutionMode as M
 
     calls = decode + prefill
     want = dict.fromkeys(KERNELS, 0)
     for i in range(layers):
         lp = layer_plan(plan, i)
-        if lp.mode is M.FLEXIBLE_DMA:
+        if lp.mode is not M.FLEXIBLE_DMA:
+            want["paged_gqa"] += decode
+        if gated:
+            want["sidebar_gated_mlp"] += calls
+        elif lp.mode is M.FLEXIBLE_DMA:
             want["sidebar_matmul"] += 2 * calls
             want["activation"] += calls
-            continue
-        mlp = ("sidebar_mlp_pipelined" if lp.mode is M.SIDEBAR_PIPELINED
-               else "sidebar_mlp")
-        want[mlp] += calls
-        want["paged_gqa"] += decode
+        elif lp.mode is M.SIDEBAR_PIPELINED:
+            want["sidebar_mlp_pipelined"] += calls
+        else:
+            want["sidebar_mlp"] += calls
     return want
 
 
@@ -544,7 +726,8 @@ def serve(cfg, params, prompts, gen: int, *, phase: int, mode: str,
     toks = np.concatenate([r.tokens for r in done])
     st = srv.stats
     L = cfg.num_layers
-    want = expected_launches(srv.plan, L, calls["decode"], calls["prefill"])
+    want = expected_launches(srv.plan, L, calls["decode"], calls["prefill"],
+                             cfg.gated_mlp)
     row = {
         "phase": phase, "mode": mode, "arch": cfg.arch_id, "layers": L,
         "kv_cache_dtype": str(cfg.kv_cache_dtype).replace("torch.", ""),
@@ -580,12 +763,12 @@ def serve(cfg, params, prompts, gen: int, *, phase: int, mode: str,
     return row, [r.tokens for r in done]
 
 
-def full_width_params(layers: int | None, *, int8: bool = False):
+def full_width_params(layers: int | None, *, int8: bool = False,
+                      arch: str = "nemotron-4-15b"):
     from repro_torch import configs
     from repro_torch.models import transformer
 
-    cfg = dataclasses.replace(configs.get_config("nemotron-4-15b"),
-                              use_pallas=True)
+    cfg = dataclasses.replace(configs.get_config(arch), use_pallas=True)
     if int8:
         cfg = dataclasses.replace(cfg, kv_cache_dtype=torch.int8)
     if layers is not None:
@@ -601,11 +784,17 @@ FULL_SERVER = dict(device="cuda", num_slots=4, block_size=16, max_len=1024,
 
 
 def full_width(phase: int, cfg, params, init_s: float) -> tuple[dict, list]:
+    """The full-width traffic mix (8 requests of 32-256 tokens, every
+    other one sharing a 128-token prefix, 32 greedy tokens each), drawn
+    from the phase's seed, through the paged server."""
+    from repro_torch import configs
+
     prompts = traffic(phase, 8, cfg.vocab_size, shared=128, lo=32, hi=256)
     row, tokens = serve(cfg, params, prompts, 32, phase=phase,
                         mode="sidebar", **FULL_SERVER)
-    emit({"phase": phase, "init_s": init_s,
-          "depth_cut": cfg.num_layers != 32,
+    emit({"phase": phase, "arch": cfg.arch_id, "init_s": init_s,
+          "depth_cut": (cfg.num_layers
+                        != configs.get_config(cfg.arch_id).num_layers),
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
     return row, tokens
 
@@ -683,19 +872,20 @@ def _capture(cfg, params, prompts, gen: int, **kw) -> tuple[list, list]:
     return seen, [r.tokens for r in srv.run()]
 
 
-def smoke_routes() -> None:
-    """Phase 4, fp32 smoke config on the card: the paged route (kernel)
-    against the slab route (gather + dense plain attention), and the
-    pipelined, DMA and a mixed per-layer plan against SIDEBAR, on the
+def smoke_routes(arch: str) -> None:
+    """Phase 4, an fp32 smoke config on the card: the paged route
+    (kernel) against the slab route (gather + dense plain attention), and
+    the pipelined, DMA and a mixed per-layer plan against SIDEBAR, on the
     same traffic, compared step by step by their logits while their
     tokens agree. fp32 end to end: the routes differ only in summation
-    order, 1e-4."""
+    order, 1e-4. A gated MLP takes its one kernel under every plan; the
+    plans then differ in their decode attention."""
     from repro_torch import configs
     from repro_torch.core.modes import ExecutionMode, ExecutionPlan, LayerPlan
     from repro_torch.kernels import ops as kops
     from repro_torch.models import transformer
 
-    cfg = dataclasses.replace(configs.get_smoke_config("nemotron-4-15b"),
+    cfg = dataclasses.replace(configs.get_smoke_config(arch),
                               use_pallas=True)
     params = transformer.init(cfg, seed=0, device="cuda")
     prompts = traffic(4, 6, cfg.vocab_size, shared=16, lo=4, hi=30)
@@ -715,21 +905,27 @@ def smoke_routes() -> None:
         same = all(np.array_equal(a, b) for a, b in zip(ta, tb))
         err = max((a - b).abs().max().item() for a, b in zip(la, lb)) \
             if same and len(la) == len(lb) else float("nan")
-        emit({"phase": 4, "against": "paged sidebar", "route": name,
-              "tokens_equal": same, "steps": len(lb),
+        emit({"phase": 4, "arch": cfg.arch_id, "against": "paged sidebar",
+              "route": name, "tokens_equal": same, "steps": len(lb),
               "max_abs_logit_err": err, "tol": 1e-4, "launches": counts})
         check(same and len(la) == len(lb) and err <= 1e-4,
-              f"phase 4: {name} disagrees with the paged SIDEBAR route")
-        if name != "slab":
-            mlp = [k for k in KERNELS if k not in ("sidebar_mlp",
-                                                   "paged_gqa")]
+              f"phase 4: {cfg.arch_id} {name} disagrees with the paged "
+              "SIDEBAR route")
+        if cfg.gated_mlp:
+            check(counts["sidebar_gated_mlp"] > 0
+                  and (counts["paged_gqa"] > 0) == (
+                      name in ("sidebar_pipelined_d2",
+                               "mixed_dma_pipelined_d3")),
+                  f"phase 4: {cfg.arch_id} {name} launched {counts}")
+        elif name != "slab":
+            mlp = ["sidebar_mlp_pipelined", "sidebar_matmul", "activation"]
             check(any(counts[k] for k in mlp),
                   f"phase 4: {name} launched none of {mlp}")
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="0,1,2,3,4,5",
+    ap.add_argument("--phases", default="0,1,2,3,4,5,6",
                     help="comma-separated subset of phases to run")
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the depth of the full-width phases 2 and 5")
@@ -744,7 +940,11 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    build_s = build.build_all()
+    # every kernel, and a mish variant of each one that takes an
+    # activation: one nvcc per library, all at once
+    build_s = build.build_all(
+        [(n, None) for n in build.SOURCES]
+        + [(n, MISH_EXPR) for n in build.ACTIVATION_KERNELS])
     # ptxas: registers, shared memory and spills of every kernel entry
     ptxas = {k: [ln.strip() for ln in v.splitlines()
                  if "registers" in ln or "spill" in ln]
@@ -760,6 +960,8 @@ def main() -> None:
         rows["sidebar_mlp_pipelined"] = pipelined_ops()
         rows["sidebar_matmul"] = matmul_ops()
         rows["activation"] = activation_ops()
+        rows["sidebar_gated_mlp"] = gated_ops()
+        user_activation_ops()
     served = {}
     if phases & {2, 5}:
         cfg, params, init_s = full_width_params(args.layers)
@@ -775,14 +977,22 @@ def main() -> None:
         del params
         torch.cuda.empty_cache()
     if 4 in phases:
-        smoke_routes()
-    if len(served) == 4 and len(rows) == len(KERNELS):
-        # launches: the drain of the main path (phase 2) or of the mode
-        # (phase 5) that runs the kernel
+        smoke_routes("nemotron-4-15b")
+        smoke_routes("deepseek-7b")
+    if 6 in phases:
+        torch.cuda.reset_peak_memory_stats()
+        cfg, params, init_s = full_width_params(None, arch="deepseek-7b")
+        served["deepseek_7b"], _ = full_width(6, cfg, params, init_s)
+        del params
+        torch.cuda.empty_cache()
+    if len(served) == 5 and len(rows) == len(KERNELS):
+        # launches: the drain of the main path (phase 2), of the mode
+        # (phase 5) or of the model (phase 6) that runs the kernel
         run_of = {"sidebar_mlp": "sidebar", "paged_gqa": "sidebar",
                   "sidebar_mlp_pipelined": "sidebar_pipelined_d2",
                   "sidebar_matmul": "flexible_dma",
-                  "activation": "flexible_dma"}
+                  "activation": "flexible_dma",
+                  "sidebar_gated_mlp": "deepseek_7b"}
         sources = {
             "sidebar_mlp": ("sidebar_mlp.cu",
                             "src/repro/kernels/sidebar_mlp.py:171"),
@@ -795,6 +1005,9 @@ def main() -> None:
                                "src/repro/kernels/sidebar_matmul.py:71"),
             "activation": ("activation.cu",
                            "src/repro/kernels/activations.py:127"),
+            "sidebar_gated_mlp": (
+                "sidebar_gated_mlp.cu",
+                "src/repro/kernels/sidebar_gated_mlp.py:87"),
         }
         kernels = []
         for name in KERNELS:

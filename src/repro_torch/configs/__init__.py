@@ -2,11 +2,12 @@
 
 from __future__ import annotations
 
-from repro_torch.configs import nemotron_4_15b
+from repro_torch.configs import deepseek_7b, nemotron_4_15b
 from repro_torch.configs.base import ModelConfig
 
 _MODULES = {
     "nemotron-4-15b": nemotron_4_15b,
+    "deepseek-7b": deepseek_7b,
 }
 
 ARCH_IDS = tuple(_MODULES)

@@ -15,7 +15,7 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     arch_id: str
-    family: str                    # dense (the only family this slice serves)
+    family: str                    # dense (the only family ported so far)
     num_layers: int
     d_model: int
     num_heads: int

@@ -7,8 +7,24 @@ counterpart (``csrc/activation.cuh``): elementwise entries are applied
 by ``apply_activation``, which every kernel takes; the rowwise
 ``softmax`` and ``rmsnorm`` are taken only by the standalone activation
 kernel (``csrc/activation.cu``), and the fused kernels' wrappers reject
-rowwise entries. An entry without an id (a function registered at run
-time) serves the plain versions but no kernel, whose wrapper raises.
+rowwise entries.
+
+A function registered at run time reaches the kernels through its
+``device_expr``: a CUDA C++ expression in a ``float x``, for example
+``"x * tanhf(log1pf(expf(x)))"`` for mish. The build compiles the
+unchanged kernel sources once more with that expression as the
+reserved id ``USER_ACTIVATION_ID`` (``kernels/build.py``), so a new
+activation is one table row and no edit to any ``.cu`` file::
+
+    table.register("mish", lambda t: t * torch.tanh(F.softplus(t)),
+                   device_expr="x * tanhf(log1pf(expf(x)))")
+
+This is where the port differs from the JAX package: a Pallas kernel
+traces any ``jnp`` callable, while a CUDA kernel cannot run a torch
+callable, so the port needs the expression beside it, and the two must
+compute the same function. An entry with neither an id nor an
+expression serves the plain versions only; on a CUDA tensor its
+wrapper raises.
 """
 
 from __future__ import annotations
@@ -31,12 +47,34 @@ class FunctionEntry:
       fn: pure elementwise/rowwise torch callable.
       rowwise: True if the function needs a full row (softmax, norms).
       device_id: id of the kernel-side implementation, or None.
+      device_expr: CUDA C++ expression in ``float x`` that the kernels
+        compile for an entry without an id, or None.
     """
 
     name: str
     fn: Callable[..., Tensor]
     rowwise: bool = False
     device_id: int | None = None
+    device_expr: str | None = None
+
+
+# the kernel-side id of every entry registered with a ``device_expr``
+# (``kUser`` in csrc/activation.cuh): a library built for that expression
+# takes this id to it
+USER_ACTIVATION_ID = 15
+
+
+def _check_device_expr(expr: str, rowwise: bool,
+                       device_id: int | None) -> None:
+    if device_id is not None:
+        raise ValueError("an entry has a device_id or a device_expr, "
+                         "not both")
+    if rowwise:
+        raise ValueError("a device_expr is elementwise (one float x); a "
+                         "rowwise entry cannot have one")
+    if not expr.strip() or any(c in expr for c in ";#{}\n"):
+        raise ValueError(f"device_expr must be one C++ expression in "
+                         f"float x, got {expr!r}")
 
 
 class FunctionTable:
@@ -49,13 +87,16 @@ class FunctionTable:
 
     def register(self, name: str, fn: Callable[..., Tensor], *,
                  rowwise: bool = False, device_id: int | None = None,
+                 device_expr: str | None = None,
                  overwrite: bool = False) -> FunctionEntry:
+        if device_expr is not None:
+            _check_device_expr(device_expr, rowwise, device_id)
         with self._lock:
             if name in self._entries and not overwrite:
                 raise ValueError(
                     f"function {name!r} already registered; pass "
                     "overwrite=True to hot-swap")
-            entry = FunctionEntry(name, fn, rowwise, device_id)
+            entry = FunctionEntry(name, fn, rowwise, device_id, device_expr)
             self._entries[name] = entry
             return entry
 

@@ -12,7 +12,8 @@
 // 393 KB read and written) the launch itself dominates.
 //
 // What the design does about it:
-//   * elementwise entries (ids 0-12): a grid-stride pass in which each
+//   * elementwise entries (ids 0-12, and 15 in a library built for a
+//     run-time ``device_expr``): a grid-stride pass in which each
 //     thread loads and stores 16 bytes at a time (8 bf16 or 4 fp32),
 //     computes f in fp32 and rounds once to x's type; the tail that
 //     does not fill a vector, and unaligned tensors, go element by
@@ -136,7 +137,7 @@ int launch(const void* x, void* y, int M, int N, int act,
 extern "C" int activation_launch(const void* x, void* y, int M, int N,
                                  int act, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (act < 0 || act > repro::kRmsnorm) return cudaErrorInvalidValue;
+  if (act < 0 || act > repro::kMaxActivation) return cudaErrorInvalidValue;
   if (dtype == repro::kF32) return launch<float>(x, y, M, N, act, s);
   if (dtype == repro::kBF16)
     return launch<__nv_bfloat16>(x, y, M, N, act, s);

@@ -6,13 +6,27 @@
 // them. Ids 13 (softmax) and 14 (rmsnorm) are rowwise: they need a whole
 // row, so only the standalone activation kernel (activation.cu) takes
 // them, and the fused kernels' wrappers reject rowwise entries.
+//
+// Id 15 (kUser) is reserved for a function registered at run time with a
+// ``device_expr``. kernels/build.py compiles these sources once more for
+// such an entry, with -DREPRO_USER_ACTIVATION and a generated header
+// (-include) that defines ``repro_user_activation(float x)`` from the
+// expression; only in that library does id 15 reach it. A new activation
+// is thus a table row, never an edit here.
 #pragma once
 
 #include <cuda_runtime.h>
 
 namespace repro {
 
-enum ActivationId : int { kSoftmax = 13, kRmsnorm = 14 };
+enum ActivationId : int { kSoftmax = 13, kRmsnorm = 14, kUser = 15 };
+
+// the largest id this library takes
+#ifdef REPRO_USER_ACTIVATION
+constexpr int kMaxActivation = kUser;
+#else
+constexpr int kMaxActivation = kRmsnorm;
+#endif
 
 // rmsnorm's epsilon (function_table._rmsnorm)
 constexpr float kRmsnormEps = 1e-6f;
@@ -39,6 +53,9 @@ __device__ __forceinline__ float apply_activation(int id, float x) {
     }
     case 11: return fabsf(x);                          // abs
     case 12: return expf(-expf(x));                    // exp_decay
+#ifdef REPRO_USER_ACTIVATION
+    case kUser: return repro_user_activation(x);       // device_expr
+#endif
     default: return x;
   }
 }

@@ -10,10 +10,11 @@ leading dims into rows, as the JAX entry point does.
 The port's eligibility rule: on the card the kernel takes every shape
 (there is no TPU tile rule) of a fp32 or bf16 contiguous tensor, for any
 default table entry — elementwise, or rowwise (``softmax``,
-``rmsnorm``) over the last dim. A function registered at run time has no
-device id; for a CUDA tensor that raises, as does any other operand the
-kernel does not take. The round trip through HBM is the baseline the
-paper measures the Sidebar against: nothing fuses it away.
+``rmsnorm``) over the last dim — and for a function registered at run
+time with a ``device_expr``. An entry with neither raises for a CUDA
+tensor, as does any other operand the kernel does not take. The round
+trip through HBM is the baseline the paper measures the Sidebar
+against: nothing fuses it away.
 """
 
 from __future__ import annotations
@@ -64,22 +65,16 @@ def activation_2d(
                         f"{x.dtype}")
     if not x.is_contiguous():
         raise ValueError("activation kernel takes a contiguous operand")
-    if callable(activation):
-        raise TypeError("activation kernel takes a function-table key")
-    entry = table[activation]
-    if entry.device_id is None:
-        raise NotImplementedError(
-            f"activation {activation!r} has no kernel-side implementation "
-            "(run-time registrations serve the plain version only; see "
-            "ROADMAP Queue 2)")
+    act, expr = build.kernel_activation("activation", activation, table,
+                                        rowwise_ok=True)
     m, n = x.shape
     y = torch.empty_like(x)
     if m == 0 or n == 0:
         return y
-    fn = build.entry("activation", "activation_launch", _ARGTYPES)
+    fn = build.entry("activation", "activation_launch", _ARGTYPES, expr)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = fn(x.data_ptr(), y.data_ptr(), m, n, entry.device_id,
-             _DTYPES[x.dtype], stream)
+    err = fn(x.data_ptr(), y.data_ptr(), m, n, act, _DTYPES[x.dtype],
+             stream)
     build.check(err, "activation")
     build.launches["activation"] += 1
     return y

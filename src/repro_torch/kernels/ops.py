@@ -1,7 +1,8 @@
 """Public entry points of the port's kernels (mirror of
 ``repro.kernels.ops``: the ambient execution plan, ``layer_scope``,
-``record_dispatches`` and the ``sidebar_mlp`` / ``sidebar_matmul`` /
-``host_activation`` / ``paged_attention_gqa`` ops).
+``record_dispatches`` and the ``sidebar_mlp`` / ``sidebar_gated_mlp`` /
+``sidebar_matmul`` / ``host_activation`` / ``paged_attention_gqa``
+ops).
 
 Each op resolves the ambient plan for the current layer, records its
 dispatch, and calls the kernel wrapper for that plan's route — which
@@ -17,6 +18,10 @@ for a CPU tensor. Every ``ExecutionMode`` is served:
     consumer ``sidebar_matmul``) and the gather route for decode
     attention — that mode's semantics on every device, as in the JAX
     package.
+
+The gated MLP (``sidebar_gated_mlp``) is the fused serial kernel under
+every plan: the JAX package has no ring or DMA route for it, and the
+port invents none. Its layers still take the plan's attention route.
 """
 
 from __future__ import annotations
@@ -44,6 +49,9 @@ from repro_torch.kernels import build
 # tensor.
 from repro_torch.kernels.activations import activation as host_activation
 from repro_torch.kernels.paged_attention import paged_gqa, paged_gqa_reference
+from repro_torch.kernels.sidebar_gated_mlp import (
+    sidebar_gated_mlp as _gated_kernel,
+)
 from repro_torch.kernels.sidebar_matmul import sidebar_matmul
 from repro_torch.kernels.sidebar_mlp import sidebar_mlp as _mlp_kernel
 from repro_torch.kernels.sidebar_mlp import (
@@ -197,6 +205,24 @@ def sidebar_mlp(
     _record("sidebar_mlp", plan.mode, 1, "serial" if x.is_cuda else "ref",
             x.is_cuda)
     return _mlp_kernel(x, w1, w2, activation, table=table)
+
+
+def sidebar_gated_mlp(
+    x: Tensor,
+    w_gate: Tensor,
+    w_up: Tensor,
+    w_down: Tensor,
+    activation: str | Callable = "silu",
+    *,
+    table: FunctionTable = DEFAULT_TABLE,
+) -> Tensor:
+    """y = (f(x @ w_gate) * (x @ w_up)) @ w_down through the fused serial
+    kernel under every plan (the JAX op's one route), recorded at depth
+    1 with the plan's mode; variant "ref" on a CPU tensor."""
+    plan = current_plan()
+    _record("sidebar_gated_mlp", plan.mode, 1,
+            "serial" if x.is_cuda else "ref", x.is_cuda)
+    return _gated_kernel(x, w_gate, w_up, w_down, activation, table=table)
 
 
 def paged_attention_gqa(

@@ -107,6 +107,24 @@ def sidebar_mlp_ref(
     return y.to(x.dtype)
 
 
+def sidebar_gated_mlp_ref(
+    x: Tensor,
+    w_gate: Tensor,
+    w_up: Tensor,
+    w_down: Tensor,
+    activation: str | Callable = "silu",
+    table: FunctionTable = DEFAULT_TABLE,
+) -> Tensor:
+    """y = (f(x @ w_gate) * (x @ w_up)) @ w_down: fp32 gate and up,
+    ``f`` in fp32, their product cast to ``w_down.dtype`` before the
+    third product, fp32 accumulation, output in ``x.dtype``."""
+    fn = _resolve(activation, table)
+    g = fn(dot(x, w_gate))
+    u = dot(x, w_up)
+    y = dot((g * u).to(w_down.dtype), w_down)
+    return y.to(x.dtype)
+
+
 def sidebar_matmul_ref(
     a: Tensor,
     b: Tensor,

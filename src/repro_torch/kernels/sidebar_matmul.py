@@ -5,8 +5,10 @@
 (``csrc/sidebar_matmul.cu``; its header says what bounds it and how it
 is built) for CUDA tensors and takes the plain PyTorch version,
 ``sidebar_matmul_plain`` (= ``ref.sidebar_matmul_ref``), for CPU
-tensors. Any M, K and N: there is no TPU tile rule. A CUDA tensor the
-kernel does not take raises.
+tensors. Any M, K and N: there is no TPU tile rule. The epilogue is any
+elementwise table entry, one registered at run time with a
+``device_expr`` included. A CUDA tensor the kernel does not take
+raises.
 """
 
 from __future__ import annotations
@@ -28,7 +30,6 @@ BLOCK_K = 64
 # aim for two blocks per SM of an H100 (132 SMs)
 TARGET_BLOCKS = 264
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
 
 
@@ -63,33 +64,21 @@ def sidebar_matmul(
             f"contraction mismatch: a{tuple(a.shape)} b{tuple(b.shape)}")
     if not a.is_cuda:
         return sidebar_matmul_plain(a, b, activation, table)
-    if b.device != a.device:
-        raise ValueError("sidebar_matmul: operands on different devices")
-    if a.dtype not in _DTYPES or a.dtype != b.dtype:
-        raise TypeError(
-            f"sidebar_matmul kernel takes fp32 or bf16 operands of one "
-            f"type, got {a.dtype}, {b.dtype}")
-    if not (a.is_contiguous() and b.is_contiguous()):
-        raise ValueError("sidebar_matmul kernel takes contiguous operands")
-    if callable(activation):
-        raise TypeError("sidebar_matmul kernel takes a function-table key")
-    entry = table[activation]
-    if entry.device_id is None or entry.rowwise:
-        raise NotImplementedError(
-            f"activation {activation!r} has no kernel-side epilogue "
-            "(rowwise entries need the whole row, and run-time "
-            "registrations serve the plain version only)")
+    dtype = build.check_operands("sidebar_matmul", a, b)
+    act, expr = build.kernel_activation("sidebar_matmul", activation,
+                                        table)
     c = torch.empty((m, n), dtype=a.dtype, device=a.device)
     if m == 0 or n == 0:
         return c
-    kr = k_range(m, k, n, entry.device_id == 0)
+    kr = k_range(m, k, n, act == 0)
     splits = max(1, -(-k // kr))
     ws = torch.empty((splits * m * n if splits > 1 else 0,),
                      dtype=torch.float32, device=a.device)
-    fn = build.entry("sidebar_matmul", "sidebar_matmul_launch", _ARGTYPES)
+    fn = build.entry("sidebar_matmul", "sidebar_matmul_launch", _ARGTYPES,
+                     expr)
     stream = torch.cuda.current_stream(a.device).cuda_stream
     err = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), ws.data_ptr(), m, k,
-             n, kr, entry.device_id, _DTYPES[a.dtype], stream)
+             n, kr, act, dtype, stream)
     build.check(err, "sidebar_matmul")
     build.launches["sidebar_matmul"] += 1
     return c

@@ -37,7 +37,6 @@ MAX_F_RANGE = 2048
 SUBTILE_F = 64
 MIN_SUBTILES = 4
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
 _PIPE_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
                   + [ctypes.c_void_p])
@@ -80,13 +79,13 @@ def pipelined_smem_bytes(m: int, f: int, depth: int,
     ring and its mbarriers), as the built library computes it."""
     fn = build.entry("sidebar_mlp_pipelined", "sidebar_mlp_pipelined_smem",
                      [ctypes.c_int, ctypes.c_int])
-    return fn(ring_slots(m, f, depth), _DTYPES[dtype])
+    return fn(ring_slots(m, f, depth), build.DTYPES[dtype])
 
 
 def _kernel_operands(name: str, x, w1, w2, activation, table):
-    """Shapes, and for CUDA operands the function-table entry, after the
-    checks every MLP kernel wrapper makes; the entry is None for CPU
-    operands (the plain version serves them)."""
+    """Shapes, and for CUDA operands the kernel-side activation (id,
+    device_expr) after the checks every MLP kernel wrapper makes; None
+    for CPU operands (the plain version serves them)."""
     if x.ndim != 2 or w1.ndim != 2 or w2.ndim != 2:
         raise ValueError(f"{name} takes 2-D operands")
     m, d = x.shape
@@ -98,25 +97,8 @@ def _kernel_operands(name: str, x, w1, w2, activation, table):
             f"w2{tuple(w2.shape)}")
     if not x.is_cuda:
         return (m, d, f, d2), None
-    if not (w1.device == x.device and w2.device == x.device):
-        raise ValueError(f"{name}: operands on different devices")
-    if x.dtype not in _DTYPES or not x.dtype == w1.dtype == w2.dtype:
-        raise TypeError(
-            f"{name} kernel takes fp32 or bf16 operands of one type, "
-            f"got {x.dtype}, {w1.dtype}, {w2.dtype}")
-    if not (x.is_contiguous() and w1.is_contiguous()
-            and w2.is_contiguous()):
-        raise ValueError(f"{name} kernel takes contiguous operands")
-    if callable(activation):
-        raise TypeError(f"{name} kernel takes a function-table key")
-    entry = table[activation]
-    if entry.device_id is None or entry.rowwise:
-        raise NotImplementedError(
-            f"activation {activation!r} has no kernel-side "
-            "implementation in the fused MLP (rowwise entries need the "
-            "whole row, and run-time registrations serve the plain "
-            "version only; see ROADMAP Queue 2)")
-    return (m, d, f, d2), entry
+    build.check_operands(name, x, w1, w2)
+    return (m, d, f, d2), build.kernel_activation(name, activation, table)
 
 
 def sidebar_mlp(
@@ -128,9 +110,9 @@ def sidebar_mlp(
     table: FunctionTable = DEFAULT_TABLE,
 ) -> torch.Tensor:
     """f(x @ w1) @ w2 with x (M, D), w1 (D, F), w2 (F, D2)."""
-    (m, d, f, d2), entry = _kernel_operands("sidebar_mlp", x, w1, w2,
-                                            activation, table)
-    if entry is None:
+    (m, d, f, d2), act = _kernel_operands("sidebar_mlp", x, w1, w2,
+                                          activation, table)
+    if act is None:
         return sidebar_mlp_plain(x, w1, w2, activation, table)
     y = torch.empty((m, d2), dtype=x.dtype, device=x.device)
     if m == 0:
@@ -139,11 +121,11 @@ def sidebar_mlp(
     splits = -(-f // fr)
     ws = torch.empty((splits * m * d2,), dtype=torch.float32,
                      device=x.device)
-    fn = build.entry("sidebar_mlp", "sidebar_mlp_launch", _ARGTYPES)
+    fn = build.entry("sidebar_mlp", "sidebar_mlp_launch", _ARGTYPES, act[1])
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = fn(x.data_ptr(), w1.data_ptr(), w2.data_ptr(), y.data_ptr(),
-             ws.data_ptr(), m, d, f, d2, fr, entry.device_id,
-             _DTYPES[x.dtype], stream)
+             ws.data_ptr(), m, d, f, d2, fr, act[0],
+             build.DTYPES[x.dtype], stream)
     build.check(err, "sidebar_mlp")
     build.launches["sidebar_mlp"] += 1
     return y
@@ -160,10 +142,10 @@ def sidebar_mlp_pipelined(
 ) -> torch.Tensor:
     """f(x @ w1) @ w2 through a ``depth``-deep ring of f(h) sub-tiles;
     the same function as ``sidebar_mlp``, bitwise equal across depths."""
-    (m, d, f, d2), entry = _kernel_operands("sidebar_mlp_pipelined", x, w1,
-                                            w2, activation, table)
+    (m, d, f, d2), act = _kernel_operands("sidebar_mlp_pipelined", x, w1,
+                                          w2, activation, table)
     slots = ring_slots(m, f, depth)
-    if entry is None:
+    if act is None:
         return sidebar_mlp_plain(x, w1, w2, activation, table)
     y = torch.empty((m, d2), dtype=x.dtype, device=x.device)
     if m == 0:
@@ -173,11 +155,11 @@ def sidebar_mlp_pipelined(
     ws = torch.empty((splits * m * d2,), dtype=torch.float32,
                      device=x.device)
     fn = build.entry("sidebar_mlp_pipelined", "sidebar_mlp_pipelined_launch",
-                     _PIPE_ARGTYPES)
+                     _PIPE_ARGTYPES, act[1])
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = fn(x.data_ptr(), w1.data_ptr(), w2.data_ptr(), y.data_ptr(),
-             ws.data_ptr(), m, d, f, d2, fr, slots, entry.device_id,
-             _DTYPES[x.dtype], stream)
+             ws.data_ptr(), m, d, f, d2, fr, slots, act[0],
+             build.DTYPES[x.dtype], stream)
     build.check(err, "sidebar_mlp_pipelined")
     build.launches["sidebar_mlp_pipelined"] += 1
     return y

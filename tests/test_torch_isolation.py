@@ -9,7 +9,10 @@
   * ``chip_smoke.py`` fails without a card, and fails in a directory
     that holds nothing else of the repository;
   * on the card (tests marked ``gpu``, skipped without one): each CUDA
-    kernel against its plain version, and the wrappers' refusals. They
+    kernel against its plain version (the gated MLP at deepseek-7b's
+    widths, paged decode at group 1), a run-time activation with a
+    ``device_expr`` through every kernel that takes an activation, and
+    the wrappers' refusals. They
     live here because this file imports no JAX, which the card's
     machine does not have. ``chip_smoke.py`` repeats the comparisons at
     full width.
@@ -269,12 +272,176 @@ def test_new_wrappers_reject_what_they_do_not_take(cuda):
         sm.sidebar_mlp_pipelined(x, w1, w2, "softmax")
     with pytest.raises(NotImplementedError, match="kernel-side"):
         smm.sidebar_matmul(x, w1, "rmsnorm")
+    # a run-time activation with a device_expr computes on the card; one
+    # without it still raises
     table = make_default_table()
-    table.register("mish", lambda t: t * torch.tanh(
-        torch.nn.functional.softplus(t)))
+    table.register("mish", _mish, device_expr=MISH)
+    table.register("mish_host_only", _mish)
+    x = torch.randn(4, 64, device=cuda)
+    torch.testing.assert_close(ak.activation_2d(x, "mish", table=table),
+                               ak.activation_plain(x, "mish", table),
+                               rtol=1e-4, atol=1e-4)
     with pytest.raises(NotImplementedError, match="kernel-side"):
-        ak.activation_2d(x, "mish", table=table)
+        ak.activation_2d(x, "mish_host_only", table=table)
     with pytest.raises(TypeError):
         smm.sidebar_matmul(x.double(), w1.double())
     with pytest.raises(ValueError, match="contiguous"):
         ak.activation_2d(torch.zeros(64, 4, device=cuda).t())
+
+
+MISH = "x * tanhf(log1pf(expf(x)))"
+
+
+def _mish(t):
+    return t * torch.tanh(torch.nn.functional.softplus(t))
+
+
+def _gated_problem(seed, m, d, f, device, dtype=torch.float32):
+    rng = np.random.RandomState(seed)
+    return [torch.from_numpy(a).to(device=device, dtype=dtype) for a in (
+        rng.randn(m, d).astype(np.float32),
+        (rng.randn(d, f) / np.sqrt(d)).astype(np.float32),
+        (rng.randn(d, f) / np.sqrt(d)).astype(np.float32),
+        (rng.randn(f, d) / np.sqrt(f)).astype(np.float32))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,d,f", [(1, 64, 192), (3, 64, 200),
+                                   (4, 96, 1000), (64, 64, 192),
+                                   (130, 64, 2048)])
+@pytest.mark.parametrize("act", ["silu", "gelu", "relu"])
+def test_gated_kernel_matches_plain(cuda, m, d, f, act):
+    """Ragged rows, an F that 64 does not divide, a ragged last split."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import sidebar_gated_mlp as sg
+
+    ops = _gated_problem(12, m, d, f, cuda)
+    before = kops.launch_counts()["sidebar_gated_mlp"]
+    out = sg.sidebar_gated_mlp(*ops, act)
+    ref = sg.sidebar_gated_mlp_plain(*ops, act)
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+    assert kops.launch_counts()["sidebar_gated_mlp"] == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [4, 64])
+def test_gated_kernel_at_deepseek_7b_shapes(cuda, m):
+    """bf16 at d 4096, d_ff 11008 (decode and a staging round) against
+    the plain version in fp32 on the same values: 2e-2 covers the bf16
+    rounding of h and of the output."""
+    from repro_torch.kernels import sidebar_gated_mlp as sg
+
+    ops = _gated_problem(13, m, 4096, 11008, cuda, torch.bfloat16)
+    out = sg.sidebar_gated_mlp(*ops, "silu")
+    ref = sg.sidebar_gated_mlp_plain(*(t.float() for t in ops), "silu")
+    assert out.dtype == torch.bfloat16
+    torch.testing.assert_close(out.float(), ref, rtol=2e-2, atol=2e-2)
+    assert torch.equal(out, sg.sidebar_gated_mlp(*ops, "silu"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quantized", [False, True], ids=["bf16", "int8"])
+def test_paged_gqa_kernel_at_group_1(cuda, quantized):
+    """deepseek-7b's MHA decode: 32 query heads on 32 KV heads, head_dim
+    128, block 16, ragged lengths, a shared block; bf16 q against the
+    plain version (2e-2: bf16 rounding of p and of the output)."""
+    from repro_torch.kernels import paged_attention as pa
+
+    rng = np.random.RandomState(14)
+    B, H, Dh, bs, nb = 4, 32, 128, 16, 16
+    P = B * nb + 1
+    tables = rng.randint(1, P, size=(B, nb)).astype(np.int32)
+    lengths = np.array([256, 241, 200, 129], np.int32)
+    for r, ln in enumerate(lengths):
+        tables[r, -(-ln // bs):] = 0
+    tables[1, 2] = tables[1, 1]
+    if quantized:
+        k, v = (torch.from_numpy(rng.randint(-127, 128, (P, H, bs, Dh)
+                                             ).astype(np.int8))
+                for _ in range(2))
+        ks, vs = (torch.from_numpy(((rng.rand(P, H, bs) + .5) / 127
+                                    ).astype(np.float32)).to(cuda)
+                  for _ in range(2))
+    else:
+        k, v = (torch.from_numpy(rng.randn(P, H, bs, Dh).astype(np.float32)
+                                 ).bfloat16() for _ in range(2))
+        ks = vs = None
+    q = torch.from_numpy(rng.randn(B, H, Dh).astype(np.float32)).bfloat16()
+    q, k, v, t, ln = (a.to(cuda) for a in (q, k, v, torch.from_numpy(tables),
+                                           torch.from_numpy(lengths)))
+    out = pa.paged_gqa(q, k, v, t, ln, scale=Dh ** -0.5, k_scale=ks,
+                       v_scale=vs)
+    ref = pa.paged_gqa_reference(q, k, v, t, ln, scale=Dh ** -0.5,
+                                 k_scale=ks, v_scale=vs)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+def _user_wrappers():
+    from repro_torch.kernels import activations as ak
+    from repro_torch.kernels import sidebar_gated_mlp as sg
+    from repro_torch.kernels import sidebar_matmul as smm
+    from repro_torch.kernels import sidebar_mlp as sm
+
+    return {
+        "sidebar_mlp": (lambda x, wg, wu, wd, a, t: sm.sidebar_mlp(
+            x, wg, wd, a, table=t), lambda x, wg, wu, wd, a, t:
+            sm.sidebar_mlp_plain(x, wg, wd, a, t)),
+        "sidebar_mlp_pipelined": (lambda x, wg, wu, wd, a, t:
+                                  sm.sidebar_mlp_pipelined(
+                                      x, wg, wd, a, table=t, depth=3),
+                                  lambda x, wg, wu, wd, a, t:
+                                  sm.sidebar_mlp_plain(x, wg, wd, a, t)),
+        "sidebar_gated_mlp": (lambda x, wg, wu, wd, a, t:
+                              sg.sidebar_gated_mlp(x, wg, wu, wd, a,
+                                                   table=t),
+                              lambda x, wg, wu, wd, a, t:
+                              sg.sidebar_gated_mlp_plain(x, wg, wu, wd, a,
+                                                         t)),
+        "sidebar_matmul": (lambda x, wg, wu, wd, a, t: smm.sidebar_matmul(
+            x, wg, a, table=t), lambda x, wg, wu, wd, a, t:
+            smm.sidebar_matmul_plain(x, wg, a, t)),
+        "activation": (lambda x, wg, wu, wd, a, t: ak.activation_2d(
+            x, a, table=t), lambda x, wg, wu, wd, a, t:
+            ak.activation_plain(x, a, t)),
+    }
+
+
+WRAPPER_NAMES = ["sidebar_mlp", "sidebar_mlp_pipelined", "sidebar_gated_mlp",
+                 "sidebar_matmul", "activation"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", WRAPPER_NAMES)
+def test_run_time_activation_computes_in_every_kernel(cuda, name):
+    """mish, registered with a device_expr on a fresh table, runs in the
+    kernel (its own library, built at first use) and matches the plain
+    version; no file under csrc/ names it."""
+    from repro_torch.core.function_table import make_default_table
+    from repro_torch.kernels import build
+
+    table = make_default_table()
+    table.register("mish", _mish, device_expr=MISH)
+    kernel, plain = _user_wrappers()[name]
+    ops = _gated_problem(15, 5, 64, 200, cuda)
+    before = build.launches[name]
+    out = kernel(*ops, "mish", table)
+    torch.testing.assert_close(out, plain(*ops, "mish", table), rtol=1e-4,
+                               atol=1e-4)
+    assert build.launches[name] == before + 1
+    assert (name, MISH) in build._loaded
+    assert not any("tanhf(log1pf" in p.read_text()
+                   for p in build.CSRC.iterdir())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", WRAPPER_NAMES)
+def test_entry_without_device_expr_raises_on_the_card(cuda, name):
+    from repro_torch.core.function_table import make_default_table
+
+    table = make_default_table()
+    table.register("mish", _mish)
+    kernel, _ = _user_wrappers()[name]
+    ops = _gated_problem(16, 4, 64, 128, cuda)
+    with pytest.raises(NotImplementedError, match="device_expr"):
+        kernel(*ops, "mish", table)

@@ -24,7 +24,7 @@ from repro_torch.core.modes import ExecutionMode
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
-from repro_torch.models.mlp import mlp
+from repro_torch.models.mlp import mlp, mlp_param_shapes
 
 TOL = dict(rtol=1e-4, atol=1e-5)
 VARIANTS = ["fp32", "int8", "kernels"]
@@ -180,12 +180,17 @@ def test_mask_pad_logits_and_padded_vocab():
 
 
 def test_unported_paths_raise():
+    """A family not ported yet raises. The gated MLP raised here until
+    ``sidebar_gated_mlp`` was ported; it now computes."""
     cfg = dataclasses.replace(tcfg.get_smoke_config("nemotron-4-15b"),
                               gated_mlp=True)
-    with pytest.raises(NotImplementedError, match="sidebar_gated_mlp"):
-        mlp({}, cfg, torch.zeros(1, 1, cfg.d_model))
     with pytest.raises(NotImplementedError, match="family"):
         T.param_shapes(dataclasses.replace(cfg, family="moe"))
+    params = {name: torch.zeros(shape) for name, (shape, _)
+              in mlp_param_shapes(cfg).items()}
+    assert set(params) == {"w_gate", "w_up", "w_down"}
+    assert mlp(params, cfg, torch.zeros(1, 1, cfg.d_model)).shape == \
+        (1, 1, cfg.d_model)
 
 
 def test_layer_scope_reaches_per_layer_plans(weights):
