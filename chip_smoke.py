@@ -15,8 +15,9 @@ exits non-zero):
      card — smoke shapes in fp32 (ragged rows, columns and contractions,
      ragged lengths, duplicate table entries, scratch-padded tails,
      several activations and epilogues, the rowwise softmax and rmsnorm)
-     and nemotron-4-15b and deepseek-7b shapes in bf16, fp and int8 KV
-     (paged decode at group 6 and at group 1) — with the kernel's time,
+     and nemotron-4-15b, deepseek-7b and deepseek-v3-671b shapes in
+     bf16, fp and int8 KV (paged decode at group 6 and at group 1; MLA
+     absorbed decode at 128 heads, kvr 512) — with the kernel's time,
      the plain version's time, the bound of the work and the time of one
      PyTorch call of the same function where there is one; the ring MLP
      at depths 1-4, bitwise equal across depths; and the run-time
@@ -33,14 +34,23 @@ exits non-zero):
      and 4, and FLEXIBLE_DMA — with exact launch counts per mode and a
      summary line of tokens/s per mode;
   3. the same widths with int8 KV (depth cut to 4 layers);
-  4. the fp32 smoke configs of nemotron-4-15b and deepseek-7b on the
-     card: ``kernel="paged"`` against ``kernel="slab"``, and the
-     SIDEBAR_PIPELINED, FLEXIBLE_DMA and a mixed per-layer plan against
-     SIDEBAR, on the same traffic, compared by tokens and logits;
+  4. the fp32 smoke configs of nemotron-4-15b, deepseek-7b and
+     deepseek-v3-671b (no-drop capacity) on the card: ``kernel="paged"``
+     against ``kernel="slab"``, and the SIDEBAR_PIPELINED, FLEXIBLE_DMA
+     and a mixed per-layer plan against SIDEBAR, on the same traffic,
+     compared by tokens and logits;
   6. deepseek-7b at full width (all 30 layers, bf16 weights from a
      seed) served like phase 2: every layer's MLP through the gated
      kernel, decode attention at group 1, exact launch counts, tokens/s,
-     TTFT and peak memory.
+     TTFT and peak memory;
+  7. deepseek-v3-671b at full width (d 7168, 128 heads, MLA kvr 512,
+     all 256 routed experts top-8 plus the shared one, capacity factor
+     1.25), its depth cut from 61 to 5 layers (the 3 dense + 2 MoE: the
+     whole model does not fit one card), bf16 weights from a seed,
+     served like phase 6 on phase 6's traffic: decode attention through
+     ``paged_mla`` in place on the compressed pool, the dense layers'
+     MLP through the gated kernel, exact launch counts, no
+     ``gather_blocks``, tokens/s, TTFT and peak memory.
 
 The line before the last holds the kernel table, the last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or of the JAX
@@ -67,10 +77,14 @@ sys.path.insert(0, str(ROOT / "src"))
 # (bf16 on the tensor cores; fp32 outside them, for elementwise work)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# torch.cuda._sleep spins for a count of SM clock cycles (H100 SXM:
+# 1.98 GHz at most; a lower clock only lengthens the sleep)
+SLEEP_CYCLES_PER_S = 1.98e9
 D_MODEL, D_FF = 6144, 24576           # nemotron-4-15b
 DS_MODEL, DS_FF = 4096, 11008         # deepseek-7b
+V3_MODEL, V3_FF = 7168, 18432         # deepseek-v3-671b's dense layers
 KERNELS = ("sidebar_mlp", "paged_gqa", "sidebar_mlp_pipelined",
-           "sidebar_matmul", "activation", "sidebar_gated_mlp")
+           "sidebar_matmul", "activation", "sidebar_gated_mlp", "paged_mla")
 # the run-time activation of phase 0's variant builds and phase 1's check
 MISH_EXPR = "x * tanhf(log1pf(expf(x)))"
 
@@ -85,12 +99,21 @@ def emit(obj: dict) -> None:
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of ``fn`` over ``iters`` calls, CUDA events."""
+    """Mean device time of ``fn`` over ``iters`` calls, CUDA events. The
+    stream first sleeps for twice the host's time to enqueue the calls,
+    so the calls run back to back on the device and a kernel shorter than
+    its host-side launch is timed by the device, not by the host."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    sleep_s = min(2 * host_s * iters, 0.5)
+    torch.cuda._sleep(int(sleep_s * SLEEP_CYCLES_PER_S))
     start.record()
     for _ in range(iters):
         fn()
@@ -511,39 +534,138 @@ def gated_ops(seed: int = 5) -> dict:
     # deepseek-7b widths in bf16, decode (4 rows) and a staging round (64
     # rows), against the plain version run in fp32 on the same values:
     # 2e-2 relative covers bf16 rounding of h and the output
-    d, f = DS_MODEL, DS_FF
-    wg, wu = ((torch.randn(d, f, generator=g, device=dev) / d ** 0.5
-               ).bfloat16() for _ in range(2))
-    wd = (torch.randn(f, d, generator=g, device=dev) / f ** 0.5).bfloat16()
+    # (and deepseek-v3-671b's dense layers, 7168 x 18432)
     silu = torch.nn.functional.silu
     main = None
-    for m in (4, 64):
-        x = torch.randn(m, d, generator=g, device=dev).bfloat16()
-        out = sg.sidebar_gated_mlp(x, wg, wu, wd, "silu")
-        torch.cuda.synchronize()
-        ref = sg.sidebar_gated_mlp_plain(x.float(), wg.float(), wu.float(),
-                                         wd.float(), "silu")
-        err, rel = rel_err(out, ref)
-        check(rel <= 2e-2, f"sidebar_gated_mlp bf16 m={m}: rel {rel}")
-        nbytes = 2 * (x.numel() + wg.numel() + wu.numel() + wd.numel()
-                      + m * d)
-        b_ms, b_by = bound(nbytes, 3 * 2 * m * d * f, torch.bfloat16)
-        row = {"phase": 1, "op": "sidebar_gated_mlp", "dtype": "bfloat16",
-               "shape": [m, d, f], "f_range": sg.f_range(m, f),
-               "max_abs_err": err, "max_rel_err": rel, "tol": 2e-2,
-               "ms": cuda_ms(lambda: sg.sidebar_gated_mlp(
-                   x, wg, wu, wd, "silu")),
-               "plain_ms": cuda_ms(lambda: sg.sidebar_gated_mlp_plain(
-                   x, wg, wu, wd, "silu")),
-               "library_ms": cuda_ms(
-                   lambda: torch.matmul(silu(torch.matmul(x, wg))
-                                        * torch.matmul(x, wu), wd)),
-               "bound_ms": b_ms, "bound_by": b_by}
-        emit(row)
-        if m == 4:
-            main = row
-    del wg, wu, wd
+    for arch, d, f in (("deepseek-7b", DS_MODEL, DS_FF),
+                       ("deepseek-v3-671b", V3_MODEL, V3_FF)):
+        wg, wu = ((torch.randn(d, f, generator=g, device=dev) / d ** 0.5
+                   ).bfloat16() for _ in range(2))
+        wd = (torch.randn(f, d, generator=g, device=dev) / f ** 0.5
+              ).bfloat16()
+        for m in (4, 64):
+            x = torch.randn(m, d, generator=g, device=dev).bfloat16()
+            out = sg.sidebar_gated_mlp(x, wg, wu, wd, "silu")
+            torch.cuda.synchronize()
+            ref = sg.sidebar_gated_mlp_plain(x.float(), wg.float(),
+                                             wu.float(), wd.float(), "silu")
+            err, rel = rel_err(out, ref)
+            check(rel <= 2e-2, f"sidebar_gated_mlp bf16 {arch} m={m}: "
+                               f"rel {rel}")
+            nbytes = 2 * (x.numel() + wg.numel() + wu.numel() + wd.numel()
+                          + m * d)
+            b_ms, b_by = bound(nbytes, 3 * 2 * m * d * f, torch.bfloat16)
+            row = {"phase": 1, "op": "sidebar_gated_mlp", "arch": arch,
+                   "dtype": "bfloat16", "shape": [m, d, f],
+                   "f_range": sg.f_range(m, f),
+                   "max_abs_err": err, "max_rel_err": rel, "tol": 2e-2,
+                   "ms": cuda_ms(lambda: sg.sidebar_gated_mlp(
+                       x, wg, wu, wd, "silu")),
+                   "plain_ms": cuda_ms(lambda: sg.sidebar_gated_mlp_plain(
+                       x, wg, wu, wd, "silu")),
+                   "library_ms": cuda_ms(
+                       lambda: torch.matmul(silu(torch.matmul(x, wg))
+                                            * torch.matmul(x, wu), wd)),
+                   "bound_ms": b_ms, "bound_by": b_by}
+            emit(row)
+            if m == 4 and main is None:
+                main = row
+        del wg, wu, wd, out, ref
+        torch.cuda.empty_cache()
     return main
+
+
+def _mla_problem(g, *, b, h, kvr, rope, bs, nb, lengths, dtype, copies=1):
+    """MLA pools with duplicate table entries and scratch-padded tails."""
+    dev = "cuda"
+    p = b * nb + 1
+    rng = np.random.RandomState(1)
+    tables = rng.randint(1, p, size=(b, nb)).astype(np.int32)
+    for r, ln in enumerate(lengths):
+        tables[r, -(-ln // bs):] = 0                 # scratch tail
+    if b > 1 and -(-lengths[1] // bs) > 2:
+        tables[1, 2] = tables[1, 1]                  # shared block
+    probs = []
+    for _ in range(copies):
+        probs.append((
+            torch.randn(b, h, kvr, generator=g, device=dev) / kvr ** 0.5,
+            torch.randn(b, h, rope, generator=g, device=dev).to(dtype),
+            torch.randn(p, bs, kvr, generator=g, device=dev).to(dtype),
+            torch.randn(p, bs, rope, generator=g, device=dev).to(dtype)))
+    t = torch.as_tensor(tables, device=dev)
+    ln = torch.as_tensor(np.asarray(lengths, np.int32), device=dev)
+    return probs, t, ln
+
+
+def mla_ops(seed: int = 7) -> dict:
+    """paged_mla: deepseek-v3's absorbed decode on the compressed pool."""
+    from repro_torch.kernels import paged_attention as pa
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    worst = 0.0
+    # smoke widths in fp32 (H 4, kvr 32, rope 8, block 8): 1e-4 relative,
+    # the kernel's online softmax against the plain two-pass one
+    for b, nb, lengths in ((3, 4, [5, 16, 32]), (4, 4, [1, 9, 30, 2]),
+                           (3, 6, [48, 17, 8])):
+        probs, t, ln = _mla_problem(g, b=b, h=4, kvr=32, rope=8, bs=8,
+                                    nb=nb, lengths=lengths,
+                                    dtype=torch.float32)
+        ql, qr, ckv, kr = probs[0]
+        scale = (16 + 8) ** -0.5
+        out = pa.paged_mla(ql, qr, ckv, kr, t, ln, scale=scale)
+        torch.cuda.synchronize()
+        ref = pa.paged_mla_reference(ql, qr, ckv, kr, t, ln, scale=scale)
+        _, rel = rel_err(out, ref)
+        check(out.shape == ref.shape and rel <= 1e-4,
+              f"paged_mla fp32 lengths={lengths}: rel {rel}")
+        worst = max(worst, rel)
+    emit({"phase": 1, "op": "paged_mla", "dtype": "float32",
+          "heads": 4, "kv_lora_rank": 32, "rope_head_dim": 8,
+          "max_rel_err": worst, "tol": 1e-4})
+    # deepseek-v3-671b widths: 128 heads, kvr 512, rope 64, block 16, a
+    # bf16 pool and q_rope, fp32 q_lat; 4 rows at lengths up to 256.
+    # 2e-2 relative against the plain version on the same values (bf16
+    # inputs, fp32 math on both sides: the tolerance of the bf16 rows).
+    # 32 copies (~100 MB) cycle so the 50 MB L2 starts cold, as after a
+    # layer's experts have streamed through it.
+    lengths = [256, 241, 200, 129]
+    h, kvr, rope, bs = 128, 512, 64, 16
+    scale = (128 + rope) ** -0.5
+    probs, t, ln = _mla_problem(g, b=4, h=h, kvr=kvr, rope=rope, bs=bs,
+                                nb=16, lengths=lengths,
+                                dtype=torch.bfloat16, copies=32)
+    ql, qr, ckv, kr = probs[0]
+    out = pa.paged_mla(ql, qr, ckv, kr, t, ln, scale=scale)
+    torch.cuda.synchronize()
+    ref = pa.paged_mla_reference(ql, qr, ckv, kr, t, ln, scale=scale)
+    err, rel = rel_err(out, ref)
+    check(rel <= 2e-2, f"paged_mla bf16: rel {rel}")
+    it = {"i": 0}
+
+    def run(fn):
+        def call():
+            a, q2, c, k = probs[it["i"] % len(probs)]
+            it["i"] += 1
+            fn(a, q2, c, k, t, ln, scale=scale)
+        return call
+
+    live = sum(lengths)
+    nbytes = (4 * ql.numel() + 2 * qr.numel()       # q_lat fp32, q_rope
+              + 2 * live * (kvr + rope)              # live pool rows
+              + 4 * t.numel() + 4 * ln.numel()       # tables, lengths
+              + 4 * ql.numel())                      # ctx_lat fp32
+    ops = 2 * live * h * (kvr + rope) + 2 * live * h * kvr
+    b_ms, b_by = bound(nbytes, ops, torch.float32)
+    row = {"phase": 1, "op": "paged_mla", "arch": "deepseek-v3-671b",
+           "heads": h, "kv_lora_rank": kvr, "rope_head_dim": rope,
+           "block": bs, "pool_dtype": "bfloat16", "lengths": lengths,
+           "max_abs_err": err, "max_rel_err": rel, "tol": 2e-2,
+           "ms": cuda_ms(run(pa.paged_mla), iters=64),
+           "plain_ms": cuda_ms(run(pa.paged_mla_reference), iters=64),
+           "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+           "bytes": nbytes, "flops": ops}
+    emit(row)
+    return row
 
 
 def user_activation_ops(seed: int = 6) -> None:
@@ -662,23 +784,28 @@ def layer_plan(plan, layer: int):
             else coerce_layer_plan(plan))
 
 
-def expected_launches(plan, layers: int, decode: int, prefill: int,
-                      gated: bool = False) -> dict:
-    """Launches each kernel must count in a drain under ``plan``: per
-    layer and forward call, one MLP launch of the plan's route (two
-    products and one activation on the FLEXIBLE_DMA route; the gated
-    kernel under every plan for a gated MLP), and per layer and decode
-    call one paged_gqa launch unless the layer is FLEXIBLE_DMA
-    (gathered-view attention, no kernel)."""
+def expected_launches(plan, cfg, decode: int, prefill: int) -> dict:
+    """Launches each kernel must count in a drain of ``cfg`` under
+    ``plan``: per dense layer and forward call, one MLP launch of the
+    plan's route (two products and one activation on the FLEXIBLE_DMA
+    route; the gated kernel under every plan for a gated MLP; a MoE
+    layer's experts are plain products, no kernel), and per layer and
+    decode call one paged decode launch (paged_mla for MLA, else
+    paged_gqa) unless the layer is FLEXIBLE_DMA (gathered-view
+    attention, no kernel)."""
     from repro_torch.core.modes import ExecutionMode as M
+    from repro_torch.models.transformer import layer_kinds
 
     calls = decode + prefill
     want = dict.fromkeys(KERNELS, 0)
-    for i in range(layers):
+    attn = "paged_mla" if cfg.use_mla else "paged_gqa"
+    for i, kind in enumerate(layer_kinds(cfg)):
         lp = layer_plan(plan, i)
         if lp.mode is not M.FLEXIBLE_DMA:
-            want["paged_gqa"] += decode
-        if gated:
+            want[attn] += decode
+        if kind == "moe":
+            continue
+        if cfg.gated_mlp:
             want["sidebar_gated_mlp"] += calls
         elif lp.mode is M.FLEXIBLE_DMA:
             want["sidebar_matmul"] += 2 * calls
@@ -726,8 +853,8 @@ def serve(cfg, params, prompts, gen: int, *, phase: int, mode: str,
     toks = np.concatenate([r.tokens for r in done])
     st = srv.stats
     L = cfg.num_layers
-    want = expected_launches(srv.plan, L, calls["decode"], calls["prefill"],
-                             cfg.gated_mlp)
+    want = expected_launches(srv.plan, cfg, calls["decode"],
+                             calls["prefill"])
     row = {
         "phase": phase, "mode": mode, "arch": cfg.arch_id, "layers": L,
         "kv_cache_dtype": str(cfg.kv_cache_dtype).replace("torch.", ""),
@@ -783,19 +910,24 @@ FULL_SERVER = dict(device="cuda", num_slots=4, block_size=16, max_len=1024,
                    segment=8, kernel="paged")
 
 
-def full_width(phase: int, cfg, params, init_s: float) -> tuple[dict, list]:
+def full_width(phase: int, cfg, params, init_s: float,
+               seed: int | None = None) -> tuple[dict, list]:
     """The full-width traffic mix (8 requests of 32-256 tokens, every
     other one sharing a 128-token prefix, 32 greedy tokens each), drawn
-    from the phase's seed, through the paged server."""
+    from ``seed`` (default: the phase's), through the paged server."""
     from repro_torch import configs
 
-    prompts = traffic(phase, 8, cfg.vocab_size, shared=128, lo=32, hi=256)
+    prompts = traffic(phase if seed is None else seed, 8, cfg.vocab_size,
+                      shared=128, lo=32, hi=256)
     row, tokens = serve(cfg, params, prompts, 32, phase=phase,
                         mode="sidebar", **FULL_SERVER)
-    emit({"phase": phase, "arch": cfg.arch_id, "init_s": init_s,
-          "depth_cut": (cfg.num_layers
-                        != configs.get_config(cfg.arch_id).num_layers),
-          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    full = configs.get_config(cfg.arch_id).num_layers
+    info = {"phase": phase, "arch": cfg.arch_id, "init_s": init_s,
+            "depth_cut": cfg.num_layers != full,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if cfg.num_layers != full:
+        info["reduced"] = {"num_layers": f"{full} -> {cfg.num_layers}"}
+    emit(info)
     return row, tokens
 
 
@@ -887,6 +1019,11 @@ def smoke_routes(arch: str) -> None:
 
     cfg = dataclasses.replace(configs.get_smoke_config(arch),
                               use_pallas=True)
+    if cfg.num_experts:
+        # no-drop capacity, as the JAX package's paged gates run MoE:
+        # chunk boundaries must not change expert routing
+        cfg = dataclasses.replace(cfg,
+                                  capacity_factor=float(cfg.num_experts))
     params = transformer.init(cfg, seed=0, device="cuda")
     prompts = traffic(4, 6, cfg.vocab_size, shared=16, lo=4, hi=30)
     la, ta = _capture(cfg, params, prompts, 12, kernel="paged")
@@ -911,9 +1048,10 @@ def smoke_routes(arch: str) -> None:
         check(same and len(la) == len(lb) and err <= 1e-4,
               f"phase 4: {cfg.arch_id} {name} disagrees with the paged "
               "SIDEBAR route")
+        attn = "paged_mla" if cfg.use_mla else "paged_gqa"
         if cfg.gated_mlp:
             check(counts["sidebar_gated_mlp"] > 0
-                  and (counts["paged_gqa"] > 0) == (
+                  and (counts[attn] > 0) == (
                       name in ("sidebar_pipelined_d2",
                                "mixed_dma_pipelined_d3")),
                   f"phase 4: {cfg.arch_id} {name} launched {counts}")
@@ -925,7 +1063,7 @@ def smoke_routes(arch: str) -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="0,1,2,3,4,5,6",
+    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7",
                     help="comma-separated subset of phases to run")
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the depth of the full-width phases 2 and 5")
@@ -961,6 +1099,7 @@ def main() -> None:
         rows["sidebar_matmul"] = matmul_ops()
         rows["activation"] = activation_ops()
         rows["sidebar_gated_mlp"] = gated_ops()
+        rows["paged_mla"] = mla_ops()
         user_activation_ops()
     served = {}
     if phases & {2, 5}:
@@ -979,20 +1118,31 @@ def main() -> None:
     if 4 in phases:
         smoke_routes("nemotron-4-15b")
         smoke_routes("deepseek-7b")
+        smoke_routes("deepseek-v3-671b")
     if 6 in phases:
         torch.cuda.reset_peak_memory_stats()
         cfg, params, init_s = full_width_params(None, arch="deepseek-7b")
         served["deepseek_7b"], _ = full_width(6, cfg, params, init_s)
         del params
         torch.cuda.empty_cache()
-    if len(served) == 5 and len(rows) == len(KERNELS):
+    if 7 in phases:
+        # deepseek-v3-671b at full width, cut to its 3 dense + 2 MoE
+        # layers (all 256 experts): FULL's 61 layers do not fit one card
+        torch.cuda.reset_peak_memory_stats()
+        cfg, params, init_s = full_width_params(5, arch="deepseek-v3-671b")
+        served["deepseek_v3"], _ = full_width(7, cfg, params, init_s,
+                                              seed=6)
+        del params
+        torch.cuda.empty_cache()
+    if len(served) == 6 and len(rows) == len(KERNELS):
         # launches: the drain of the main path (phase 2), of the mode
         # (phase 5) or of the model (phase 6) that runs the kernel
         run_of = {"sidebar_mlp": "sidebar", "paged_gqa": "sidebar",
                   "sidebar_mlp_pipelined": "sidebar_pipelined_d2",
                   "sidebar_matmul": "flexible_dma",
                   "activation": "flexible_dma",
-                  "sidebar_gated_mlp": "deepseek_7b"}
+                  "sidebar_gated_mlp": "deepseek_7b",
+                  "paged_mla": "deepseek_v3"}
         sources = {
             "sidebar_mlp": ("sidebar_mlp.cu",
                             "src/repro/kernels/sidebar_mlp.py:171"),
@@ -1008,6 +1158,8 @@ def main() -> None:
             "sidebar_gated_mlp": (
                 "sidebar_gated_mlp.cu",
                 "src/repro/kernels/sidebar_gated_mlp.py:87"),
+            "paged_mla": ("paged_mla.cu",
+                          "src/repro/kernels/paged_attention.py:336"),
         }
         kernels = []
         for name in KERNELS:

@@ -2,12 +2,13 @@
 
 from __future__ import annotations
 
-from repro_torch.configs import deepseek_7b, nemotron_4_15b
+from repro_torch.configs import deepseek_7b, deepseek_v3_671b, nemotron_4_15b
 from repro_torch.configs.base import ModelConfig
 
 _MODULES = {
     "nemotron-4-15b": nemotron_4_15b,
     "deepseek-7b": deepseek_7b,
+    "deepseek-v3-671b": deepseek_v3_671b,
 }
 
 ARCH_IDS = tuple(_MODULES)

@@ -45,6 +45,7 @@ SOURCES = {
     "sidebar_matmul": "sidebar_matmul.cu",
     "activation": "activation.cu",
     "sidebar_gated_mlp": "sidebar_gated_mlp.cu",
+    "paged_mla": "paged_mla.cu",
 }
 # the kernels that apply a function-table entry (csrc/activation.cuh)
 ACTIVATION_KERNELS = ("sidebar_mlp", "sidebar_mlp_pipelined",

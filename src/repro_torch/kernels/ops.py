@@ -1,8 +1,8 @@
 """Public entry points of the port's kernels (mirror of
 ``repro.kernels.ops``: the ambient execution plan, ``layer_scope``,
 ``record_dispatches`` and the ``sidebar_mlp`` / ``sidebar_gated_mlp`` /
-``sidebar_matmul`` / ``host_activation`` / ``paged_attention_gqa``
-ops).
+``sidebar_matmul`` / ``host_activation`` / ``paged_attention_gqa`` /
+``paged_attention_mla`` ops).
 
 Each op resolves the ambient plan for the current layer, records its
 dispatch, and calls the kernel wrapper for that plan's route — which
@@ -10,7 +10,7 @@ launches the Hopper kernel for a CUDA tensor and takes the plain version
 for a CPU tensor. Every ``ExecutionMode`` is served:
 
   * ``SIDEBAR`` / ``MONOLITHIC``: the fused serial MLP kernel and the
-    paged decode kernel;
+    paged decode kernel (GQA or MLA);
   * ``SIDEBAR_PIPELINED``: the T-deep ring MLP kernel at the plan's
     depth, and the paged decode kernel;
   * ``FLEXIBLE_DMA``: the unfused MLP (producer ``sidebar_matmul``,
@@ -48,7 +48,12 @@ from repro_torch.kernels import build
 # kernel wrappers themselves, which take the plain version for a CPU
 # tensor.
 from repro_torch.kernels.activations import activation as host_activation
-from repro_torch.kernels.paged_attention import paged_gqa, paged_gqa_reference
+from repro_torch.kernels.paged_attention import (
+    paged_gqa,
+    paged_gqa_reference,
+    paged_mla,
+    paged_mla_reference,
+)
 from repro_torch.kernels.sidebar_gated_mlp import (
     sidebar_gated_mlp as _gated_kernel,
 )
@@ -250,3 +255,32 @@ def paged_attention_gqa(
     _record("paged_attention", plan.mode, plan.depth,
             "paged" if q.is_cuda else "ref", q.is_cuda)
     return paged_gqa(q, k_pool, v_pool, block_tables, lengths, **kw)
+
+
+def paged_attention_mla(
+    q_lat: Tensor,                # (B, H, kvr) fp32 — q @ absorbed w_uk
+    q_rope: Tensor,               # (B, H, rope)
+    ckv_pool: Tensor,             # (P, bs, kvr) pooled latent blocks
+    krope_pool: Tensor,           # (P, bs, rope)
+    block_tables: Tensor,         # (B, nb) int32, host-validated in-bounds
+    lengths: Tensor,              # (B,) int32 — row attends kpos < length
+    *,
+    scale: float,
+    compute_dtype: torch.dtype | None = None,
+) -> Tensor:
+    """Paged MLA absorbed decode; returns ctx_lat (B, H, kvr) fp32. Same
+    dispatch contract as ``paged_attention_gqa``: in place on the pool
+    (variant "paged" on the card, "ref" on the CPU), or the gathered
+    dense view for a layer planned FLEXIBLE_DMA (variant "dma"). The
+    w_uk projection (before) and the w_uv absorption (after) stay with
+    the model."""
+    plan = current_plan()
+    kw = dict(scale=scale, compute_dtype=compute_dtype)
+    if plan.mode is ExecutionMode.FLEXIBLE_DMA:
+        _record("paged_attention", plan.mode, plan.depth, "dma", False)
+        return paged_mla_reference(q_lat, q_rope, ckv_pool, krope_pool,
+                                   block_tables, lengths, **kw)
+    _record("paged_attention", plan.mode, plan.depth,
+            "paged" if q_lat.is_cuda else "ref", q_lat.is_cuda)
+    return paged_mla(q_lat, q_rope, ckv_pool, krope_pool, block_tables,
+                     lengths, **kw)

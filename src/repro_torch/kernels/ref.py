@@ -85,6 +85,30 @@ def attend_direct_offset(q: Tensor, k: Tensor, v: Tensor, group: int,
     return out.reshape(b, h, s, v.shape[-1]).to(q.dtype)
 
 
+def attend_mla_absorbed(q_lat: Tensor, q_rope: Tensor, c_kv: Tensor,
+                        k_rope: Tensor, end, scale: float) -> Tensor:
+    """MLA absorbed decode on a dense view (mirror of the absorbed branch
+    of ``repro.models.attention.mla_attention``): q_lat (B, H, kvr)
+    fp32 and q_rope (B, H, rope) against c_kv (B, T, kvr) and k_rope
+    (B, T, rope); ``end`` is the last visible position, scalar or per
+    row (B,). Logits = (q_lat . c_kv + q_rope . k_rope) * scale in fp32,
+    -1e30 at positions past ``end``, softmax, ctx = p . c_kv. Returns
+    ctx_lat (B, H, kvr) fp32."""
+    ckv = c_kv.float()
+    logits = (dot(q_lat.float(), ckv.transpose(-1, -2))
+              + dot(q_rope.float(), k_rope.float().transpose(-1, -2))
+              ) * scale                                       # (B, H, T)
+    t = ckv.shape[1]
+    kpos = torch.arange(t, device=q_lat.device)
+    if rowwise_pos(end):
+        mask = kpos[None, None, :] <= end.to(q_lat.device)[:, None, None]
+    else:
+        mask = kpos <= int(end)
+    logits = torch.where(mask, logits,
+                         torch.full((), NEG_INF, device=q_lat.device))
+    return dot(softmax(logits), ckv)
+
+
 def _resolve(activation: str | Callable, table: FunctionTable) -> Callable:
     if callable(activation):
         return activation

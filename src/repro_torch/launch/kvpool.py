@@ -10,10 +10,14 @@ spare scratch rows (speculative decoding), affinity probes (the router)
 and the fault hook.
 
 Device side, ``KVPool`` holds the model's own per-layer cache at
-``batch = num_blocks + 1`` and ``max_len = block_size``: every leaf
-(k, v: (P+1, Hkv, bs, Dh); int8 scales: (P+1, Hkv, bs)) has its block
-axis first and its position axis third. The extra row P is the drop
-sink of out-of-table writes (``models.attention``); no table names it.
+``batch = num_blocks + 1`` and ``max_len = block_size``: every leaf has
+its block axis first, and its position axis where the family keeps it
+(GQA k, v: (P+1, Hkv, bs, Dh) and int8 scales (P+1, Hkv, bs): axis 2;
+MLA c_kv, k_rope: (P+1, bs, r): axis 1). ``length_axes`` finds each
+leaf's position axis from the model's cache shapes, as the JAX package's
+``probe_length_axes`` does, so ``gather_blocks``, ``scatter_blocks`` and
+``copy_blocks`` serve every family. The extra row P is the drop sink of
+out-of-table writes (``models.attention``); no table names it.
 """
 
 from __future__ import annotations
@@ -32,9 +36,6 @@ from repro_torch.kernels import ops as kops
 # padded tail of every table point at it, so dead writes land in junk
 # that no unmasked read ever sees.
 SCRATCH_BLOCK = 0
-
-# every pool leaf: blocks on axis 0, positions inside a block on axis 2
-POS_AXIS = 2
 
 
 class KVPoolError(RuntimeError):
@@ -239,15 +240,36 @@ class BlockAllocator:
 # ---------------------------------------------------------------------------
 
 
+def length_axes(api, cfg) -> list[dict[str, int]]:
+    """Each cache leaf's position (length) axis, per layer: the axis
+    whose extent follows ``max_len`` in the model's cache shapes
+    (``probe_length_axes`` of the JAX package)."""
+    def axis(a, b):
+        diff = [i for i, (x, y) in enumerate(zip(a[0], b[0])) if x != y]
+        if len(diff) != 1:
+            raise ValueError(f"cannot find the length axis of {a[0]}")
+        return diff[0]
+
+    s16, s32 = api.cache_shapes(cfg, 1, 16), api.cache_shapes(cfg, 1, 32)
+    return [{name: axis(l16[name], l32[name]) for name in l16}
+            for l16, l32 in zip(s16, s32)]
+
+
+def _device(cache: list) -> torch.device:
+    return next(iter(cache[0].values())).device
+
+
 class KVPool:
     """The physical pooled cache: ``cache`` is the model's per-layer
     cache with ``num_blocks + 1`` rows of ``block_size`` positions (the
-    last row is the drop sink)."""
+    last row is the drop sink); ``pos_axes`` its leaves' position axes
+    (``length_axes``)."""
 
     def __init__(self, api, cfg, *, num_blocks: int, block_size: int,
                  device) -> None:
         self.num_blocks = int(num_blocks)
         self.block_size = int(block_size)
+        self.pos_axes = length_axes(api, cfg)
         self.cache = api.init_cache(cfg, self.num_blocks + 1,
                                     self.block_size, device=device)
 
@@ -255,7 +277,7 @@ class KVPool:
         """pool[src] -> pool[dst] on every leaf (copy-on-write)."""
         if not dst:
             return
-        dev = self.cache[0]["k"].device
+        dev = _device(self.cache)
         d = torch.as_tensor(dst, device=dev)
         s = torch.as_tensor(src, device=dev)
         for layer in self.cache:
@@ -263,35 +285,38 @@ class KVPool:
                 leaf[d] = leaf[s]
 
 
-def gather_blocks(cache: list, tables) -> list:
-    """Pool -> dense slab view per layer: each leaf's (nb, bs) pair of
-    block and position axes merges into one length axis of nb * bs."""
+def gather_blocks(cache: list, tables, pos_axes: list) -> list:
+    """Pool -> dense slab view per layer: each leaf's block axis moves
+    next to its position axis (``pos_axes``, per layer and leaf) and the
+    (nb, bs) pair merges into one length axis of nb * bs."""
     kops.record_dispatch("gather_blocks", "dma")
+    t = torch.as_tensor(tables, device=_device(cache)).long()
     out = []
-    for layer in cache:
-        t = torch.as_tensor(tables, device=layer["k"].device).long()
+    for layer, axes in zip(cache, pos_axes):
         dense = {}
         for name, leaf in layer.items():
-            g = leaf[t].movedim(1, 2)            # (B, Hkv, nb, bs, ...)
-            dense[name] = g.reshape(*g.shape[:2], -1, *g.shape[4:])
+            ax = axes[name]
+            g = leaf[t].movedim(1, ax)           # (B, ..., nb, bs, ...)
+            dense[name] = g.reshape(*g.shape[:ax], -1, *g.shape[ax + 2:])
         out.append(dense)
     return out
 
 
-def scatter_blocks(cache: list, dense: list, tables) -> None:
+def scatter_blocks(cache: list, dense: list, tables,
+                   pos_axes: list) -> None:
     """Dense slab view -> pool, in place: the inverse of
     ``gather_blocks``. Blocks shared between rows receive the values
     they already hold (decode writes only exclusive blocks) and
     duplicate scratch entries receive junk nothing reads, so the order
     of duplicate writes does not matter."""
     kops.record_dispatch("scatter_blocks", "dma")
-    for layer, dlayer in zip(cache, dense):
-        t = torch.as_tensor(tables, device=layer["k"].device).long()
-        nb = t.shape[1]
+    t = torch.as_tensor(tables, device=_device(cache)).long()
+    nb = t.shape[1]
+    for layer, dlayer, axes in zip(cache, dense, pos_axes):
         for name, leaf in layer.items():
-            g = dlayer[name]
-            bs = leaf.shape[POS_AXIS]
-            g = g.reshape(*g.shape[:2], nb, bs, *g.shape[3:]).movedim(2, 1)
+            ax, g = axes[name], dlayer[name]
+            g = g.reshape(*g.shape[:ax], nb, leaf.shape[ax],
+                          *g.shape[ax + 1:]).movedim(ax, 1)
             leaf[t] = g.to(leaf.dtype)
 
 

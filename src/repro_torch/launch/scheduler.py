@@ -8,10 +8,11 @@ What the paged server does, as in the JAX package:
   * **Paged KV** — one physical block pool (``launch.kvpool``); each
     request maps its positions onto pooled blocks through a block table.
     ``kernel="paged"`` (default) decodes IN PLACE on the pool through
-    ``kernels.ops.paged_attention_gqa`` with tables sliced to the active
-    frontier; ``kernel="slab"`` gathers the tables' blocks into a dense
-    slab view per segment, decodes on it and scatters them back (the
-    reference route).
+    ``kernels.ops.paged_attention_gqa`` (or ``paged_attention_mla`` for
+    the MLA family) with tables sliced to the active frontier;
+    ``kernel="slab"`` gathers the tables' blocks into a dense slab view
+    per segment, decodes on it and scatters them back (the reference
+    route).
   * **Prefix caching** — full prompt blocks are hash-consed; a request
     whose prompt starts with a served prefix splices those blocks.
   * **Chunked prefill-ahead** — pending requests' prompt KV stages in
@@ -572,7 +573,7 @@ class PagedContinuousBatchingServer(ContinuousBatchingServer):
             cache = pool
         else:
             bt_dev = self._validated(tables)
-            cache = kvp.gather_blocks(pool, bt_dev)
+            cache = kvp.gather_blocks(pool, bt_dev, self.mgr.pool.pos_axes)
         pos_dev = torch.as_tensor(pos, device=self.device)
         buf = torch.empty((self.num_slots, steps), dtype=torch.int32,
                           device=self.device)
@@ -590,7 +591,7 @@ class PagedContinuousBatchingServer(ContinuousBatchingServer):
             buf[:, i] = nxt[:, 0]
             tok = nxt.long()
         if self.kernel != "paged":
-            kvp.scatter_blocks(pool, cache, bt_dev)
+            kvp.scatter_blocks(pool, cache, bt_dev, self.mgr.pool.pos_axes)
         self._toks = tok
         return buf
 

@@ -3,9 +3,10 @@ rope, linears, embeddings and the seeded initializer.
 
 Parameters are plain dicts of tensors. ``init_leaf`` draws one with the
 scales of the JAX package's ``materialize`` (``1/sqrt(fan_in)`` for
-matrices, 0.02 for the embedding, ones for norms) from a
-``torch.Generator``; the numbers differ from ``jax.random``'s, so tests
-that compare the two load JAX's weights through ``repro_torch.bridge``.
+matrices, fan-in the second-to-last axis, 0.02 for the embedding, ones
+for norms) from a ``torch.Generator``; the numbers differ from
+``jax.random``'s, so tests that compare the two load JAX's weights
+through ``repro_torch.bridge``.
 """
 
 from __future__ import annotations
@@ -28,6 +29,16 @@ def init_leaf(shape: tuple[int, ...], init: str, dtype: torch.dtype, *,
         return torch.ones(shape, dtype=dtype, device=device)
     std = 0.02 if init == "embed" else 1.0 / math.sqrt(
         shape[-2] if len(shape) >= 2 else max(shape[-1], 1))
+    if len(shape) >= 3:
+        # a stack with a leading (expert) axis: one slice at a time into
+        # the target dtype, so the fp32 draw never holds the whole stack
+        # (a 7.5 GB bf16 expert stack would need 30 GB of fp32 at once)
+        out = torch.empty(shape, dtype=dtype, device=device)
+        for i in range(shape[0]):
+            w = torch.randn(shape[1:], generator=generator,
+                            dtype=torch.float32, device=device)
+            out[i] = (w * std).to(dtype)
+        return out
     w = torch.randn(shape, generator=generator, dtype=torch.float32,
                     device=device)
     return (w * std).to(dtype)

@@ -1,5 +1,6 @@
 """Model registry: family -> model API (mirror of
-``repro.models.registry``, dense family only)."""
+``repro.models.registry``, for the ported families: dense and moe, both
+the transformer)."""
 
 from __future__ import annotations
 

@@ -1,5 +1,7 @@
-"""Dense GQA transformer LM (mirror of the dense branch of
-``repro.models.transformer``).
+"""Decoder-only transformer LM (mirror of the dense and MoE branches of
+``repro.models.transformer``): GQA or MLA attention, then a dense MLP or
+a MoE block, by the layer plan (``first_dense_layers`` dense blocks, then
+MoE blocks, for a config with experts).
 
 Model API (see ``registry.py``):
 
@@ -11,8 +13,10 @@ Model API (see ``registry.py``):
   decode_step(params, cfg, tokens, cache, pos, ...) -> (logits, cache)
 
 Layout: ``params["layers"]`` and the cache are LISTS of per-layer dicts
-(the JAX package stacks layers on a leading L axis for its scan;
-``repro_torch.bridge`` converts). Every layer runs under
+in layer order (the JAX package stacks each kind of layer on a leading
+L axis for its scan, ``blocks["dense"]`` then ``blocks["moe"]``;
+``repro_torch.bridge`` converts). A dense layer's dict holds ``mlp``, a
+MoE layer's ``moe``. Every layer runs under
 ``kops.layer_scope(i)``, so a layer-indexed ``ExecutionPlan`` resolves
 per layer. Cache updates are in place.
 """
@@ -28,31 +32,60 @@ from repro_torch.kernels import ops as kops
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as L
 from repro_torch.models.mlp import mlp, mlp_param_shapes
+from repro_torch.models.moe import moe, moe_param_shapes
 
 Tensor = torch.Tensor
 
 
+FAMILIES = ("dense", "moe")
+
+
 def check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (the port serves "
-            "the dense GQA family)")
+            f"{', '.join(FAMILIES)})")
+
+
+def layer_plan(cfg: ModelConfig) -> list[tuple[str, int]]:
+    """[(kind, count)] in layer order (``_layer_plan`` of the JAX
+    package): with experts, ``first_dense_layers`` dense blocks, then
+    MoE blocks."""
+    if cfg.num_experts:
+        plan = []
+        if cfg.first_dense_layers:
+            plan.append(("dense", cfg.first_dense_layers))
+        plan.append(("moe", cfg.num_layers - cfg.first_dense_layers))
+        return plan
+    return [("dense", cfg.num_layers)]
+
+
+def layer_kinds(cfg: ModelConfig) -> list[str]:
+    """The kind of each layer, by global layer index."""
+    return [kind for kind, n in layer_plan(cfg) for _ in range(n)]
 
 
 def param_shapes(cfg: ModelConfig) -> dict:
     """name -> ((shape), initializer), with ``layers`` a list."""
     check_family(cfg)
     d = cfg.d_model
-    block = {
-        "attn_norm": ((d,), "ones"),
-        "mlp_norm": ((d,), "ones"),
-        "attn": attn_lib.gqa_param_shapes(cfg),
-        "mlp": mlp_param_shapes(cfg),
-    }
+
+    def block(kind):
+        out = {
+            "attn_norm": ((d,), "ones"),
+            "mlp_norm": ((d,), "ones"),
+            "attn": attn_lib.attn_param_shapes(cfg),
+        }
+        if kind == "moe":
+            out["moe"] = moe_param_shapes(cfg)
+        else:
+            out["mlp"] = mlp_param_shapes(cfg)
+        return out
+
     return {
         "embed": ((L.padded_vocab(cfg.vocab_size), d), "embed"),
         "final_norm": ((d,), "ones"),
-        "layers": [block] * cfg.num_layers,
+        "layers": [block(kind) for kind in layer_kinds(cfg)],
     }
 
 
@@ -93,13 +126,16 @@ def _run_stack(params, cfg, x, positions, *, table, caches=None,
     for i, p in enumerate(params["layers"]):
         with kops.layer_scope(i):
             h = L.rms_norm(x, p["attn_norm"], cfg.norm_eps)
-            a, _ = attn_lib.gqa_attention(
+            a, _ = attn_lib.attention(
                 p["attn"], cfg, h, positions,
                 cache=caches[i] if caches is not None else None,
                 cache_pos=cache_pos, block_tables=block_tables)
             x = x + a
             h = L.rms_norm(x, p["mlp_norm"], cfg.norm_eps)
-            x = x + mlp(p["mlp"], cfg, h, table=table)
+            if "moe" in p:
+                x = x + moe(p["moe"], cfg, h, table=table)
+            else:
+                x = x + mlp(p["mlp"], cfg, h, table=table)
     return x
 
 

@@ -10,7 +10,8 @@
     that holds nothing else of the repository;
   * on the card (tests marked ``gpu``, skipped without one): each CUDA
     kernel against its plain version (the gated MLP at deepseek-7b's
-    widths, paged decode at group 1), a run-time activation with a
+    widths, paged decode at group 1, MLA absorbed decode at deepseek-
+    v3's widths with fp32 and bf16 pools), a run-time activation with a
     ``device_expr`` through every kernel that takes an activation, and
     the wrappers' refusals. They
     live here because this file imports no JAX, which the card's
@@ -54,7 +55,8 @@ def test_no_jax_and_no_repro_imports(path):
 def test_scan_sees_the_whole_port():
     names = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
     assert {"kernels/sidebar_mlp.py", "kernels/paged_attention.py",
-            "launch/scheduler.py", "bridge.py"} <= names
+            "launch/scheduler.py", "bridge.py", "models/moe.py",
+            "models/attention.py"} <= names
 
 
 def test_import_needs_no_nvcc_no_triton_and_builds_nothing(tmp_path):
@@ -445,3 +447,82 @@ def test_entry_without_device_expr_raises_on_the_card(cuda, name):
     ops = _gated_problem(16, 4, 64, 128, cuda)
     with pytest.raises(NotImplementedError, match="device_expr"):
         kernel(*ops, "mish", table)
+
+
+def _mla_problem(seed, *, b, h, kvr, rope, bs, nb, lengths, device, dtype):
+    """An MLA pool with ragged lengths, a duplicated (prefix-shared)
+    block and scratch-padded tails; q_lat fp32, q_rope in ``dtype``."""
+    rng = np.random.RandomState(seed)
+    P = b * nb + 1
+    tables = rng.randint(1, P, size=(b, nb)).astype(np.int32)
+    for r, ln in enumerate(lengths):
+        tables[r, -(-ln // bs):] = 0
+    tables[1, 2] = tables[1, 1]
+    ql = (rng.randn(b, h, kvr) / np.sqrt(kvr)).astype(np.float32)
+    qr, ckv, kr = (rng.randn(*shape).astype(np.float32) for shape in
+                   ((b, h, rope), (P, bs, kvr), (P, bs, rope)))
+    q_lat = torch.from_numpy(ql).to(device)
+    rest = [torch.from_numpy(a).to(device=device, dtype=dtype)
+            for a in (qr, ckv, kr)]
+    return (q_lat, *rest, torch.from_numpy(tables).to(device),
+            torch.from_numpy(np.asarray(lengths, np.int32)).to(device))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", ["smoke", "full"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32_pool", "bf16_pool"])
+def test_paged_mla_kernel_matches_plain(cuda, shape, dtype):
+    """deepseek-v3's absorbed decode: smoke widths (4 heads, kvr 32,
+    rope 8, block 8) and full ones (128 heads, kvr 512, rope 64, block
+    16, lengths up to 256). Both sides do fp32 math on the same values
+    (the kernel online, the plain version in two passes): 1e-4."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import paged_attention as pa
+
+    if shape == "smoke":
+        dims = dict(b=3, h=4, kvr=32, rope=8, bs=8, nb=4,
+                    lengths=[5, 17, 32])
+    else:
+        dims = dict(b=4, h=128, kvr=512, rope=64, bs=16, nb=16,
+                    lengths=[256, 241, 200, 129])
+    ops = _mla_problem(17, device=cuda, dtype=dtype, **dims)
+    scale = (dims["rope"] + 128) ** -0.5
+    before = build.launches["paged_mla"]
+    out = pa.paged_mla(*ops, scale=scale)
+    ref = pa.paged_mla_reference(*ops, scale=scale)
+    assert out.dtype == torch.float32 and out.shape == ref.shape
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+    assert build.launches["paged_mla"] == before + 1
+    assert torch.equal(out, pa.paged_mla(*ops, scale=scale))
+
+
+@pytest.mark.gpu
+def test_paged_mla_rejects_what_it_does_not_take(cuda):
+    from repro_torch.kernels import paged_attention as pa
+
+    ql, qr, ckv, kr, t, ln = _mla_problem(
+        18, b=3, h=4, kvr=32, rope=8, bs=8, nb=4, lengths=[5, 17, 32],
+        device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="q_lat"):
+        pa.paged_mla(ql.bfloat16(), qr, ckv, kr, t, ln, scale=1.0)
+    with pytest.raises(TypeError):
+        pa.paged_mla(ql, qr, ckv, kr.float(), t, ln, scale=1.0)
+    with pytest.raises(TypeError):
+        pa.paged_mla(ql, qr, ckv.to(torch.int8), kr.to(torch.int8), t, ln,
+                     scale=1.0)
+    with pytest.raises(ValueError, match="int32"):
+        pa.paged_mla(ql, qr, ckv, kr, t.long(), ln, scale=1.0)
+    with pytest.raises(ValueError, match="MLA shapes"):
+        pa.paged_mla(ql, qr, ckv[..., :16].contiguous(), kr, t, ln,
+                     scale=1.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        pa.paged_mla(ql.transpose(0, 1).contiguous().transpose(0, 1), qr,
+                     ckv, kr, t, ln, scale=1.0)
+    with pytest.raises(ValueError, match="different devices"):
+        pa.paged_mla(ql, qr, ckv, kr, t, ln.cpu(), scale=1.0)
+    # widths outside the kernel's limits: a rope of 4 bf16 values is not
+    # a whole 16-byte vector
+    with pytest.raises(ValueError, match="kvr <= 512"):
+        pa.paged_mla(ql, qr[..., :4].contiguous(), ckv,
+                     kr[..., :4].contiguous(), t, ln, scale=1.0)

@@ -194,7 +194,8 @@ def test_ops_record_plain_route_on_cpu():
         ("paged_attention", "ref", False), ("sidebar_mlp", "ref", False)]
     assert kops.launch_counts() == {
         "sidebar_mlp": 0, "paged_gqa": 0, "sidebar_mlp_pipelined": 0,
-        "sidebar_matmul": 0, "activation": 0, "sidebar_gated_mlp": 0}
+        "sidebar_matmul": 0, "activation": 0, "sidebar_gated_mlp": 0,
+        "paged_mla": 0}
 
 
 @pytest.mark.parametrize("mode", [ExecutionMode.SIDEBAR_PIPELINED,

@@ -181,11 +181,15 @@ def test_mask_pad_logits_and_padded_vocab():
 
 def test_unported_paths_raise():
     """A family not ported yet raises. The gated MLP raised here until
-    ``sidebar_gated_mlp`` was ported; it now computes."""
+    ``sidebar_gated_mlp`` was ported, and the moe family until MoE and
+    MLA were; both compute now."""
     cfg = dataclasses.replace(tcfg.get_smoke_config("nemotron-4-15b"),
                               gated_mlp=True)
     with pytest.raises(NotImplementedError, match="family"):
-        T.param_shapes(dataclasses.replace(cfg, family="moe"))
+        T.param_shapes(dataclasses.replace(cfg, family="ssm"))
+    assert T.layer_kinds(dataclasses.replace(
+        cfg, family="moe", num_experts=4, experts_per_token=2,
+        first_dense_layers=1)) == ["dense", "moe"]
     params = {name: torch.zeros(shape) for name, (shape, _)
               in mlp_param_shapes(cfg).items()}
     assert set(params) == {"w_gate", "w_up", "w_down"}

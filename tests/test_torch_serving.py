@@ -290,13 +290,14 @@ def test_gather_scatter_roundtrip(models):
             leaf.copy_(torch.randn(leaf.shape))
     before = [{k: v.clone() for k, v in layer.items()} for layer in pool]
     tables = torch.tensor([[1, 3], [2, 5]])
-    dense = kvp.gather_blocks(pool, tables)
+    axes = kvp.length_axes(T, ct)
+    dense = kvp.gather_blocks(pool, tables, axes)
     assert dense[0]["k"].shape == (2, ct.num_kv_heads, 8, ct.head_dim)
     assert torch.equal(dense[0]["k"][1, :, 4:], pool[0]["k"][5])
     for layer in pool:
         for leaf in layer.values():
             leaf.zero_()
-    kvp.scatter_blocks(pool, dense, tables)
+    kvp.scatter_blocks(pool, dense, tables, axes)
     for b, a in zip(before, pool):
         for name in a:
             assert torch.equal(a[name][[1, 2, 3, 5]], b[name][[1, 2, 3, 5]])
