@@ -17,13 +17,16 @@ exits non-zero):
      several activations and epilogues, the rowwise softmax and rmsnorm)
      and nemotron-4-15b, deepseek-7b and deepseek-v3-671b shapes in
      bf16, fp and int8 KV (paged decode at group 6 and at group 1; MLA
-     absorbed decode at 128 heads, kvr 512) — with the kernel's time,
+     absorbed decode at 128 heads, kvr 512; flash attention at S = T =
+     4096 with nemotron's 48 / 8 and deepseek-7b's 32 / 32 heads) —
+     with the kernel's time,
      the plain version's time, the bound of the work and the time of one
      PyTorch call of the same function where there is one; the ring MLP
      at depths 1-4, bitwise equal across depths; and the run-time
      activation check: mish registered with a ``device_expr`` on a fresh
      function table, through all five wrappers that take an activation,
-     and an entry without one refused;
+     and an entry without one refused; and every CUDA wrapper's refusal
+     of an operand that requires grad (no kernel has a backward);
   2. nemotron-4-15b at full width (bf16 weights from a seed) served by
      ``PagedContinuousBatchingServer(kernel="paged")`` with the kernels
      on under the default SIDEBAR plan: 8 requests, half sharing a
@@ -50,7 +53,16 @@ exits non-zero):
      served like phase 6 on phase 6's traffic: decode attention through
      ``paged_mla`` in place on the compressed pool, the dense layers'
      MLP through the gated kernel, exact launch counts, no
-     ``gather_blocks``, tokens/s, TTFT and peak memory.
+     ``gather_blocks``, tokens/s, TTFT and peak memory;
+  8. the training path: (8a) ``forward`` and the loss of nemotron-4-15b
+     at full width and depth (phase 2's 32-layer weights) on one
+     4096-token sequence under ``no_grad``, with the kernels (exactly 32
+     ``flash_attention`` and 32 ``sidebar_mlp`` launches) and without
+     them (the chunked attention route), losses within 1e-2; (8b) three
+     ``make_train_step`` steps at full width cut to 2 layers (two
+     microbatches of 4096 tokens, remat, AdamW), with the kernels'
+     refusal under autograd; (8c) ``Trainer`` at the fp32 smoke size:
+     checkpoint, resume, and the uninterrupted run's losses.
 
 The line before the last holds the kernel table, the last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or of the JAX
@@ -80,11 +92,12 @@ PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # torch.cuda._sleep spins for a count of SM clock cycles (H100 SXM:
 # 1.98 GHz at most; a lower clock only lengthens the sleep)
 SLEEP_CYCLES_PER_S = 1.98e9
-D_MODEL, D_FF = 6144, 24576           # nemotron-4-15b
+D_MODEL, D_FF, D_LAYERS = 6144, 24576, 32   # nemotron-4-15b
 DS_MODEL, DS_FF = 4096, 11008         # deepseek-7b
 V3_MODEL, V3_FF = 7168, 18432         # deepseek-v3-671b's dense layers
 KERNELS = ("sidebar_mlp", "paged_gqa", "sidebar_mlp_pipelined",
-           "sidebar_matmul", "activation", "sidebar_gated_mlp", "paged_mla")
+           "sidebar_matmul", "activation", "sidebar_gated_mlp", "paged_mla",
+           "flash_attention")
 # the run-time activation of phase 0's variant builds and phase 1's check
 MISH_EXPR = "x * tanhf(log1pf(expf(x)))"
 
@@ -133,6 +146,18 @@ def bound(nbytes: float, ops: float, dtype) -> tuple[float, str]:
 def rel_err(out: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
     err = (out.float() - ref.float()).abs().max().item()
     return err, err / max(ref.float().abs().max().item(), 1e-30)
+
+
+def row_rel_err(out: torch.Tensor, ref: torch.Tensor
+                ) -> tuple[float, float]:
+    """The largest error, and the worst row's largest error over that
+    row's largest |ref| (rows along the last dim): each row is held to
+    its own scale, so rows of small values (late causal rows, which
+    average thousands of keys) are held as tightly as the large ones."""
+    o, r = out.float().flatten(0, -2), ref.float().flatten(0, -2)
+    err = (o - r).abs().amax(-1)
+    rel = err / r.abs().amax(-1).clamp_min(1e-30)
+    return err.max().item(), rel.max().item()
 
 
 def check(ok: bool, what: str) -> None:
@@ -668,6 +693,170 @@ def mla_ops(seed: int = 7) -> dict:
     return row
 
 
+# tests/test_kernels.py FLASH_CASES (B, Hq, Hkv, S, T, Dh, causal), plus
+# nemotron's smoke head_dim 8, a ragged S and T, and head_dim 96 (a
+# tensor-core head dim that is not a power of two)
+FLASH_SMOKE = ((2, 4, 4, 128, 128, 64, True), (1, 8, 2, 128, 128, 64, True),
+               (2, 4, 2, 128, 256, 32, True), (1, 4, 4, 128, 128, 128, False),
+               (1, 2, 1, 256, 256, 64, True), (2, 8, 2, 128, 128, 8, True),
+               (1, 4, 2, 100, 130, 16, True), (1, 4, 2, 128, 192, 96, True))
+
+
+def flash_ops(seed: int = 8) -> dict:
+    """flash_attention: the cache-free training forward's attention."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dev = "cuda"
+    worst = 0.0
+    # every check is per output row (row_rel_err). fp32: 1e-5 — both
+    # sides fp32 on the same values, the kernel's online softmax against
+    # the plain two-pass one
+    for b, hq, hkv, s, t, dh, causal in FLASH_SMOKE:
+        q = torch.randn(b, hq, s, dh, generator=g, device=dev) * 0.3
+        k = torch.randn(b, hkv, t, dh, generator=g, device=dev) * 0.3
+        v = torch.randn(b, hkv, t, dh, generator=g, device=dev) * 0.3
+        out = fa.flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        ref = fa.flash_attention_plain(q, k, v, causal=causal)
+        _, rel = row_rel_err(out, ref)
+        check(out.shape == ref.shape and rel <= 1e-5,
+              f"flash_attention fp32 {(b, hq, hkv, s, t, dh, causal)}: "
+              f"row rel {rel}")
+        worst = max(worst, rel)
+    emit({"phase": 1, "op": "flash_attention", "dtype": "float32",
+          "cases": FLASH_SMOKE, "max_row_rel_err": worst, "tol": 1e-5})
+    # the same cases in bf16: the tensor-core route at head_dim 16-128,
+    # the FMA route at head_dim 8; against the plain version on the same
+    # bf16 values (p rounded to bf16 on both sides; the kernel rounds
+    # the unnormalised p, the plain version the normalised one). 2e-2
+    # of the row's largest |ref|: one bf16 ulp of the output is at most
+    # 2^-7 = 7.8e-3 of it, and the p roundings add about 2e-3 more
+    worst = 0.0
+    for b, hq, hkv, s, t, dh, causal in FLASH_SMOKE:
+        q, k, v = (torch.randn(b, h, n, dh, generator=g, device=dev
+                               ).bfloat16()
+                   for h, n in ((hq, s), (hkv, t), (hkv, t)))
+        out = fa.flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        ref = fa.flash_attention_plain(q, k, v, causal=causal)
+        _, rel = row_rel_err(out, ref)
+        check(out.dtype == torch.bfloat16 and rel <= 2e-2,
+              f"flash_attention bf16 {(b, hq, hkv, s, t, dh, causal)}: "
+              f"row rel {rel}")
+        worst = max(worst, rel)
+    emit({"phase": 1, "op": "flash_attention", "dtype": "bfloat16",
+          "cases": FLASH_SMOKE, "max_row_rel_err": worst, "tol": 2e-2})
+    # full training shapes in bf16, S = T = 4096, batch 1, causal: the
+    # plain version on the same bf16 values, 2e-2 of each row's largest
+    # |ref| as above. A row at position i averages about i keys, so its
+    # values shrink like i^-1/2 (about 0.03 at row 4000 against 3.3 at
+    # row 0): a limit on the whole output's scale would not see a
+    # dropped key tile or a mis-masked diagonal in the late rows
+    main = None
+    for arch, hq, hkv in (("nemotron-4-15b", 48, 8),
+                          ("deepseek-7b", 32, 32)):
+        s = t = 4096
+        dh = 128
+        q, k, v = (torch.randn(1, h, s, dh, generator=g, device=dev
+                               ).bfloat16()
+                   for h in (hq, hkv, hkv))
+        out = fa.flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        ref = fa.flash_attention_plain(q, k, v)
+        err, rel = row_rel_err(out, ref)
+        check(rel <= 2e-2, f"flash_attention bf16 {arch}: row rel {rel}")
+        del ref
+        torch.cuda.empty_cache()
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+        b_ms, b_by = bound(nbytes, 4 * hq * s * t * dh / 2, torch.bfloat16)
+        row = {"phase": 1, "op": "flash_attention", "arch": arch,
+               "dtype": "bfloat16", "shape": [1, hq, hkv, s, t, dh],
+               "causal": True, "max_abs_err": err,
+               "max_row_rel_err": rel, "tol": 2e-2,
+               "ms": cuda_ms(lambda: fa.flash_attention(q, k, v), iters=10),
+               "plain_ms": cuda_ms(
+                   lambda: fa.flash_attention_plain(q, k, v), iters=3,
+                   warmup=1),
+               "library_ms": cuda_ms(
+                   lambda: F.scaled_dot_product_attention(
+                       q, k, v, is_causal=True, enable_gqa=True),
+                   iters=10),
+               "bound_ms": b_ms, "bound_by": b_by}
+        emit(row)
+        if main is None:
+            main = row
+        del q, k, v, out
+        torch.cuda.empty_cache()
+    return main
+
+
+def autograd_refusals() -> None:
+    """Every CUDA kernel wrapper raises when gradient mode is on and an
+    operand requires grad (no kernel has a backward), and launches
+    nothing; under ``torch.no_grad()`` the same call runs."""
+    from repro_torch.kernels import activations as ak
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import sidebar_gated_mlp as sg
+    from repro_torch.kernels import sidebar_matmul as smm
+    from repro_torch.kernels import sidebar_mlp as sm
+
+    dev = "cuda"
+    x = torch.randn(4, 64, device=dev, requires_grad=True)
+    w1, wu = torch.randn(64, 128, device=dev), torch.randn(64, 128, device=dev)
+    w2 = torch.randn(128, 64, device=dev)
+    probs, t, ln, scale = _pool_problem(
+        torch.Generator(device=dev).manual_seed(9), b=3, hkv=2, group=4,
+        dh=16, bs=8, nb=4, lengths=[5, 16, 32], qdtype=torch.float32,
+        kvdtype=torch.float32)
+    q, k, v, _, _ = probs[0]
+    mla, mt, mln = _mla_problem(
+        torch.Generator(device=dev).manual_seed(9), b=3, h=4, kvr=32,
+        rope=8, bs=8, nb=4, lengths=[5, 16, 32], dtype=torch.float32)
+    ql, qr, ckv, kr = mla[0]
+    fq = torch.randn(1, 4, 128, 16, device=dev)
+    fk = torch.randn(1, 2, 128, 16, device=dev)
+    calls = {
+        "sidebar_mlp": lambda a: sm.sidebar_mlp(a, w1, w2, "relu"),
+        "sidebar_mlp_pipelined": lambda a: sm.sidebar_mlp_pipelined(
+            a, w1, w2, "relu"),
+        "sidebar_gated_mlp": lambda a: sg.sidebar_gated_mlp(a, w1, wu, w2),
+        "sidebar_matmul": lambda a: smm.sidebar_matmul(a, w1),
+        "activation": lambda a: ak.activation_2d(a, "relu"),
+        "paged_gqa": lambda a: pa.paged_gqa(
+            q.requires_grad_(a.requires_grad), k, v, t, ln, scale=scale),
+        "paged_mla": lambda a: pa.paged_mla(
+            ql.requires_grad_(a.requires_grad), qr, ckv, kr, mt, mln,
+            scale=0.2),
+        "flash_attention": lambda a: fa.flash_attention(
+            fq.requires_grad_(a.requires_grad), fk, fk),
+    }
+    check(set(calls) == set(KERNELS), "autograd refusals: a wrapper is "
+                                      "missing")
+    for name, call in calls.items():
+        before = build.launches[name]
+        try:
+            call(x)
+        except RuntimeError as e:
+            check("no backward" in str(e), f"{name}: refused with {e}")
+        else:
+            check(False, f"{name} launched under autograd with an operand "
+                         "that requires grad")
+        check(build.launches[name] == before,
+              f"{name} launched before refusing")
+        with torch.no_grad():
+            call(x)
+        check(build.launches[name] == before + 1,
+              f"{name} did not launch under no_grad")
+    torch.cuda.synchronize()
+    emit({"phase": 1, "op": "autograd_refusal", "wrappers": sorted(calls),
+          "refused_under_autograd": True, "runs_under_no_grad": True})
+
+
 def user_activation_ops(seed: int = 6) -> None:
     """A function registered at run time reaches every kernel that takes
     an activation: mish with a ``device_expr`` on a fresh table, through
@@ -1061,9 +1250,211 @@ def smoke_routes(arch: str) -> None:
                   f"phase 4: {name} launched none of {mlp}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the training path
+# ---------------------------------------------------------------------------
+
+
+def expected_first_loss(cfg) -> float:
+    """The loss of random weights: the final norm leaves unit-RMS rows,
+    the tied embedding's entries have std 0.02, so the logits are about
+    normal with variance 0.02^2 * d_model, and the mean NLL of uniform
+    labels is ln V + variance / 2."""
+    return float(np.log(cfg.vocab_size) + 0.5 * 0.02 ** 2 * cfg.d_model)
+
+
+ARGMAX_FLOOR = 0.9
+
+
+def train_forward_full(cfg, params) -> dict:
+    """Phase 8a: ``forward`` and the loss at nemotron-4-15b's full width
+    and depth on one TRAIN_4K sequence (4096 tokens, batch 1) under
+    ``no_grad``: with the kernels (flash attention + the Sidebar MLP,
+    exact launch counts) and without them (the chunked attention route,
+    cuBLAS products); the two losses within 1e-2 relative, the argmax
+    of at least ``ARGMAX_FLOOR`` of the positions the same."""
+    from repro_torch.configs.base import TRAIN_4K
+    from repro_torch.data import pipeline
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models.registry import get_model
+    from repro_torch.models.transformer import next_token_loss
+
+    api = get_model(cfg)
+    batch = pipeline.make_batch(cfg, TRAIN_4K, 0, batch_override=1,
+                                device="cuda")
+    row = {"phase": 8, "part": "8a", "arch": cfg.arch_id,
+           "layers": cfg.num_layers, "seq": TRAIN_4K.seq_len, "batch": 1}
+    out = {}
+    for name, use in (("kernels", True), ("plain", False)):
+        c = dataclasses.replace(cfg, use_pallas=use)
+        recs: list = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with torch.no_grad(), kops.record_dispatches(recs):
+            logits = api.forward(params, c, batch)
+            loss = float(next_token_loss(c, logits, batch["labels"]))
+        torch.cuda.synchronize()
+        out[name] = {"loss": loss, "s": time.perf_counter() - t0,
+                     "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                     "launches": kops.launch_counts(),
+                     "argmax": logits[0].argmax(-1)}
+        flash = {r.variant for r in recs if r.op == "flash_attention"}
+        del logits
+        torch.cuda.empty_cache()
+        if use:
+            want = dict.fromkeys(KERNELS, 0)
+            want.update(flash_attention=cfg.num_layers,
+                        sidebar_mlp=cfg.num_layers)
+            check(out[name]["launches"] == want,
+                  f"phase 8a: launches {out[name]['launches']} != {want}")
+            check(flash == {"flash"}, f"phase 8a: flash variants {flash}")
+        else:
+            check(not flash and not any(out[name]["launches"].values()),
+                  "phase 8a: the plain forward reached a kernel")
+    lk, lp = out["kernels"]["loss"], out["plain"]["loss"]
+    rel = abs(lk - lp) / abs(lp)
+    agree = (out["kernels"]["argmax"] == out["plain"]["argmax"]
+             ).float().mean().item()
+    row.update({
+        "loss_kernels": lk, "loss_plain": lp, "loss_rel_diff": rel,
+        "tol": 1e-2, "argmax_agreement": agree,
+        "argmax_floor": ARGMAX_FLOOR,
+        "ln_vocab": float(np.log(cfg.vocab_size)),
+        "expected_loss": expected_first_loss(cfg),
+        "s_kernels": out["kernels"]["s"], "s_plain": out["plain"]["s"],
+        "peak_mem_gb_kernels": out["kernels"]["peak_mem_gb"],
+        "peak_mem_gb_plain": out["plain"]["peak_mem_gb"],
+        "launches": out["kernels"]["launches"]})
+    emit(row)
+    check(np.isfinite(lk) and np.isfinite(lp) and rel <= 1e-2,
+          f"phase 8a: losses {lk} and {lp} differ by {rel}")
+    # random weights leave near-ties among 256000 logits, so bf16
+    # rounding in the 32 layers flips a few percent of the argmaxes
+    # (0.952 agree on the H100): the floor is 0.9
+    check(agree >= ARGMAX_FLOOR,
+          f"phase 8a: argmax agreement {agree} < {ARGMAX_FLOOR}")
+    return row
+
+
+def train_steps_full(steps: int = 3) -> dict:
+    """Phase 8b: three ``make_train_step`` steps at nemotron-4-15b's full
+    width, depth cut to 2 layers (2.35 B parameters), bf16 weights from a
+    seed, ``use_pallas`` off (as the JAX trainer), remat "full", two
+    strided microbatches of one 4096-token sequence (TRAIN_4K's global
+    batch cut to 2), fp32 accumulator and moments; then the same forward
+    with the kernels under autograd must raise."""
+    from repro_torch import configs, tree
+    from repro_torch.configs.base import TRAIN_4K, TrainConfig
+    from repro_torch.data import pipeline
+    from repro_torch.kernels import build
+    from repro_torch.launch.train import make_train_step, value_and_grad
+    from repro_torch.models import transformer
+    from repro_torch.models.registry import get_model
+    from repro_torch.optim.optimizer import init_state
+
+    full = configs.get_config("nemotron-4-15b")
+    cfg = dataclasses.replace(full, num_layers=2, remat="full",
+                              use_pallas=False)
+    cell = dataclasses.replace(TRAIN_4K, global_batch=2)
+    tcfg = TrainConfig(microbatch_per_device=1)
+    torch.cuda.reset_peak_memory_stats()
+    params = transformer.init(cfg, seed=0, device="cuda")
+    n_params = sum(p.numel() for p in tree.leaves(params))
+    opt = init_state(params, tcfg)
+    step_fn, n_micro, _ = make_train_step(cfg, tcfg, get_model(cfg), cell)
+    check(n_micro == 2, f"phase 8b: n_micro {n_micro}")
+    rows = []
+    for step in range(steps):
+        batch = pipeline.make_batch(cfg, cell, step, batch_override=2,
+                                    device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, _, m = step_fn(params, opt, None, batch)
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        rows.append({"step": step, "loss": loss,
+                     "grad_norm": float(m["grad_norm"]),
+                     "lr": float(m["lr"]), "step_s": dt,
+                     "tokens_per_s": 2 * cell.seq_len / dt})
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    # the kernels have no backward: under autograd the first one raises
+    kc = dataclasses.replace(cfg, use_pallas=True)
+    before = dict(build.launches)
+    try:
+        value_and_grad(lambda p, b: transformer.loss(p, kc, b), params,
+                       {k: x[:1] for k, x in batch.items()})
+    except RuntimeError as e:
+        refused = "no backward" in str(e)
+    else:
+        refused = False
+    row = {"phase": 8, "part": "8b", "arch": cfg.arch_id, "layers": 2,
+           "reduced": {"num_layers": f"{full.num_layers} -> 2",
+                       "global_batch": f"{TRAIN_4K.global_batch} -> 2"},
+           "params": n_params, "seq": cell.seq_len, "n_micro": n_micro,
+           "remat": cfg.remat, "steps": rows, "peak_mem_gb": peak,
+           "ln_vocab": float(np.log(cfg.vocab_size)),
+           "expected_first_loss": expected_first_loss(cfg),
+           "kernels_under_autograd": "refused" if refused else "ran"}
+    emit(row)
+    check(all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])
+              for r in rows), "phase 8b: a loss or grad_norm is not finite")
+    check(abs(rows[0]["loss"] - row["expected_first_loss"]) < 1.0,
+          f"phase 8b: first loss {rows[0]['loss']} far from "
+          f"{row['expected_first_loss']}")
+    check(refused and dict(build.launches) == before,
+          "phase 8b: a kernel ran under autograd")
+    del params, opt
+    torch.cuda.empty_cache()
+    return row
+
+
+def trainer_resume() -> dict:
+    """Phase 8c: ``Trainer`` at the fp32 nemotron smoke size on the card:
+    4 steps with a checkpoint every 2, then a fresh ``Trainer`` resumes
+    from step 4 and runs to 6; its losses equal an uninterrupted 6-step
+    run's."""
+    import tempfile
+
+    from repro_torch import configs
+    from repro_torch.configs.base import ShapeCell, TrainConfig
+    from repro_torch.launch.train import Trainer
+
+    cfg = configs.get_smoke_config("nemotron-4-15b")
+    cell = ShapeCell("smoke", seq_len=128, global_batch=4, kind="train")
+    tcfg = TrainConfig(microbatch_per_device=2, warmup_steps=2,
+                       learning_rate=1e-3)
+    with tempfile.TemporaryDirectory() as d:
+        a = Trainer(cfg, tcfg, cell, ckpt_dir=f"{d}/a", ckpt_every=2)
+        first = a.run(4)
+        b = Trainer(cfg, tcfg, cell, ckpt_dir=f"{d}/a", ckpt_every=2)
+        resumed = b.run(6)
+        c = Trainer(cfg, tcfg, cell, ckpt_dir=f"{d}/c", ckpt_every=100)
+        whole = c.run(6)
+    bitwise = resumed.losses == whole.losses[4:]
+    err = max(abs(x - y) for x, y in zip(resumed.losses, whole.losses[4:]))
+    row = {"phase": 8, "part": "8c", "arch": cfg.arch_id,
+           "dtype": "float32", "seq": cell.seq_len,
+           "n_micro": a.n_micro, "losses_first_4": first.losses,
+           "resumed_from": resumed.resumed_from,
+           "losses_resumed": resumed.losses,
+           "losses_uninterrupted": whole.losses,
+           "bitwise_equal": bitwise, "max_abs_diff": err}
+    emit(row)
+    check(resumed.resumed_from == 4 and len(resumed.losses) == 2
+          and all(np.isfinite(x) for x in whole.losses),
+          "phase 8c: the resumed run did not start from step 4")
+    check(err <= 1e-6 * max(abs(x) for x in whole.losses),
+          f"phase 8c: resumed losses {resumed.losses} != "
+          f"{whole.losses[4:]}")
+    return row
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7",
+    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8",
                     help="comma-separated subset of phases to run")
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the depth of the full-width phases 2 and 5")
@@ -1100,16 +1491,29 @@ def main() -> None:
         rows["activation"] = activation_ops()
         rows["sidebar_gated_mlp"] = gated_ops()
         rows["paged_mla"] = mla_ops()
+        rows["flash_attention"] = flash_ops()
         user_activation_ops()
+        autograd_refusals()
     served = {}
+    params = None
     if phases & {2, 5}:
         cfg, params, init_s = full_width_params(args.layers)
         row, tokens = full_width(2, cfg, params, init_s)
         served["sidebar"] = row
         if 5 in phases:
             served.update(plan_modes(cfg, params, tokens))
-        del params
+        if 8 not in phases or cfg.num_layers != D_LAYERS:
+            params = None
+            torch.cuda.empty_cache()
+    if 8 in phases:
+        # phase 2's 32-layer weights when it ran at full depth
+        if params is None:
+            cfg, params, _ = full_width_params(None)
+        served["train_8a"] = train_forward_full(cfg, params)
+        params = None
         torch.cuda.empty_cache()
+        train_steps_full()
+        trainer_resume()
     if 3 in phases:
         cfg, params, init_s = full_width_params(4, int8=True)
         full_width(3, cfg, params, init_s)
@@ -1134,7 +1538,7 @@ def main() -> None:
                                               seed=6)
         del params
         torch.cuda.empty_cache()
-    if len(served) == 6 and len(rows) == len(KERNELS):
+    if len(served) == 7 and len(rows) == len(KERNELS):
         # launches: the drain of the main path (phase 2), of the mode
         # (phase 5) or of the model (phase 6) that runs the kernel
         run_of = {"sidebar_mlp": "sidebar", "paged_gqa": "sidebar",
@@ -1142,7 +1546,8 @@ def main() -> None:
                   "sidebar_matmul": "flexible_dma",
                   "activation": "flexible_dma",
                   "sidebar_gated_mlp": "deepseek_7b",
-                  "paged_mla": "deepseek_v3"}
+                  "paged_mla": "deepseek_v3",
+                  "flash_attention": "train_8a"}
         sources = {
             "sidebar_mlp": ("sidebar_mlp.cu",
                             "src/repro/kernels/sidebar_mlp.py:171"),
@@ -1160,6 +1565,8 @@ def main() -> None:
                 "src/repro/kernels/sidebar_gated_mlp.py:87"),
             "paged_mla": ("paged_mla.cu",
                           "src/repro/kernels/paged_attention.py:336"),
+            "flash_attention": ("flash_attention.cu",
+                                "src/repro/kernels/flash_attention.py:97"),
         }
         kernels = []
         for name in KERNELS:

@@ -1,8 +1,9 @@
-"""Model configuration with torch dtypes (mirror of ``repro.configs.base``).
+"""Model, shape-cell and training configuration with torch dtypes
+(mirror of ``repro.configs.base``).
 
-Only the fields the ported serving paths read are kept: the dense GQA
-family and deepseek-v3's MoE + MLA family. The JAX config's SSM, audio
-and VLM fields come with the slices that port those families.
+Only the fields the ported paths read are kept: the dense GQA family and
+deepseek-v3's MoE + MLA family, served and trained. The JAX config's
+SSM, audio and VLM fields come with the slices that port those families.
 """
 
 from __future__ import annotations
@@ -48,7 +49,10 @@ class ModelConfig:
     dtype: torch.dtype = torch.bfloat16
     rope_theta: float = 10000.0
     norm_eps: float = 1e-6
-    use_pallas: bool = False       # MLP through the fused Sidebar kernel
+    remat: str = "full"            # full | dots | none (per layer, when
+                                   # the forward is differentiated)
+    use_pallas: bool = False       # MLP through the fused Sidebar kernel,
+                                   # cache-free attention through flash
                                    # (name kept from the JAX config)
     kv_cache_dtype: torch.dtype = torch.bfloat16  # int8 => quantized KV
                                    # (GQA; the MLA cache is in ``dtype``)
@@ -59,3 +63,30 @@ class ModelConfig:
                                self.d_model // max(self.num_heads, 1))
         if self.num_experts and self.moe_d_ff == 0:
             object.__setattr__(self, "moe_d_ff", self.d_ff)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeCell:
+    """One (input-shape) column of the assignment table."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+TRAIN_4K = ShapeCell("train_4k", 4_096, 256, "train")
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
+    microbatch_per_device: int = 1   # grad-accumulation microbatch size
+    moment_dtype: torch.dtype = torch.float32  # bf16 for the largest configs
+    grad_compression: str = "none"   # none | bf16 | int8_ef

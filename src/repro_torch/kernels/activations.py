@@ -60,6 +60,7 @@ def activation_2d(
         raise ValueError("activation_2d takes a 2-D operand")
     if not x.is_cuda:
         return activation_plain(x, activation, table)
+    build.refuse_autograd("activation", x)
     if x.dtype not in _DTYPES:
         raise TypeError(f"activation kernel takes fp32 or bf16, got "
                         f"{x.dtype}")

@@ -46,6 +46,7 @@ SOURCES = {
     "activation": "activation.cu",
     "sidebar_gated_mlp": "sidebar_gated_mlp.cu",
     "paged_mla": "paged_mla.cu",
+    "flash_attention": "flash_attention.cu",
 }
 # the kernels that apply a function-table entry (csrc/activation.cuh)
 ACTIVATION_KERNELS = ("sidebar_mlp", "sidebar_mlp_pipelined",
@@ -175,10 +176,26 @@ def entry(name: str, symbol: str, argtypes,
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def refuse_autograd(what: str, *tensors: torch.Tensor | None) -> None:
+    """Raise when gradient mode is on and an operand requires grad: a
+    kernel launched through ``ctypes`` writes a fresh tensor with no
+    ``grad_fn``, so every gradient upstream of it would be silently
+    wrong. No kernel of the port has a backward (the JAX package's
+    Pallas kernels have none either: ``jax.grad`` through them fails).
+    The plain versions, taken for CPU tensors, are differentiable."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what}: the CUDA kernel has no backward and an operand "
+            "requires grad; run it under torch.no_grad(), or train with "
+            "cfg.use_pallas=False (as the JAX trainer does)")
+
+
 def check_operands(what: str, *tensors: torch.Tensor) -> int:
     """The checks a product kernel's wrapper makes on its CUDA operands:
-    one device, one type (fp32 or bf16), contiguous. Returns the type
-    code."""
+    no operand that requires grad under autograd, one device, one type
+    (fp32 or bf16), contiguous. Returns the type code."""
+    refuse_autograd(what, *tensors)
     t0 = tensors[0]
     if any(t.device != t0.device for t in tensors):
         raise ValueError(f"{what}: operands on different devices")

@@ -2,7 +2,7 @@
 ``repro.kernels.ops``: the ambient execution plan, ``layer_scope``,
 ``record_dispatches`` and the ``sidebar_mlp`` / ``sidebar_gated_mlp`` /
 ``sidebar_matmul`` / ``host_activation`` / ``paged_attention_gqa`` /
-``paged_attention_mla`` ops).
+``paged_attention_mla`` / ``flash_attention`` ops).
 
 Each op resolves the ambient plan for the current layer, records its
 dispatch, and calls the kernel wrapper for that plan's route — which
@@ -48,6 +48,9 @@ from repro_torch.kernels import build
 # kernel wrappers themselves, which take the plain version for a CPU
 # tensor.
 from repro_torch.kernels.activations import activation as host_activation
+from repro_torch.kernels.flash_attention import (
+    flash_attention as _flash_kernel,
+)
 from repro_torch.kernels.paged_attention import (
     paged_gqa,
     paged_gqa_reference,
@@ -135,7 +138,7 @@ class PlanDispatch:
     mode: ExecutionMode
     depth: int
     variant: str                  # "serial" | "pipelined" | "paged" |
-                                  # "dma" | "ref"
+                                  # "dma" | "flash" | "ref"
     used_kernel: bool             # the CUDA kernel was launched
 
 
@@ -284,3 +287,21 @@ def paged_attention_mla(
             "paged" if q_lat.is_cuda else "ref", q_lat.is_cuda)
     return paged_mla(q_lat, q_rope, ckv_pool, krope_pool, block_tables,
                      lengths, **kw)
+
+
+def flash_attention(
+    q: Tensor,                    # (B, Hq, S, D)
+    k: Tensor,                    # (B, Hkv, T, D)
+    v: Tensor,
+    *,
+    causal: bool = True,
+    scale: float | None = None,
+) -> Tensor:
+    """Blocked attention through its wrapper: a CUDA tensor launches the
+    kernel (variant "flash"), a CPU tensor takes the plain version
+    (variant "ref"). The kernel masks ragged tiles, so it takes any S
+    and T; the JAX op's block rule (S, T whole 128-blocks) is kept in
+    the layer that routes to this op (``attention._attend``)."""
+    _record("flash_attention", current_plan().mode, 1,
+            "flash" if q.is_cuda else "ref", q.is_cuda)
+    return _flash_kernel(q, k, v, causal=causal, scale=scale)

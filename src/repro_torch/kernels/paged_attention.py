@@ -111,6 +111,7 @@ def paged_gqa(
         return paged_gqa_reference(
             q, k_pool, v_pool, tables, lengths, scale=scale,
             k_scale=k_scale, v_scale=v_scale, compute_dtype=compute_dtype)
+    build.refuse_autograd("paged_gqa", q, k_pool, v_pool, k_scale, v_scale)
     quantized = k_pool.dtype == torch.int8
     if q.dtype not in _QTYPES or k_pool.dtype not in _KVTYPES \
             or v_pool.dtype != k_pool.dtype:
@@ -205,6 +206,7 @@ def paged_mla(
         return paged_mla_reference(q_lat, q_rope, ckv_pool, krope_pool,
                                    tables, lengths, scale=scale,
                                    compute_dtype=compute_dtype)
+    build.refuse_autograd("paged_mla", q_lat, q_rope, ckv_pool, krope_pool)
     if q_lat.dtype != torch.float32 or q_rope.dtype not in _QTYPES \
             or ckv_pool.dtype not in _QTYPES \
             or krope_pool.dtype != ckv_pool.dtype:

@@ -85,6 +85,33 @@ def attend_direct_offset(q: Tensor, k: Tensor, v: Tensor, group: int,
     return out.reshape(b, h, s, v.shape[-1]).to(q.dtype)
 
 
+def flash_attention_ref(q: Tensor, k: Tensor, v: Tensor, *,
+                        causal: bool = True,
+                        scale: float | None = None) -> Tensor:
+    """softmax(q k^T * scale [+ mask]) v with fp32 math (mirror of the
+    jnp ``flash_attention_ref``): q (B, Hq, S, D), k/v (B, Hkv, T, D),
+    Hq % Hkv == 0 (k/v repeated per group); the causal mask keeps key t
+    for query s iff t <= s + (T - S), masked logits -1e30; p is cast to
+    v's type before the PV product; the output is in q's type."""
+    b, hq, s, d = q.shape
+    hkv, t = k.shape[1], k.shape[2]
+    if hq % hkv:
+        raise ValueError(f"GQA needs Hq % Hkv == 0, got {hq} % {hkv}")
+    group = hq // hkv
+    if group > 1:
+        k = k.repeat_interleave(group, dim=1)
+        v = v.repeat_interleave(group, dim=1)
+    scale = scale if scale is not None else 1.0 / d ** 0.5
+    logits = dot(q, k.transpose(-1, -2)) * scale
+    if causal:
+        mask = torch.ones((s, t), dtype=torch.bool,
+                          device=q.device).tril(t - s)
+        logits = torch.where(mask, logits,
+                             torch.full((), NEG_INF, device=q.device))
+    p = softmax(logits)
+    return dot(p.to(v.dtype), v).to(q.dtype)
+
+
 def attend_mla_absorbed(q_lat: Tensor, q_rope: Tensor, c_kv: Tensor,
                         k_rope: Tensor, end, scale: float) -> Tensor:
     """MLA absorbed decode on a dense view (mirror of the absorbed branch

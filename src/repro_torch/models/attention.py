@@ -24,6 +24,15 @@ per-head keys or values (in place on the pool through
 ``kops.paged_attention_mla``, or the same fp32 math on a slab), and the
 latent context goes back through w_uv. Prefill expands per-head keys and
 values from the latent (naive MLA).
+
+Multi-token attention (``_attend``, mirror of the JAX module's): the
+flash kernel for the cache-free training forward with ``use_pallas``
+and S, T multiples of 128; else the direct form, or — for S > CHUNK_Q,
+a multiple of it — the chunked form whose peak logits are O(CHUNK_Q x T)
+(causal prefixes per chunk with a static offset, every chunk against
+all of k otherwise: the JAX module's unrolled and scanned forms). The
+JAX module reads ``REPRO_ATTN_CHUNK_Q``/``REPRO_ATTN_UNROLL``; the port
+keeps their defaults as module constants.
 """
 
 from __future__ import annotations
@@ -48,6 +57,9 @@ from repro_torch.kernels.ref import (
 from repro_torch.models.layers import apply_rope, linear, rms_norm
 
 Tensor = torch.Tensor
+
+CHUNK_Q = 1024        # q-block size of the chunked form
+UNROLL_CHUNKS = 64    # chunk counts up to this take causal prefixes
 
 
 def gqa_param_shapes(cfg: ModelConfig) -> dict:
@@ -173,6 +185,51 @@ def _decode_lengths(cache_pos, b: int, device) -> Tensor:
     return (pos.expand(b) + 1).to(torch.int32).contiguous()
 
 
+def _attend(q: Tensor, k: Tensor, v: Tensor, *, cfg: ModelConfig,
+            offset=None) -> Tensor:
+    """Causal q (B, H, S, Dh) against k/v (B, Hkv, T, Dh): flash,
+    chunked or direct. ``offset`` is the global position of query row 0,
+    scalar or per row (B,); None — the cache-free forward — puts the
+    queries at the sequence end (T - S), the only static offset. A
+    prefill with a cache always passes its ``cache_pos`` (the JAX
+    package's is a traced int32), so it never reaches the kernel."""
+    s, dh = q.shape[2], q.shape[3]
+    t = k.shape[2]
+    static = offset is None
+    if static:
+        offset = t - s
+    if cfg.use_pallas and s % 128 == 0 and t % 128 == 0 and static:
+        return kops.flash_attention(q.contiguous(), k.contiguous(),
+                                    v.contiguous(), causal=True)
+    group = q.shape[1] // k.shape[1]
+    scale = 1.0 / math.sqrt(dh)
+    if s <= CHUNK_Q or s % CHUNK_Q:
+        return attend_direct_offset(q, k, v, group, scale, True, offset)
+    return _attend_chunked(q, k, v, group, scale, True, offset, static)
+
+
+def _attend_chunked(q, k, v, group: int, scale: float, causal: bool,
+                    offset, static: bool) -> Tensor:
+    """Over q chunks of CHUNK_Q: peak logits O(CHUNK_Q x T), not
+    O(S x T). With a static offset and at most UNROLL_CHUNKS chunks a
+    causal chunk i attends only k[:offset + (i+1) * CHUNK_Q] (the
+    causal skipping of the JAX module's unrolled loop); otherwise every
+    chunk attends all of k (its scan)."""
+    s = q.shape[2]
+    n_chunks = s // CHUNK_Q
+    prefix = causal and static and n_chunks <= UNROLL_CHUNKS
+    outs = []
+    for i in range(n_chunks):
+        qi = q[:, :, i * CHUNK_Q:(i + 1) * CHUNK_Q]
+        ki, vi = k, v
+        if prefix:
+            end = offset + (i + 1) * CHUNK_Q
+            ki, vi = k[:, :, :end], v[:, :, :end]
+        outs.append(attend_direct_offset(qi, ki, vi, group, scale, causal,
+                                         offset + i * CHUNK_Q))
+    return torch.cat(outs, dim=2)
+
+
 def gqa_attention(
     params: dict,
     cfg: ModelConfig,
@@ -257,11 +314,9 @@ def gqa_attention(
         else:
             k, v = cache["k"].to(cfg.dtype), cache["v"].to(cfg.dtype)
 
-    t = k.shape[2]
-    offset = (cache_pos if rowwise_pos(cache_pos) else int(cache_pos)) \
-        if cache is not None else t - s
-    out = attend_direct_offset(q, k, v, h // hkv, 1.0 / math.sqrt(dh),
-                               True, offset)
+    offset = None if cache is None else (
+        cache_pos if rowwise_pos(cache_pos) else int(cache_pos))
+    out = _attend(q, k, v, cfg=cfg, offset=offset)
     out = out.transpose(1, 2).reshape(b, s, h * dh)
     return linear(out, params["wo"]), cache
 
@@ -358,10 +413,16 @@ def mla_attention(
     k_rope_h = k_rope[:, :, None, :].expand(b, t, h, rope)
     q_full = torch.cat([q_nope, q_rope], dim=-1).transpose(1, 2)
     k_full = torch.cat([k_nope, k_rope_h], dim=-1).transpose(1, 2)
-    offset = (cache_pos if rowwise_pos(cache_pos) else int(cache_pos)) \
-        if cache is not None else t - s
-    out = attend_direct_offset(q_full, k_full, v.transpose(1, 2), 1, scale,
-                               True, offset)
+    static = cache is None
+    offset = t - s if static else (
+        cache_pos if rowwise_pos(cache_pos) else int(cache_pos))
+    # MLA head dims are non-uniform: never the kernel, as in the JAX module
+    if s > CHUNK_Q and s % CHUNK_Q == 0:
+        out = _attend_chunked(q_full, k_full, v.transpose(1, 2), 1, scale,
+                              True, offset, static)
+    else:
+        out = attend_direct_offset(q_full, k_full, v.transpose(1, 2), 1,
+                                   scale, True, offset)
     out = out.transpose(1, 2).reshape(b, s, h * vdh)
     return linear(out, params["wo"]), cache
 

@@ -90,13 +90,35 @@ def embed_lookup(table: Tensor, tokens: Tensor) -> Tensor:
     return table[tokens]
 
 
+class _UnembedMM(torch.autograd.Function):
+    """x2 (N, D) @ table (V, D)^T with an fp32 output from bf16 operands
+    (``torch.mm(..., out_dtype=float32)``), and its gradient: the
+    logits' fp32 cotangent rounded to the operands' type, then the two
+    products of the backward in that type (fp32 accumulation inside). No
+    fp32 copy of the table (6.3 GB at nemotron-4-15b's width) is made on
+    either pass."""
+
+    @staticmethod
+    def forward(ctx, x2: Tensor, table: Tensor) -> Tensor:
+        ctx.save_for_backward(x2, table)
+        return torch.mm(x2, table.t(), out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g: Tensor):
+        x2, table = ctx.saved_tensors
+        g = g.to(table.dtype)
+        gx = torch.mm(g, table) if ctx.needs_input_grad[0] else None
+        gt = torch.mm(g.t(), x2) if ctx.needs_input_grad[1] else None
+        return gx, gt
+
+
 def unembed(x: Tensor, table: Tensor) -> Tensor:
     """Logits = x @ E^T (tied), fp32 out, width = padded vocab. bf16
-    operands on the card go through one GEMM with an fp32 output: the
-    256000 x 6144 table is never copied to fp32."""
+    operands on the card go through one GEMM with an fp32 output (and
+    its two GEMMs under autograd): the 256000 x 6144 table is never
+    copied to fp32."""
     if x.is_cuda and x.dtype != torch.float32:
-        out = torch.mm(x.reshape(-1, x.shape[-1]), table.t(),
-                       out_dtype=torch.float32)
+        out = _UnembedMM.apply(x.reshape(-1, x.shape[-1]), table)
         return out.reshape(*x.shape[:-1], table.shape[0])
     return dot(x, table.t())
 
@@ -108,3 +130,15 @@ def mask_pad_logits(logits: Tensor, vocab: int) -> Tensor:
     cols = torch.arange(logits.shape[-1], device=logits.device)
     return torch.where(cols < vocab, logits,
                        torch.full((), -1e30, device=logits.device))
+
+
+def softmax_cross_entropy(logits: Tensor, labels: Tensor,
+                          vocab: int | None = None) -> Tensor:
+    """Mean token NLL; logits (T, V_pad) taken in fp32, labels int (T,);
+    ``vocab`` masks the padded columns first."""
+    logits = logits.float()
+    if vocab is not None:
+        logits = mask_pad_logits(logits, vocab)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return torch.mean(logz - gold)

@@ -1,6 +1,7 @@
 """Model registry: family -> model API (mirror of
 ``repro.models.registry``, for the ported families: dense and moe, both
-the transformer)."""
+the transformer): serving (``prefill``, ``decode_step``) and training
+(``forward``, ``loss``)."""
 
 from __future__ import annotations
 
@@ -19,6 +20,8 @@ class ModelApi:
     init_cache: Callable
     prefill: Callable
     decode_step: Callable
+    forward: Callable
+    loss: Callable
     # decode_step takes a per-row (B,) position vector
     rowwise_decode_pos: bool = False
 
@@ -32,5 +35,7 @@ def get_model(cfg: ModelConfig) -> ModelApi:
         init_cache=transformer.init_cache,
         prefill=transformer.prefill,
         decode_step=transformer.decode_step,
+        forward=transformer.forward,
+        loss=transformer.loss,
         rowwise_decode_pos=True,
     )

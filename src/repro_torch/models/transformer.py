@@ -11,6 +11,8 @@ Model API (see ``registry.py``):
   init_cache(cfg, batch, max_len, *, device)  -> per-layer cache dicts
   prefill(params, cfg, batch, cache, ...)     -> (logits, cache)
   decode_step(params, cfg, tokens, cache, pos, ...) -> (logits, cache)
+  forward(params, cfg, batch)                 -> logits (training)
+  loss(params, cfg, batch)                    -> mean token NLL
 
 Layout: ``params["layers"]`` and the cache are LISTS of per-layer dicts
 in layer order (the JAX package stacks each kind of layer on a leading
@@ -19,11 +21,27 @@ L axis for its scan, ``blocks["dense"]`` then ``blocks["moe"]``;
 MoE layer's ``moe``. Every layer runs under
 ``kops.layer_scope(i)``, so a layer-indexed ``ExecutionPlan`` resolves
 per layer. Cache updates are in place.
+
+Rematerialisation (``cfg.remat``, the JAX package's ``_remat`` per
+layer): when gradients are on and no cache is carried, "full" wraps
+each layer in ``torch.utils.checkpoint`` (its activations recomputed in
+the backward) and "dots" saves the outputs of the layer's un-batched
+matrix products (``aten.mm``; the JAX policy
+``checkpoint_dots_with_no_batch_dims``) and recomputes the rest. The
+recompute enters the same ``layer_scope``, so a layer-indexed plan
+resolves alike on both passes.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.function_table import DEFAULT_TABLE
@@ -121,22 +139,90 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
             for layer in cache_shapes(cfg, batch, max_len)]
 
 
+def _block(i, p, cfg, x, positions, *, table, cache, cache_pos,
+           block_tables):
+    """Decoder layer ``i``, under its ``layer_scope``."""
+    with kops.layer_scope(i):
+        h = L.rms_norm(x, p["attn_norm"], cfg.norm_eps)
+        a, _ = attn_lib.attention(p["attn"], cfg, h, positions, cache=cache,
+                                  cache_pos=cache_pos,
+                                  block_tables=block_tables)
+        x = x + a
+        h = L.rms_norm(x, p["mlp_norm"], cfg.norm_eps)
+        if "moe" in p:
+            return x + moe(p["moe"], cfg, h, table=table)
+        return x + mlp(p["mlp"], cfg, h, table=table)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op is torch.ops.aten.mm.default
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+REMAT = ("full", "dots", "none")
+
+
+def _remat_kwargs(cfg: ModelConfig) -> dict | None:
+    """``checkpoint`` arguments for ``cfg.remat`` when the forward is
+    differentiated; None when every activation is kept."""
+    if cfg.remat not in REMAT:
+        raise ValueError(f"remat must be one of {REMAT}, got {cfg.remat!r}")
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return None
+    kw = {"use_reentrant": False}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)
+    return kw
+
+
 def _run_stack(params, cfg, x, positions, *, table, caches=None,
                cache_pos=None, block_tables=None):
+    remat = _remat_kwargs(cfg) if caches is None else None
     for i, p in enumerate(params["layers"]):
-        with kops.layer_scope(i):
-            h = L.rms_norm(x, p["attn_norm"], cfg.norm_eps)
-            a, _ = attn_lib.attention(
-                p["attn"], cfg, h, positions,
-                cache=caches[i] if caches is not None else None,
-                cache_pos=cache_pos, block_tables=block_tables)
-            x = x + a
-            h = L.rms_norm(x, p["mlp_norm"], cfg.norm_eps)
-            if "moe" in p:
-                x = x + moe(p["moe"], cfg, h, table=table)
-            else:
-                x = x + mlp(p["mlp"], cfg, h, table=table)
+        kw = dict(table=table,
+                  cache=caches[i] if caches is not None else None,
+                  cache_pos=cache_pos, block_tables=block_tables)
+        if remat is None:
+            x = _block(i, p, cfg, x, positions, **kw)
+        else:
+            x = checkpoint(functools.partial(_block, i, **kw), p, cfg, x,
+                           positions, **remat)
     return x
+
+
+def forward(params, cfg: ModelConfig, batch: dict, *,
+            table=DEFAULT_TABLE) -> Tensor:
+    """Training forward (no cache): batch {"tokens": (B, S)} -> fp32
+    logits (B, S, V_pad). With ``cfg.use_pallas`` and S a multiple of
+    128 the attention goes through the flash kernel and the MLP through
+    its Sidebar kernel; neither has a backward, so on the card that
+    forward runs under ``torch.no_grad()`` (the kernels raise
+    otherwise)."""
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    x = L.embed_lookup(params["embed"], tokens)
+    positions = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
+    x = _run_stack(params, cfg, x, positions, table=table)
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return L.unembed(x, params["embed"])
+
+
+def next_token_loss(cfg: ModelConfig, logits: Tensor,
+                    labels: Tensor) -> Tensor:
+    """Mean NLL of logits (B, S, V_pad) at positions 0..S-2 against
+    ``labels`` at 1..S-1 (padded vocab masked)."""
+    return L.softmax_cross_entropy(
+        logits[:, :-1, :].reshape(-1, logits.shape[-1]),
+        labels[:, 1:].reshape(-1), vocab=cfg.vocab_size)
+
+
+def loss(params, cfg: ModelConfig, batch: dict, *,
+         table=DEFAULT_TABLE) -> Tensor:
+    """Mean next-token NLL of ``forward``'s logits against
+    ``batch["labels"]``."""
+    return next_token_loss(cfg, forward(params, cfg, batch, table=table),
+                           batch["labels"])
 
 
 def prefill(params, cfg: ModelConfig, batch: dict, cache: list, *,

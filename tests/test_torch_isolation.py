@@ -11,9 +11,10 @@
   * on the card (tests marked ``gpu``, skipped without one): each CUDA
     kernel against its plain version (the gated MLP at deepseek-7b's
     widths, paged decode at group 1, MLA absorbed decode at deepseek-
-    v3's widths with fp32 and bf16 pools), a run-time activation with a
-    ``device_expr`` through every kernel that takes an activation, and
-    the wrappers' refusals. They
+    v3's widths with fp32 and bf16 pools, flash attention in fp32 and
+    bf16), a run-time activation with a ``device_expr`` through every
+    kernel that takes an activation, and the wrappers' refusals —
+    among them every wrapper's refusal under autograd. They
     live here because this file imports no JAX, which the card's
     machine does not have. ``chip_smoke.py`` repeats the comparisons at
     full width.
@@ -56,7 +57,10 @@ def test_scan_sees_the_whole_port():
     names = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
     assert {"kernels/sidebar_mlp.py", "kernels/paged_attention.py",
             "launch/scheduler.py", "bridge.py", "models/moe.py",
-            "models/attention.py"} <= names
+            "models/attention.py", "kernels/flash_attention.py",
+            "launch/train.py", "optim/optimizer.py", "optim/compression.py",
+            "data/pipeline.py", "checkpoint/manager.py", "ft/watchdog.py",
+            "tree.py"} <= names
 
 
 def test_import_needs_no_nvcc_no_triton_and_builds_nothing(tmp_path):
@@ -526,3 +530,208 @@ def test_paged_mla_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="kvr <= 512"):
         pa.paged_mla(ql, qr[..., :4].contiguous(), ckv,
                      kr[..., :4].contiguous(), t, ln, scale=1.0)
+
+
+# (B, Hq, Hkv, S, T, Dh, causal): the JAX package's FLASH_CASES, nemotron's
+# smoke head_dim 8, a ragged S and T, head_dim 96 and 256
+FLASH_CASES = [(2, 4, 4, 128, 128, 64, True), (1, 8, 2, 128, 128, 64, True),
+               (2, 4, 2, 128, 256, 32, True), (1, 4, 4, 128, 128, 128, False),
+               (1, 2, 1, 256, 256, 64, True), (2, 8, 2, 128, 128, 8, True),
+               (1, 4, 2, 100, 130, 16, True), (1, 4, 2, 128, 192, 96, True),
+               (1, 2, 1, 64, 192, 256, True)]
+
+
+def _row_rel_err(out, ref):
+    """The worst row's largest error over that row's largest |ref|."""
+    o, r = out.float().flatten(0, -2), ref.float().flatten(0, -2)
+    return ((o - r).abs().amax(-1)
+            / r.abs().amax(-1).clamp_min(1e-30)).max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", FLASH_CASES, ids=str)
+def test_flash_kernel_matches_plain(cuda, case, dtype):
+    """Each output row relative to its own largest value: fp32 on both
+    sides (the kernel's online softmax against the plain two-pass one)
+    1e-5; bf16 (the tensor-core route at head_dim 16-128, the FMA route
+    otherwise; p rounded to bf16 on both sides) 2e-2, which one bf16
+    ulp of the output (at most 7.8e-3 of the row's largest value) and
+    the p roundings stay under."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
+
+    b, hq, hkv, s, t, dh, causal = case
+    rng = np.random.RandomState(19)
+    q, k, v = (torch.from_numpy((rng.randn(*shape) * 0.3).astype(
+        np.float32)).to(cuda, dtype) for shape in (
+            (b, hq, s, dh), (b, hkv, t, dh), (b, hkv, t, dh)))
+    before = build.launches["flash_attention"]
+    out = fa.flash_attention(q, k, v, causal=causal)
+    ref = fa.flash_attention_plain(q, k, v, causal=causal)
+    assert out.shape == ref.shape and out.dtype == dtype
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    assert _row_rel_err(out, ref) <= tol
+    assert build.launches["flash_attention"] == before + 1
+
+
+@pytest.mark.gpu
+def test_flash_kernel_bf16_at_head_dim_128(cuda):
+    """nemotron's heads (48 / 8, head_dim 128) at S = T = 512, bf16:
+    the plain version on the same values rounds p to bf16 too; 3e-2
+    covers the bf16 output and the sums' order, and each row is held to
+    2e-2 of its own largest value (late rows average hundreds of keys
+    and hold values far below the first rows')."""
+    from repro_torch.kernels import flash_attention as fa
+
+    rng = np.random.RandomState(20)
+    q, k, v = (torch.from_numpy(rng.randn(1, h, 512, 128).astype(
+        np.float32)).to(cuda).bfloat16() for h in (48, 8, 8))
+    out = fa.flash_attention(q, k, v)
+    ref = fa.flash_attention_plain(q, k, v)
+    assert out.dtype == torch.bfloat16
+    torch.testing.assert_close(out.float(), ref.float(), rtol=3e-2,
+                               atol=3e-2)
+    assert _row_rel_err(out, ref) <= 2e-2
+
+
+@pytest.mark.gpu
+def test_flash_kernel_refusals(cuda):
+    from repro_torch.kernels import flash_attention as fa
+
+    q = torch.zeros(1, 4, 128, 12, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention(q, q, q)
+    q = torch.zeros(1, 3, 128, 16, device=cuda)
+    k = torch.zeros(1, 2, 128, 16, device=cuda)
+    with pytest.raises(ValueError, match="GQA"):
+        fa.flash_attention(q, k, k)
+    with pytest.raises(TypeError):
+        fa.flash_attention(q.half(), q.half(), q.half())
+
+
+def _autograd_calls(cuda):
+    """One small call of every CUDA kernel wrapper, taking the operand
+    that is to require grad."""
+    from repro_torch.kernels import activations as ak
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import sidebar_gated_mlp as sg
+    from repro_torch.kernels import sidebar_matmul as smm
+    from repro_torch.kernels import sidebar_mlp as sm
+
+    w1, wu, w2 = (torch.randn(*s, device=cuda)
+                  for s in ((64, 128), (64, 128), (128, 64)))
+    kp = torch.randn(5, 2, 8, 16, device=cuda)
+    tables = torch.tensor([[1, 2], [3, 4]], dtype=torch.int32, device=cuda)
+    lengths = torch.tensor([9, 16], dtype=torch.int32, device=cuda)
+    ckv, kr = torch.randn(5, 8, 32, device=cuda), torch.randn(5, 8, 8,
+                                                              device=cuda)
+    fk = torch.randn(1, 2, 128, 16, device=cuda)
+    return {
+        "sidebar_mlp": (torch.randn(4, 64), lambda x: sm.sidebar_mlp(
+            x, w1, w2, "relu")),
+        "sidebar_mlp_pipelined": (torch.randn(4, 64), lambda x:
+                                  sm.sidebar_mlp_pipelined(x, w1, w2,
+                                                           "relu")),
+        "sidebar_gated_mlp": (torch.randn(4, 64), lambda x:
+                              sg.sidebar_gated_mlp(x, w1, wu, w2)),
+        "sidebar_matmul": (torch.randn(4, 64), lambda x:
+                           smm.sidebar_matmul(x, w1)),
+        "activation": (torch.randn(4, 64), lambda x:
+                       ak.activation_2d(x, "relu")),
+        "paged_gqa": (torch.randn(2, 8, 16), lambda x: pa.paged_gqa(
+            x, kp, kp, tables, lengths, scale=0.25)),
+        "paged_mla": (torch.randn(2, 4, 32), lambda x: pa.paged_mla(
+            x, torch.randn(2, 4, 8, device=cuda), ckv, kr, tables, lengths,
+            scale=0.2)),
+        "flash_attention": (torch.randn(1, 4, 128, 16), lambda x:
+                            fa.flash_attention(x, fk, fk)),
+    }
+
+
+AUTOGRAD_WRAPPERS = ["sidebar_mlp", "sidebar_mlp_pipelined",
+                     "sidebar_gated_mlp", "sidebar_matmul", "activation",
+                     "paged_gqa", "paged_mla", "flash_attention"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", AUTOGRAD_WRAPPERS)
+def test_kernel_wrappers_refuse_autograd(cuda, name):
+    """A kernel launched through ctypes returns a tensor with no
+    grad_fn: under autograd with an operand that requires grad every
+    wrapper raises (and launches nothing) instead of cutting the graph;
+    under no_grad the same call launches."""
+    from repro_torch.kernels import build
+
+    x, call = _autograd_calls(cuda)[name]
+    x = x.to(cuda).requires_grad_(True)
+    before = build.launches[name]
+    with pytest.raises(RuntimeError, match="no backward"):
+        call(x)
+    assert build.launches[name] == before
+    with torch.no_grad():
+        call(x)
+    assert build.launches[name] == before + 1
+
+
+def test_autograd_wrappers_cover_every_kernel():
+    from repro_torch.kernels import build
+
+    assert sorted(AUTOGRAD_WRAPPERS) == sorted(build.SOURCES)
+
+
+@pytest.mark.gpu
+def test_unembed_gradient_on_the_card(cuda):
+    """bf16 logits through one fp32-output GEMM, and its backward (the
+    cotangent rounded to bf16, two bf16 GEMMs), against autograd of the
+    same products in fp32: 2e-2 covers the bf16 roundings."""
+    from repro_torch.models import layers as L
+
+    g = torch.Generator(device=cuda).manual_seed(21)
+    x = torch.randn(2, 64, 256, generator=g, device=cuda).bfloat16()
+    table = (torch.randn(1024, 256, generator=g, device=cuda) * 0.02
+             ).bfloat16()
+    cot = torch.randn(2, 64, 1024, generator=g, device=cuda)
+    xs, ts = (t.clone().requires_grad_(True) for t in (x, table))
+    out = L.unembed(xs, ts)
+    assert out.dtype == torch.float32
+    out.backward(cot)
+    xr, tr = (t.float().requires_grad_(True) for t in (x, table))
+    ref = xr @ tr.t()
+    ref.backward(cot)
+    torch.testing.assert_close(out, ref, rtol=2e-2, atol=2e-2)
+    for got, want in ((xs.grad, xr.grad), (ts.grad, tr.grad)):
+        assert got.dtype == torch.bfloat16
+        torch.testing.assert_close(got.float(), want, rtol=2e-2,
+                                   atol=2e-2 * want.abs().max().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("remat", ["full", "dots"])
+def test_remat_gradients_on_the_card(cuda, remat):
+    """Per-layer remat on the card (the nemotron smoke widths in bf16,
+    the plain routes): the loss and every gradient match the run that
+    keeps all activations. 1e-2 of each leaf's largest gradient allows
+    for the order of atomic sums (the embedding's backward)."""
+    import dataclasses
+
+    from repro_torch import configs, tree
+    from repro_torch.launch.train import value_and_grad
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(configs.get_smoke_config("nemotron-4-15b"),
+                              dtype=torch.bfloat16, remat="none")
+    params = T.init(cfg, seed=0, device=cuda)
+    toks = torch.from_numpy(np.random.RandomState(22).randint(
+        0, cfg.vocab_size, (2, 64)).astype(np.int32)).to(cuda)
+    batch = {"tokens": toks, "labels": toks}
+    l0, g0 = value_and_grad(lambda p, b: T.loss(p, cfg, b), params, batch)
+    cr = dataclasses.replace(cfg, remat=remat)
+    l1, g1 = value_and_grad(lambda p, b: T.loss(p, cr, b), params, batch)
+    torch.testing.assert_close(l1, l0, rtol=1e-6, atol=1e-6)
+    for a, b in zip(tree.leaves(g1), tree.leaves(g0)):
+        assert a.dtype == b.dtype == torch.bfloat16
+        scale = b.float().abs().max().item()
+        assert (a.float() - b.float()).abs().max().item() <= 1e-2 * scale
