@@ -21,12 +21,17 @@ exits non-zero):
      4096 with nemotron's 48 / 8 and deepseek-7b's 32 / 32 heads) —
      with the kernel's time,
      the plain version's time, the bound of the work and the time of one
-     PyTorch call of the same function where there is one; the ring MLP
-     at depths 1-4, bitwise equal across depths; and the run-time
-     activation check: mish registered with a ``device_expr`` on a fresh
-     function table, through all five wrappers that take an activation,
-     and an entry without one refused; and every CUDA wrapper's refusal
-     of an operand that requires grad (no kernel has a backward);
+     PyTorch call of the same function where there is one (the two
+     kernels redesigned for Hopper, the ring MLP and flash, also give
+     their time before the redesign, the achieved TB/s or TFLOP/s and
+     the time over the bound); the ring MLP at depths 1-4, bitwise equal
+     across depths, in fp32 and bf16; and the run-time activation
+     check: mish registered with a ``device_expr`` on a fresh function
+     table, through all five wrappers that take an activation, an entry
+     without one refused, and an expression that does not compute its
+     torch callable (``x * tanhf(x)`` for mish) refused before any
+     launch; and every CUDA wrapper's refusal of an operand that
+     requires grad (no kernel has a backward);
   2. nemotron-4-15b at full width (bf16 weights from a seed) served by
      ``PagedContinuousBatchingServer(kernel="paged")`` with the kernels
      on under the default SIDEBAR plan: 8 requests, half sharing a
@@ -98,8 +103,16 @@ V3_MODEL, V3_FF = 7168, 18432         # deepseek-v3-671b's dense layers
 KERNELS = ("sidebar_mlp", "paged_gqa", "sidebar_mlp_pipelined",
            "sidebar_matmul", "activation", "sidebar_gated_mlp", "paged_mla",
            "flash_attention")
-# the run-time activation of phase 0's variant builds and phase 1's check
+# the run-time activation of phase 0's variant builds and phase 1's check,
+# and an expression that does not compute mish (refused by the check)
 MISH_EXPR = "x * tanhf(log1pf(expf(x)))"
+WRONG_MISH_EXPR = "x * tanhf(x)"
+# the redesigned kernels' times before their redesign (chip_smoke.py
+# phase 1 on an NVIDIA H100 80GB HBM3 at 700 W: the ring kernel at depth
+# 2 by token rows, flash at S = T = 4096 by architecture)
+PREVIOUS_MS = {"sidebar_mlp_pipelined": {4: 1.148, 64: 3.659},
+               "flash_attention": {"nemotron-4-15b": 1.241,
+                                   "deepseek-7b": 0.921}}
 
 
 def mish(t: torch.Tensor) -> torch.Tensor:
@@ -490,9 +503,41 @@ def pipelined_ops(seed: int = 4) -> dict:
     emit({"phase": 1, "op": "sidebar_mlp_pipelined", "dtype": "float32",
           "depths": depths, "max_rel_err": worst, "tol": 1e-4,
           "bitwise_equal_across_depths": True})
+    # bf16 smoke shapes on the tensor-core cluster ring: 8- and 16-row
+    # panels (ragged and full) on clusters of 4, 32-row panels on
+    # clusters of 8, ragged F (a partial sub-tile) and D2 (tiles that
+    # leave consumers idle), and a D2 walked in three passes; against the
+    # plain version in fp32 on the same bf16 values, 2e-2 (bf16 rounding
+    # of f(h) and of the output)
+    worst = 0.0
+    smoke = ((1, 96, 200, 64), (12, 96, 1000, 96), (16, 96, 1000, 64),
+             (17, 96, 1000, 96), (130, 64, 2048, 64), (4, 64, 520, 12352))
+    for m, d, f, d2 in smoke:
+        x = torch.randn(m, d, generator=g, device=dev).bfloat16()
+        w1 = (torch.randn(d, f, generator=g, device=dev) / d ** 0.5
+              ).bfloat16()
+        w2 = (torch.randn(f, d2, generator=g, device=dev) / f ** 0.5
+              ).bfloat16()
+        ref = sm.sidebar_mlp_plain(x.float(), w1.float(), w2.float(),
+                                   "squared_relu")
+        outs = [sm.sidebar_mlp_pipelined(x, w1, w2, "squared_relu",
+                                         depth=t) for t in depths]
+        torch.cuda.synchronize()
+        _, rel = rel_err(outs[0], ref)
+        check(rel <= 2e-2, f"pipelined bf16 m={m} f={f} d2={d2}: rel {rel}")
+        check(all(torch.equal(outs[0], o) for o in outs[1:]),
+              f"pipelined bf16 m={m} f={f} d2={d2}: depths differ")
+        worst = max(worst, rel)
+    emit({"phase": 1, "op": "sidebar_mlp_pipelined", "dtype": "bfloat16",
+          "smoke_shapes": smoke, "depths": depths,
+          "max_rel_err": worst, "tol": 2e-2,
+          "bitwise_equal_across_depths": True})
     w1, w2 = full_weights(g)
     main = None
-    for m in (4, 64):
+    # the three builds at full width: decode (8-row panels), a staging
+    # round of one request (16 rows: prefill chunk = block 16) and of four
+    # (32-row panels on clusters of 8)
+    for m in (4, 16, 64):
         x = torch.randn(m, D_MODEL, generator=g, device=dev).bfloat16()
         ref = sm.sidebar_mlp_plain(x.float(), w1.float(), w2.float(),
                                    "squared_relu")
@@ -508,14 +553,23 @@ def pipelined_ops(seed: int = 4) -> dict:
         nbytes = 2 * (x.numel() + w1.numel() + w2.numel() + m * D_MODEL)
         b_ms, b_by = bound(nbytes, 2 * 2 * m * D_MODEL * D_FF,
                            torch.bfloat16)
+        smem = {t: sm.pipelined_smem_bytes(m, D_FF, t, torch.bfloat16)
+                for t in depths}
+        ms = per_depth[2]
         row = {"phase": 1, "op": "sidebar_mlp_pipelined",
                "dtype": "bfloat16", "shape": [m, D_MODEL, D_FF],
+               "route": "cluster ring, wgmma, TMA",
+               "panel_rows": sm.tokens_per_panel(m),
+               "cluster_size": sm.cluster_size(m),
                "f_range": sm.f_range_pipelined(m, D_FF),
-               "smem_bytes": {t: sm.pipelined_smem_bytes(
-                   m, D_FF, t, torch.bfloat16) for t in depths},
+               "clusters": -(-m // sm.tokens_per_panel(m))
+               * -(-D_FF // sm.f_range_pipelined(m, D_FF)),
+               "smem_bytes": smem,
                "bitwise_equal_across_depths": True,
                "max_abs_err": err, "max_rel_err": rel, "tol": 2e-2,
-               "ms_by_depth": per_depth, "ms": per_depth[2],
+               "ms_by_depth": per_depth, "ms": ms,
+               "previous_ms": PREVIOUS_MS["sidebar_mlp_pipelined"].get(m),
+               "tb_per_s": nbytes / ms / 1e9, "ms_over_bound": ms / b_ms,
                "plain_ms": cuda_ms(lambda: sm.sidebar_mlp_plain(
                    x, w1, w2, "squared_relu")),
                "library_ms": cuda_ms(
@@ -694,12 +748,15 @@ def mla_ops(seed: int = 7) -> dict:
 
 
 # tests/test_kernels.py FLASH_CASES (B, Hq, Hkv, S, T, Dh, causal), plus
-# nemotron's smoke head_dim 8, a ragged S and T, and head_dim 96 (a
-# tensor-core head dim that is not a power of two)
+# nemotron's smoke head_dim 8, a ragged S and T, head_dim 96 (a
+# tensor-core head dim that is not a power of two), and for the 128-row
+# q tiles of the wgmma route an S they do not divide, at GQA group 6 and
+# with T > S
 FLASH_SMOKE = ((2, 4, 4, 128, 128, 64, True), (1, 8, 2, 128, 128, 64, True),
                (2, 4, 2, 128, 256, 32, True), (1, 4, 4, 128, 128, 128, False),
                (1, 2, 1, 256, 256, 64, True), (2, 8, 2, 128, 128, 8, True),
-               (1, 4, 2, 100, 130, 16, True), (1, 4, 2, 128, 192, 96, True))
+               (1, 4, 2, 100, 130, 16, True), (1, 4, 2, 128, 192, 96, True),
+               (1, 6, 1, 200, 200, 128, True), (1, 12, 2, 130, 300, 64, True))
 
 
 def flash_ops(seed: int = 8) -> dict:
@@ -771,12 +828,15 @@ def flash_ops(seed: int = 8) -> dict:
         del ref
         torch.cuda.empty_cache()
         nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
-        b_ms, b_by = bound(nbytes, 4 * hq * s * t * dh / 2, torch.bfloat16)
+        flops = 4 * hq * s * t * dh / 2
+        b_ms, b_by = bound(nbytes, flops, torch.bfloat16)
+        ms = cuda_ms(lambda: fa.flash_attention(q, k, v), iters=10)
         row = {"phase": 1, "op": "flash_attention", "arch": arch,
                "dtype": "bfloat16", "shape": [1, hq, hkv, s, t, dh],
-               "causal": True, "max_abs_err": err,
-               "max_row_rel_err": rel, "tol": 2e-2,
-               "ms": cuda_ms(lambda: fa.flash_attention(q, k, v), iters=10),
+               "route": "wgmma, TMA ring", "causal": True,
+               "max_abs_err": err, "max_row_rel_err": rel, "tol": 2e-2,
+               "ms": ms, "previous_ms": PREVIOUS_MS["flash_attention"][arch],
+               "tflop_per_s": flops / ms / 1e9, "ms_over_bound": ms / b_ms,
                "plain_ms": cuda_ms(
                    lambda: fa.flash_attention_plain(q, k, v), iters=3,
                    warmup=1),
@@ -873,6 +933,7 @@ def user_activation_ops(seed: int = 6) -> None:
     table = make_default_table()
     table.register("mish", mish, device_expr=MISH_EXPR)
     table.register("mish_host_only", mish)
+    table.register("mish_wrong", mish, device_expr=WRONG_MISH_EXPR)
     g = torch.Generator(device="cuda").manual_seed(seed)
     dev = "cuda"
 
@@ -933,6 +994,18 @@ def user_activation_ops(seed: int = 6) -> None:
             else:
                 check(False, f"{name} ran an entry without a device_expr "
                              "on the card")
+            before = build.launches[name]
+            try:
+                kernel(*ops, "mish_wrong")
+            except ValueError as e:
+                check("mish_wrong" in str(e) and "at x = " in str(e),
+                      f"{name}: the wrong device_expr refused with {e}")
+                refusal = str(e)
+            else:
+                check(False, f"{name} served a device_expr that does not "
+                             "compute its torch callable")
+            check(build.launches[name] == before,
+                  f"{name} launched before refusing a wrong device_expr")
     check(all((n, MISH_EXPR) in build._loaded for n in wrappers),
           "run-time activation: a wrapper did not load its mish library")
     emit({"phase": 1, "op": "run_time_activation", "name": "mish",
@@ -940,7 +1013,9 @@ def user_activation_ops(seed: int = 6) -> None:
           "tol": {"float32": 1e-4, "bfloat16": 2e-2},
           "libraries": sorted(build._lib_path(n, MISH_EXPR).name
                               for n in wrappers),
-          "entry_without_device_expr": "refused by every wrapper"})
+          "entry_without_device_expr": "refused by every wrapper",
+          "wrong_device_expr": WRONG_MISH_EXPR,
+          "wrong_device_expr_refusal": refusal})
 
 
 # ---------------------------------------------------------------------------
@@ -1476,10 +1551,14 @@ def main() -> None:
         + [(n, MISH_EXPR) for n in build.ACTIVATION_KERNELS])
     # ptxas: registers, shared memory and spills of every kernel entry
     ptxas = {k: [ln.strip() for ln in v.splitlines()
-                 if "registers" in ln or "spill" in ln]
+                 if ("registers" in ln or "spill" in ln)
+                 and "(C7519)" not in ln]
              for k, v in build.build_log.items()}
+    # ptxas notes where it had to fence registers shared with wgmma
+    gmma_fences = {k: v.count("(C7519)") for k, v in build.build_log.items()
+                   if "(C7519)" in v}
     emit({"phase": 0, "nvidia_smi": smi, "build_s": build_s,
-          "ptxas": ptxas,
+          "ptxas": ptxas, "ptxas_gmma_register_fences": gmma_fences,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0)})
     rows = {}

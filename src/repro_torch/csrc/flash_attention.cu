@@ -26,12 +26,16 @@
 //
 // Two routes, one semantics:
 //  * bf16 with D a multiple of 16 up to 128 (the model's shapes) takes
-//    the tensor cores: ``flash_attention_mma`` below (mma.sync m16n8k16,
-//    fp32 accumulation; one warp per 16 query rows).
+//    the tensor cores: ``tc::flash_wgmma`` below (wgmma with fp32
+//    accumulation, q / K / V tiles by TMA into a ring of mbarrier-guarded
+//    stages, 128-row q tiles on two consumer warpgroups). It uses the
+//    Hopper helpers of hopper.cuh. It masks the unscaled logit to -1e30
+//    and takes exp(z) as 2^(z log2 e), with the scale folded into the
+//    exponent's FFMA (scale > 0 keeps the max where it was): the same
+//    function, rounded once where the FMA route rounds twice.
 //  * fp32, and bf16 at head dims 8 and 136-256, take ``flash_attention``:
 //    fp32 FMA outside the tensor cores (67 TFLOP/s peak), which cannot
 //    come within 15x of the bf16 bound.
-// wgmma, TMA tile loads and a warp-specialised pipeline are later work.
 //
 // Design of the FMA route: one block of 256 threads per (b * Hq + h, q
 // tile of BQ = 64 rows); q tiles are taken longest-first (the last tile
@@ -52,6 +56,7 @@
 // rows and keys past the ends are masked.
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -288,218 +293,372 @@ flash_attention(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on the tensor cores (mma.sync m16n8k16, fp32 accumulation), for
-// head_dim a multiple of 16 up to 128. Same semantics as above; the
-// block is 4 warps over BQ = 64 rows (16 a warp), key tiles of BK = 64.
-// A warp keeps its q rows as A fragments, the (16 x 64) logits tile
-// and the (16 x D) accumulator as C fragments in registers: the logits
-// never leave registers, the probabilities become the A fragments of
-// the PV product in place (rounded to bf16, as the Pallas body rounds
-// p to v's type), and each row's m and l live with the four lanes that
-// hold the row (two shuffles reduce them). K and V tiles are staged in
-// shared memory as bf16 with padded rows (D + 8: conflict-free 32-bit
-// fragment reads and ldmatrix rows); V's B fragments come from
-// ldmatrix .trans.
+// bf16 on the tensor cores: wgmma with a TMA ring, head_dim 16-128 (a
+// multiple of 16), computed at DP = 64 or 128 (TMA fills the columns
+// past D with zeros: they add nothing to q . k, and the output's are not
+// written). Same semantics as above.
+//
+// A block owns a BQ = 128-row q tile: two consumer warpgroups of 64 rows
+// (no loader warp: a ninth warp would cap every thread at 168 registers,
+// and the overlapped loop below needs ~190). Its first thread brings the
+// q tile and the first K and V tiles (BKT = 128 keys) by TMA into a ring
+// of KV_STAGES = 3 stages with full / empty mbarriers; afterwards the
+// warpgroup that frees a stage last refills it, so loads run two tiles
+// ahead of the products. A consumer warpgroup computes its (64 x 128)
+// logits tile with wgmma (q and K both K-major in shared memory), keeps
+// it in registers for the online softmax (a row's values sit in the four
+// lanes of a quad: two shuffles), and feeds p — rounded to bf16 where
+// the Pallas body rounds it, while l sums it unrounded — as the register
+// A operand of the PV wgmma, V read MN-major from shared memory: the
+// logits and probabilities never leave the SM. The PV product of tile t - 1 is
+// issued with tile t's logits product and runs during tile t's softmax;
+// the two warpgroups take turns (named barriers) to issue their
+// products, so one's softmax overlaps the other's products. Only the
+// tiles that cross the diagonal (or the end of the keys) are masked.
+// The grid puts the heads of one kv head next to each other (they share
+// K and V in L2) and the longest q tiles first.
 // ---------------------------------------------------------------------------
 
-constexpr int MMA_THREADS = 128;
+namespace tc {
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+namespace hp = repro::hopper;
+
+constexpr int BQ = 128;            // q rows of a block (two warpgroups)
+constexpr int BKT = 128;           // keys of a K / V tile: the logits
+                                   // product is m64n128k16
+constexpr int KV_STAGES = 3;
+constexpr int THREADS = 2 * 128;  // two consumer warpgroups
+constexpr int BOX = 128 * 128;     // bytes of one 128-row x 64-column box
+constexpr int KBOX = BKT * 128;    // bytes of one BKT-row x 64-column box
+
+template <int DP>
+size_t smem_bytes() {
+  // q, the K / V stages, 1 + 2 x KV_STAGES mbarriers, the stages'
+  // release counts, alignment slack
+  return 1024 + (size_t)(DP / 64) * (BOX + 2 * KV_STAGES * KBOX) +
+         8 * (1 + 2 * KV_STAGES) + 4 * KV_STAGES;
 }
+
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// 2^x on the special-function unit (results below 2^-126 flush to 0:
+// such a p is far below a bf16 ulp of any row's sum)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-// rows [row0, row0 + 64) of a (n, D) bf16 matrix into a (64, D + 8)
-// tile; rows at or past n are zero
-template <int D>
-__device__ __forceinline__ void stage_bf16(const __nv_bfloat16* __restrict__ src,
-                                           int row0, int n,
-                                           __nv_bfloat16* dst) {
-  constexpr int VPR = D / 8;                     // 16-byte vectors a row
-  for (int i = threadIdx.x; i < BQ * VPR; i += MMA_THREADS) {
-    const int r = i / VPR, cv = i - r * VPR;
-    uint4 u = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n)
-      u = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * D +
-                                          cv * 8);
-    *reinterpret_cast<uint4*>(dst + r * (D + 8) + cv * 8) = u;
+// named barriers (1, 2) of the two consumer warpgroups' turns: one waits
+// for its turn (its 128 threads) while the other arrives (its 128)
+__device__ __forceinline__ void turn_sync(int id) {
+  asm volatile("bar.sync %0, 256;" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void turn_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;" ::"r"(id) : "memory");
+}
+
+// o += p V for one tile: p (bf16, the register A operand) 16 keys a
+// k-step, V (MN-major at shared address ``vb``) one 64-column box at a
+// time; committed as one group, not waited for
+template <int NB>
+__device__ __forceinline__ void pv(float (*o)[32], const uint32_t (*pa)[4],
+                                   uint32_t vb) {
+  const uint64_t vdesc = hp::desc_sw128(vb);
+#pragma unroll
+  for (int kk = 0; kk < BKT / 16; ++kk)
+#pragma unroll
+    for (int c = 0; c < NB; ++c)
+      hp::wgmma_m64n64k16_rs<1>(o[c], pa[kk],
+                                vdesc + ((c * KBOX + kk * 2048) >> 4));
+  hp::wgmma_commit();
+}
+
+// tile u's K and V (64-column boxes of BKT rows of kv head bkv) into
+// stage st, completing kv_full[st]
+template <int NB>
+__device__ __forceinline__ void load_kv(unsigned char* kvs,
+                                        uint64_t* kv_full,
+                                        const CUtensorMap* mk,
+                                        const CUtensorMap* mv, int st, int u,
+                                        int bkv) {
+  constexpr int KV_STAGE = 2 * NB * KBOX;
+  unsigned char* dst = kvs + st * KV_STAGE;
+  hp::mbar_arrive_expect_tx(&kv_full[st], KV_STAGE);
+  for (int c = 0; c < NB; ++c) {
+    hp::tma_load_3d(dst + c * KBOX, mk, &kv_full[st], c * 64, u * BKT, bkv);
+    hp::tma_load_3d(dst + (NB + c) * KBOX, mv, &kv_full[st], c * 64,
+                    u * BKT, bkv);
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(MMA_THREADS)
-flash_attention_mma(const __nv_bfloat16* __restrict__ q,
-                    const __nv_bfloat16* __restrict__ k,
-                    const __nv_bfloat16* __restrict__ v,
-                    __nv_bfloat16* __restrict__ out, int Hq, int group,
-                    int S, int Tn, float scale, int causal, int offset) {
-  constexpr int LD = D + 8;
-  constexpr int KS = D / 16;                     // k-steps of q . k
-  constexpr int ND = D / 8;                      // n-tiles of the output
-  extern __shared__ uint4 smem_u4[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_u4);
-  __nv_bfloat16* ks = qs + BQ * LD;
-  __nv_bfloat16* vs = ks + BK * LD;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tig = lane & 3;
-
-  const int nq = (S + BQ - 1) / BQ;
-  const int qt = nq - 1 - blockIdx.x;            // longest tiles first
-  const int bh = blockIdx.y;
-  const int bkv = (bh / Hq) * (Hq / group) + (bh % Hq) / group;
-  const int q0 = qt * BQ;
-  const __nv_bfloat16* kb = k + (size_t)bkv * Tn * D;
-  const __nv_bfloat16* vb = v + (size_t)bkv * Tn * D;
-
-  stage_bf16<D>(q + (size_t)bh * S * D, q0, S, qs);
-  __syncthreads();
-  const int r0 = warp * 16 + g;                  // the lane's rows r0, r0+8
-  uint32_t qa[KS][4];
-#pragma unroll
-  for (int s = 0; s < KS; ++s) {
-    qa[s][0] = ld32(qs + r0 * LD + 16 * s + 2 * tig);
-    qa[s][1] = ld32(qs + (r0 + 8) * LD + 16 * s + 2 * tig);
-    qa[s][2] = ld32(qs + r0 * LD + 16 * s + 8 + 2 * tig);
-    qa[s][3] = ld32(qs + (r0 + 8) * LD + 16 * s + 8 + 2 * tig);
-  }
-
-  const int last_q = min(q0 + BQ, S) - 1;
-  const int kv_end = causal ? min(Tn, last_q + offset + 1) : Tn;
-  const int n_tiles = (kv_end + BK - 1) / BK;
-
-  float o[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+// ---- consumer warpgroup tid / 128: q rows q0 + 64 wg .. + 63 ----------
+template <int DP>
+__device__ __forceinline__ void consume(
+    unsigned char* qs, unsigned char* kvs, uint64_t* q_full,
+    uint64_t* kv_full, uint64_t* kv_empty, int* released,
+    const CUtensorMap* mk, const CUtensorMap* mv, int bkv,
+    __nv_bfloat16* __restrict__ out, int bh, int q0, int n_tiles, int S,
+    int Tn, int D, float scale, int causal, int offset) {
+  constexpr int NB = DP / 64;
+  constexpr int KV_STAGE = 2 * NB * KBOX;
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const int warp = (tid % 128) / 32, lane = tid % 32;
+  const int r0 = 64 * wg + 16 * warp + lane / 4;   // rows r0, r0 + 8
   const int qrow[2] = {q0 + r0, q0 + r0 + 8};
+  const int first_row = q0 + 64 * wg;
+  const uint32_t qa = hp::smem_addr(qs) + wg * 64 * 128;
+  const float scale_log2 = scale * 1.4426950408889634f;
+  const uint32_t kv0 = hp::smem_addr(kvs);
 
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * BK;
-    __syncthreads();                             // last tile's reads done
-    stage_bf16<D>(kb, k0, Tn, ks);
-    stage_bf16<D>(vb, k0, Tn, vs);
-    __syncthreads();
+  float o[NB][32];
+#pragma unroll
+  for (int c = 0; c < NB; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[c][i] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
 
-    // logits: 8 n-tiles of 8 keys
-    float sc[8][4];
+  // the two warpgroups take turns to issue their logits products, so
+  // one's softmax runs while the other's products do (warpgroup 0 first)
+  const int my_turn = 1 + wg, other_turn = 2 - wg;   // named barriers
+  if (wg == 1) turn_arrive(1);
+  hp::mbar_wait(q_full, 0);
+  // Tile t's logits product is issued together with tile t - 1's PV
+  // product, and the softmax of tile t runs while the PV product does:
+  // o holds alpha-rescaled sums of every tile but the last one, whose p
+  // is in ``pa`` (o_t = alpha_t (o_{t-1} + p_{t-1} V_{t-1})). The first
+  // tile is peeled off, so that no wgmma sits in a branch (ptxas would
+  // serialise every wgmma of the kernel).
+  float sc[BKT / 2];
+  uint32_t pa[BKT / 16][4];
+  int s = 0, s_prev = 0;
+  uint32_t ph = 0;
+
+  // the logits of the tile in stage s: (64 x BKT) = q (64 x DP) . K^T,
+  // 16 columns of d a k-step; committed, not waited for
+  // (a descriptor's address field takes byte offsets / 16 as they are)
+  const uint64_t qdesc = hp::desc_sw128(qa);
+  // (the first k-step overwrites the accumulator: no zeroing)
+  auto issue_logits = [&]() {
+    const uint64_t kdesc = hp::desc_sw128(kv0 + s * KV_STAGE);
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.f;
-      const __nv_bfloat16* kr = ks + (n * 8 + g) * LD + 2 * tig;
+    for (int kk = 0; kk < DP / 16; ++kk)
+      hp::wgmma_m64n128k16_ss<0, 0>(
+          sc, qdesc + (((kk / 4) * BOX + (kk % 4) * 32) >> 4),
+          kdesc + (((kk / 4) * KBOX + (kk % 4) * 32) >> 4), kk > 0);
+    hp::wgmma_commit();
+  };
+  // mask (only a tile across the diagonal or the end of the keys: the
+  // logit becomes -1e30), the online softmax of tile t in base 2
+  // (exp(z) = 2^(z log2 e), so p = 2^(s scale log2 e - m scale log2 e),
+  // one FFMA and one ex2 an element; m is kept unscaled): sc becomes p,
+  // l and m advance, alpha is left for the rescale. sc[4 i + 2 h + e] is
+  // row h, key k0 + 8 i + 2 (lane % 4) + e
+  float alpha[2];
+  auto softmax = [&](int t) {
+    const int k0 = t * BKT;
+    if (k0 + BKT > Tn || (causal && k0 + BKT - 1 > first_row + offset)) {
 #pragma unroll
-      for (int s = 0; s < KS; ++s)
-        mma_bf16(sc[n], qa[s], ld32(kr + 16 * s), ld32(kr + 16 * s + 8));
+      for (int i = 0; i < BKT / 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kpos = k0 + 8 * i + 2 * (lane & 3) + (e & 1);
+          if (kpos >= Tn || (causal && kpos > qrow[e >> 1] + offset))
+            sc[4 * i + e] = NEG_INF;
+        }
     }
-
-    // scale, mask, online softmax (row h: elements 2h, 2h+1 of each tile)
     float mx[2] = {NEG_INF, NEG_INF};
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int h = e >> 1;
-        const int kpos = k0 + n * 8 + 2 * tig + (e & 1);
-        float val = sc[n][e] * scale;
-        if (kpos >= Tn || (causal && kpos > qrow[h] + offset)) val = NEG_INF;
-        sc[n][e] = val;
-        mx[h] = fmaxf(mx[h], val);
-      }
-    float alpha[2], sum[2] = {0.f, 0.f};
+    for (int i = 0; i < BKT / 2; ++i)
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+    float sum[2] = {0.f, 0.f}, ms[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
       mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
       const float m_new = fmaxf(m[h], mx[h]);
-      alpha[h] = expf(m[h] - m_new);
+      alpha[h] = ex2((m[h] - m_new) * scale_log2);
       m[h] = m_new;
+      ms[h] = m_new * scale_log2;
     }
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = expf(sc[n][e] - m[e >> 1]);
-        sum[e >> 1] += p;
-        sc[n][e] = p;
-      }
+    for (int i = 0; i < BKT / 2; ++i) {
+      sc[i] = ex2(fmaf(sc[i], scale_log2, -ms[(i >> 1) & 1]));
+      sum[(i >> 1) & 1] += sc[i];
+    }
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
       sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
       l[h] = alpha[h] * l[h] + sum[h];
     }
+  };
+  // o *= alpha; p rounded to bf16 into pa (four packed pairs a 16-key
+  // k-step: the register A operand's layout) — l summed it unrounded
+  auto rescale_and_pack = [&]() {
 #pragma unroll
-    for (int n = 0; n < ND; ++n) {
-      o[n][0] *= alpha[0];
-      o[n][1] *= alpha[0];
-      o[n][2] *= alpha[1];
-      o[n][3] *= alpha[1];
+    for (int c = 0; c < NB; ++c)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[c][i] *= alpha[(i >> 1) & 1];
+#pragma unroll
+    for (int i = 0; i < BKT / 4; ++i)
+      pa[i / 4][i % 4] = pack_bf16(sc[2 * i], sc[2 * i + 1]);
+  };
+  auto next_stage = [&]() {
+    s_prev = s;
+    if (++s == KV_STAGES) {
+      s = 0;
+      ph ^= 1;
     }
+  };
 
-    // PV: p (rounded to bf16) as the A fragments, 16 keys a k-step
+  // tile 0
+  hp::mbar_wait(&kv_full[s], ph);
+  turn_sync(my_turn);
+  hp::wgmma_fence();
+  issue_logits();
+  if (wg == 0 || n_tiles > 1) turn_arrive(other_turn);
+  hp::wgmma_wait<0>();
+  hp::fence_regs<BKT / 2>(sc);
+  softmax(0);
+  rescale_and_pack();
+  next_stage();
+  // tiles 1 .. n - 1, each with the previous tile's PV product
+  for (int t = 1; t < n_tiles; ++t) {
+    hp::mbar_wait(&kv_full[s], ph);
+    turn_sync(my_turn);
+    hp::wgmma_fence();
+    issue_logits();
+    pv<NB>(o, pa, kv0 + s_prev * KV_STAGE + NB * KBOX);
+    if (wg == 0 || t + 1 < n_tiles) turn_arrive(other_turn);
+    hp::wgmma_wait<1>();   // the logits; the PV product may still run
+    hp::fence_regs<BKT / 2>(sc);
+    softmax(t);
+    hp::wgmma_wait<0>();   // tile t - 1's PV product: its stage is free
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const uint32_t pa[4] = {
-          pack_bf16(sc[2 * kk][0], sc[2 * kk][1]),
-          pack_bf16(sc[2 * kk][2], sc[2 * kk][3]),
-          pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]),
-          pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3])};
-      const uint32_t row_addr = static_cast<uint32_t>(__cvta_generic_to_shared(
-          vs + (kk * 16 + (lane & 15)) * LD));
-#pragma unroll
-      for (int n = 0; n < ND; ++n) {
-        uint32_t b0, b1;
-        asm volatile(
-            "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-            : "=r"(b0), "=r"(b1)
-            : "r"(row_addr + n * 16));
-        mma_bf16(o[n], pa, b0, b1);
+    for (int c = 0; c < NB; ++c) hp::fence_regs<32>(o[c]);
+    if (tid % 128 == 0) {
+      hp::mbar_arrive(&kv_empty[s_prev]);
+      // the second warpgroup to free the stage refills it with tile
+      // t - 1 + KV_STAGES
+      const int u = t - 1 + KV_STAGES;
+      if (u < n_tiles && atomicAdd(&released[s_prev], 1) == 1) {
+        released[s_prev] = 0;
+        hp::mbar_wait(&kv_empty[s_prev], ((t - 1) / KV_STAGES) & 1);
+        load_kv<NB>(kvs, kv_full, mk, mv, s_prev, u, bkv);
       }
     }
+    rescale_and_pack();
+    next_stage();
   }
+  hp::wgmma_fence();
+  pv<NB>(o, pa, kv0 + s_prev * KV_STAGE + NB * KBOX);
+  hp::wgmma_wait<0>();
+#pragma unroll
+  for (int c = 0; c < NB; ++c) hp::fence_regs<32>(o[c]);
 
-  // the accumulator, divided by l, written once
+  // the accumulator, divided by l, written once (columns below D)
   __nv_bfloat16* ob = out + (size_t)bh * S * D;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     if (qrow[h] >= S) continue;
     const float inv = 1.f / (l[h] == 0.f ? 1.f : l[h]);
-    __nv_bfloat16* orow = ob + (size_t)qrow[h] * D + 2 * tig;
+    __nv_bfloat16* orow = ob + (size_t)qrow[h] * D + 2 * (lane & 3);
 #pragma unroll
-    for (int n = 0; n < ND; ++n)
-      *reinterpret_cast<uint32_t*>(orow + n * 8) =
-          pack_bf16(o[n][2 * h] * inv, o[n][2 * h + 1] * inv);
+    for (int c = 0; c < NB; ++c)
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int col = c * 64 + 8 * i + 2 * (lane & 3);
+        if (col < D)
+          *reinterpret_cast<uint32_t*>(orow + c * 64 + 8 * i) = pack_bf16(
+              o[c][4 * i + 2 * h] * inv, o[c][4 * i + 2 * h + 1] * inv);
+      }
   }
 }
 
-template <int D>
-int launch_mma(const void* q, const void* k, const void* v, void* out,
-               int B, int Hq, int Hkv, int S, int Tn, float scale,
-               int causal, cudaStream_t stream) {
-  const size_t smem = sizeof(__nv_bfloat16) * (size_t)(BQ + 2 * BK) * (D + 8);
-  auto kern = flash_attention_mma<D>;
+template <int DP>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_wgmma(const __grid_constant__ CUtensorMap mq,
+            const __grid_constant__ CUtensorMap mk,
+            const __grid_constant__ CUtensorMap mv,
+            __nv_bfloat16* __restrict__ out, int Hq, int group, int S,
+            int Tn, int D, float scale, int causal, int offset) {
+  constexpr int NB = DP / 64;        // 64-column boxes of a row
+  constexpr int KV_STAGE = 2 * NB * KBOX;
+  extern __shared__ __align__(1024) unsigned char flash_smem[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(flash_smem) + 1023) & ~uintptr_t(1023));
+  unsigned char* qs = smem;
+  unsigned char* kvs = qs + NB * BOX;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(kvs + KV_STAGES * KV_STAGE);
+  uint64_t* kv_full = q_full + 1;
+  uint64_t* kv_empty = kv_full + KV_STAGES;
+  int* released = reinterpret_cast<int*>(kv_empty + KV_STAGES);
+
+  const int bh = blockIdx.x;
+  const int bkv = (bh / Hq) * (Hq / group) + (bh % Hq) / group;
+  const int nq = (S + BQ - 1) / BQ;
+  const int q0 = (nq - 1 - (int)blockIdx.y) * BQ;   // longest tiles first
+  const int last_q = min(q0 + BQ, S) - 1;
+  const int kv_end = causal ? min(Tn, last_q + offset + 1) : Tn;
+  const int n_tiles = (kv_end + BKT - 1) / BKT;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    hp::mbar_init(q_full, 1);
+    for (int s = 0; s < KV_STAGES; ++s) {
+      hp::mbar_init(&kv_full[s], 1);
+      hp::mbar_init(&kv_empty[s], 2);
+      released[s] = 0;
+    }
+    hp::fence_barrier_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    // q once, and the first KV_STAGES tiles; later tiles are loaded by
+    // the warpgroup that frees a stage last
+    hp::mbar_arrive_expect_tx(q_full, NB * BOX);
+    for (int c = 0; c < NB; ++c)
+      hp::tma_load_3d(qs + c * BOX, &mq, q_full, c * 64, q0, bh);
+    for (int u = 0; u < min(KV_STAGES, n_tiles); ++u)
+      load_kv<NB>(kvs, kv_full, &mk, &mv, u, u, bkv);
+  }
+  consume<DP>(qs, kvs, q_full, kv_full, kv_empty, released, &mk, &mv, bkv,
+              out, bh, q0, n_tiles, S, Tn, D, scale, causal, offset);
+}
+
+template <int DP>
+int launch(const void* q, const void* k, const void* v, void* out, int B,
+           int Hq, int Hkv, int S, int Tn, int D, float scale, int causal,
+           cudaStream_t stream) {
+  // (D, rows, heads) views; boxes of 64 columns x 128 rows of one head
+  CUtensorMap mq, mk, mv;
+  const uint64_t dq[3] = {(uint64_t)D, (uint64_t)S, (uint64_t)B * Hq};
+  const uint64_t dk[3] = {(uint64_t)D, (uint64_t)Tn, (uint64_t)B * Hkv};
+  const uint64_t sq[2] = {2ull * D, 2ull * D * S};
+  const uint64_t sk[2] = {2ull * D, 2ull * D * Tn};
+  const uint32_t qbox[3] = {64, BQ, 1}, kbox[3] = {64, BKT, 1};
+  if (!repro::hopper::make_tensor_map(&mq, q, 3, dq, sq, qbox) ||
+      !repro::hopper::make_tensor_map(&mk, k, 3, dk, sk, kbox) ||
+      !repro::hopper::make_tensor_map(&mv, v, 3, dk, sk, kbox))
+    return cudaErrorInvalidValue;
+  const size_t smem = smem_bytes<DP>();
+  auto kern = flash_wgmma<DP>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  kern<<<dim3((S + BQ - 1) / BQ, B * Hq), MMA_THREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
-      Hq, Hq / Hkv, S, Tn, scale, causal, Tn - S);
+  kern<<<dim3(B * Hq, (S + BQ - 1) / BQ), THREADS, smem, stream>>>(
+      mq, mk, mv, static_cast<__nv_bfloat16*>(out), Hq, Hq / Hkv, S, Tn, D,
+      scale, causal, Tn - S);
   return cudaGetLastError();
 }
+
+}  // namespace tc
 
 template <typename T, int DG>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
@@ -559,23 +718,13 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     return dispatch_d<float>(q, k, v, out, B, Hq, Hkv, S, Tn, D, scale,
                              causal, s);
   if (dtype == repro::kBF16) {
-    switch (D) {                     // the tensor-core route
-#define REPRO_MMA_CASE(d)                                                   \
-      case d:                                                               \
-        return launch_mma<d>(q, k, v, out, B, Hq, Hkv, S, Tn, scale, causal, s);
-      REPRO_MMA_CASE(16)
-      REPRO_MMA_CASE(32)
-      REPRO_MMA_CASE(48)
-      REPRO_MMA_CASE(64)
-      REPRO_MMA_CASE(80)
-      REPRO_MMA_CASE(96)
-      REPRO_MMA_CASE(112)
-      REPRO_MMA_CASE(128)
-#undef REPRO_MMA_CASE
-      default:
-        return dispatch_d<__nv_bfloat16>(q, k, v, out, B, Hq, Hkv, S, Tn, D,
-                                         scale, causal, s);
-    }
+    if (D % 16 == 0 && D <= 128)     // the tensor-core route
+      return D <= 64 ? tc::launch<64>(q, k, v, out, B, Hq, Hkv, S, Tn, D,
+                                      scale, causal, s)
+                     : tc::launch<128>(q, k, v, out, B, Hq, Hkv, S, Tn, D,
+                                       scale, causal, s);
+    return dispatch_d<__nv_bfloat16>(q, k, v, out, B, Hq, Hkv, S, Tn, D,
+                                     scale, causal, s);
   }
   return cudaErrorInvalidValue;
 }

@@ -67,7 +67,7 @@ def activation_2d(
     if not x.is_contiguous():
         raise ValueError("activation kernel takes a contiguous operand")
     act, expr = build.kernel_activation("activation", activation, table,
-                                        rowwise_ok=True)
+                                        x.device, rowwise_ok=True)
     m, n = x.shape
     y = torch.empty_like(x)
     if m == 0 or n == 0:

@@ -16,6 +16,10 @@ header (``-include``) that defines ``repro_user_activation(float x)``
 from the expression, which ``csrc/activation.cuh`` takes the reserved
 id ``USER_ACTIVATION_ID`` to. Such a library is keyed by the hash of
 the sources and of the expression, and is built at its first launch.
+Before its first launch the expression is held to the entry's torch
+callable on the card (``verify_device_expr``): both run on one fixed
+fp32 probe, and a disagreement raises, so a wrong expression never
+serves.
 """
 
 from __future__ import annotations
@@ -32,7 +36,8 @@ from typing import Callable, Iterable
 
 import torch
 
-from repro_torch.core.function_table import USER_ACTIVATION_ID, FunctionTable
+from repro_torch.core.function_table import (USER_ACTIVATION_ID,
+                                             FunctionEntry, FunctionTable)
 
 _PKG = pathlib.Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -208,14 +213,15 @@ def check_operands(what: str, *tensors: torch.Tensor) -> int:
     return DTYPES[t0.dtype]
 
 
-def kernel_activation(what: str, activation: str | Callable,
-                      table: FunctionTable, *, rowwise_ok: bool = False
-                      ) -> tuple[int, str | None]:
-    """The kernel-side form of a function-table entry for a CUDA launch:
-    (id, None) for an entry with a compiled id, (``USER_ACTIVATION_ID``,
-    expression) for one registered with a ``device_expr``. Raises for a
-    callable, for a rowwise entry unless ``rowwise_ok`` (the fused
-    kernels need the whole row), and for an entry with neither."""
+def kernel_form(what: str, activation: str | Callable,
+                table: FunctionTable, *, rowwise_ok: bool = False
+                ) -> tuple[int, str | None]:
+    """The kernel-side form of a function-table entry: (id, None) for an
+    entry with a compiled id, (``USER_ACTIVATION_ID``, expression) for
+    one registered with a ``device_expr``. Raises for a callable, for a
+    rowwise entry unless ``rowwise_ok`` (the fused kernels need the
+    whole row), and for an entry with neither. A launch takes it through
+    ``kernel_activation``, which also checks the expression."""
     if callable(activation):
         raise TypeError(f"{what} kernel takes a function-table key")
     ent = table[activation]
@@ -231,6 +237,104 @@ def kernel_activation(what: str, activation: str | Callable,
         f"activation {activation!r} has no kernel-side implementation: "
         "register it with a device_expr (a CUDA C++ expression in float "
         "x) to run it in the kernels")
+
+
+def kernel_activation(what: str, activation: str | Callable,
+                      table: FunctionTable, device: torch.device, *,
+                      rowwise_ok: bool = False) -> tuple[int, str | None]:
+    """``kernel_form`` for a launch on the CUDA ``device``: an entry's
+    expression is first held to its torch callable there
+    (``verify_device_expr``, once per process), and a mismatch raises
+    ``ValueError``."""
+    if torch.device(device).type != "cuda":
+        raise ValueError(f"{what}: kernel launch on {device}, not a card")
+    form = kernel_form(what, activation, table, rowwise_ok=rowwise_ok)
+    if form[1] is not None:
+        verify_device_expr(table[activation], device)
+    return form
+
+
+# the check of a device_expr against its torch callable: both fp32 on
+# the same values, so only expf/tanhf/... against torch's rounding
+# differ
+EXPR_RTOL = 1e-5
+EXPR_ATOL = 1e-6
+# inputs where common activations change branch or saturate
+EXPR_BRANCH_POINTS = (0.0, 1e-6, -1e-6, 0.5, -0.5, 1.0, -1.0, 2.0, -2.0,
+                      3.0, -3.0, 6.0, -6.0, 20.0, -20.0)
+_ACTIVATION_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
+                        + [ctypes.c_void_p])
+# (entry name, device_expr, torch callable) -> None when they agree, or
+# the message of the disagreement
+_expr_verdicts: dict[tuple[str, str, Callable], str | None] = {}
+
+
+def expr_probe() -> torch.Tensor:
+    """The fixed fp32 probe (on the CPU): a dense grid over [-20, 20] in
+    steps of 0.01, then ``EXPR_BRANCH_POINTS``."""
+    grid = torch.arange(-2000, 2001, dtype=torch.float64) / 100
+    return torch.cat([grid, torch.tensor(EXPR_BRANCH_POINTS,
+                                         dtype=torch.float64)]).float()
+
+
+def check_device_expr(ent: FunctionEntry,
+                      run_expr: Callable[[torch.Tensor], torch.Tensor]
+                      ) -> None:
+    """Hold ``ent.device_expr``, computed by ``run_expr`` on the probe,
+    to ``ent.fn`` on the same fp32 values: |kernel - fn| must be within
+    ``EXPR_ATOL + EXPR_RTOL * |fn|`` everywhere (NaN where fn gives NaN,
+    the same infinities). Raises ``ValueError`` naming the entry, the
+    worst input and both values. The verdict is cached by (name,
+    expression, callable): each pair runs once per process."""
+    key = (ent.name, ent.device_expr, ent.fn)
+    if key not in _expr_verdicts:
+        x = expr_probe()
+        got = run_expr(x)
+        # the callable on the same values, where the expression ran
+        want = ent.fn(x.to(got.device)).float().cpu()
+        got = got.float().cpu()
+        ok = torch.isclose(got, want, rtol=EXPR_RTOL, atol=EXPR_ATOL,
+                           equal_nan=True)
+        verdict = None
+        if not bool(ok.all()):
+            excess = ((got - want).abs()
+                      / (EXPR_ATOL + EXPR_RTOL * want.abs()))
+            excess = torch.where(ok, torch.zeros_like(excess),
+                                 excess.nan_to_num(nan=float("inf"),
+                                                   posinf=float("inf")))
+            i = int(excess.argmax())
+            verdict = (
+                f"device_expr of {ent.name!r} ({ent.device_expr!r}) does "
+                f"not compute its torch callable: at x = {x[i].item()!r} "
+                f"the expression gives {got[i].item()!r}, the callable "
+                f"{want[i].item()!r} (tolerance {EXPR_RTOL} relative, "
+                f"{EXPR_ATOL} absolute; {int((~ok).sum())} of {x.numel()} "
+                "probe inputs disagree)")
+        _expr_verdicts[key] = verdict
+    if _expr_verdicts[key] is not None:
+        raise ValueError(_expr_verdicts[key])
+
+
+def verify_device_expr(ent: FunctionEntry, device: torch.device) -> None:
+    """``check_device_expr`` on the card: the expression runs in the
+    standalone activation kernel built for it (``activation`` library,
+    id ``USER_ACTIVATION_ID``), the callable on the same CUDA tensor.
+    This launch is a check, not a launch of the path: it is not
+    counted."""
+
+    def run_expr(x: torch.Tensor) -> torch.Tensor:
+        x = x.to(device)
+        y = torch.empty_like(x)
+        fn = entry("activation", "activation_launch", _ACTIVATION_ARGTYPES,
+                   ent.device_expr)
+        stream = torch.cuda.current_stream(device).cuda_stream
+        check(fn(x.data_ptr(), y.data_ptr(), 1, x.numel(),
+                 USER_ACTIVATION_ID, DTYPES[torch.float32], stream),
+              f"device_expr check of {ent.name!r}")
+        return y
+
+    with torch.no_grad():
+        check_device_expr(ent, run_expr)
 
 
 def check(err: int, what: str) -> None:

@@ -8,6 +8,11 @@ is built) for CUDA tensors and takes the plain version,
 tensors. There is no fallback between the two: a CUDA tensor the kernel
 does not take raises. The kernel has no backward, as the Pallas kernel
 has none: under autograd a CUDA operand that requires grad raises.
+
+On the card the kernel picks its route by type and head dim: bf16 at
+head dims 16, 32, ..., 128 takes the tensor cores (wgmma, a TMA ring of
+K / V tiles, 128-row q tiles); fp32, and bf16 at head dim 8 or 136-256,
+take the fp32 FMA route.
 """
 
 from __future__ import annotations

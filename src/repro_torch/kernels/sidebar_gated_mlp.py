@@ -75,7 +75,7 @@ def sidebar_gated_mlp(
                                        table)
     dtype = build.check_operands("sidebar_gated_mlp", *ops)
     act, expr = build.kernel_activation("sidebar_gated_mlp", activation,
-                                        table)
+                                        table, x.device)
     y = torch.empty((m, d2), dtype=x.dtype, device=x.device)
     if m == 0:
         return y

@@ -66,7 +66,7 @@ def sidebar_matmul(
         return sidebar_matmul_plain(a, b, activation, table)
     dtype = build.check_operands("sidebar_matmul", a, b)
     act, expr = build.kernel_activation("sidebar_matmul", activation,
-                                        table)
+                                        table, a.device)
     c = torch.empty((m, n), dtype=a.dtype, device=a.device)
     if m == 0 or n == 0:
         return c

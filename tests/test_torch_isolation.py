@@ -265,6 +265,80 @@ def test_pipelined_kernel_matches_plain_and_ignores_depth(cuda, m, d, f):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("d2", [64, 96])
+@pytest.mark.parametrize("f", [200, 1000, 2048])
+@pytest.mark.parametrize("m", [1, 3, 12, 16, 17, 64, 130])
+def test_pipelined_bf16_kernel_matches_plain_and_ignores_depth(cuda, m, f,
+                                                              d2):
+    """The tensor-core cluster ring: token panels of each build (8 rows
+    at M 1 and 3; 16 at M 12 and 16; 32 rows on clusters of 8 at M 17, 64
+    and 130), ragged or full; an F that its sub-tiles do not divide; D2
+    tiles that do not fill the cluster's consumers; against the plain
+    version in fp32 on the same bf16 values (2e-2 covers the bf16
+    rounding of f(h) and of the output), bitwise equal across depths 1-4
+    and 7."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import sidebar_mlp as sm
+
+    rng = np.random.RandomState(21)
+    x, w1, w2 = (torch.from_numpy(a).to(cuda).bfloat16() for a in (
+        rng.randn(m, 96).astype(np.float32),
+        (rng.randn(96, f) / np.sqrt(96)).astype(np.float32),
+        (rng.randn(f, d2) / np.sqrt(f)).astype(np.float32)))
+    before = build.launches["sidebar_mlp_pipelined"]
+    outs = [sm.sidebar_mlp_pipelined(x, w1, w2, "squared_relu", depth=t)
+            for t in (1, 2, 3, 4, 7)]
+    assert build.launches["sidebar_mlp_pipelined"] == before + 5
+    ref = sm.sidebar_mlp_plain(x.float(), w1.float(), w2.float(),
+                               "squared_relu")
+    assert outs[0].dtype == torch.bfloat16 and outs[0].shape == (m, d2)
+    torch.testing.assert_close(outs[0].float(), ref, rtol=2e-2, atol=2e-2)
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,f,d2", [(100, 256, 64), (96, 260, 64),
+                                    (96, 256, 68)])
+def test_pipelined_bf16_rejects_what_it_does_not_take(cuda, d, f, d2):
+    """The bf16 ring raises for a D, F or D2 that TMA cannot stride (not
+    a multiple of 8), and launches nothing; fp32 takes the same
+    shapes."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import sidebar_mlp as sm
+
+    x, w1, w2 = (torch.zeros(s, device=cuda) for s in ((4, d), (d, f),
+                                                          (f, d2)))
+    before = build.launches["sidebar_mlp_pipelined"]
+    with pytest.raises(ValueError, match="multiples of 8"):
+        sm.sidebar_mlp_pipelined(x.bfloat16(), w1.bfloat16(), w2.bfloat16())
+    assert build.launches["sidebar_mlp_pipelined"] == before
+    assert sm.sidebar_mlp_pipelined(x, w1, w2).shape == (4, d2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d2", [6152, 12352])
+@pytest.mark.parametrize("m", [4, 16, 64])
+def test_pipelined_bf16_walks_a_wide_d2_in_passes(cuda, m, d2):
+    """A D2 wider than the 6144 columns the consumers' registers hold is
+    walked in passes (a last pass of 8 or of 64 columns): against the
+    plain version at 2e-2, bitwise equal across depths 1, 2 and 9."""
+    from repro_torch.kernels import sidebar_mlp as sm
+
+    rng = np.random.RandomState(22)
+    x, w1, w2 = (torch.from_numpy(a).to(cuda).bfloat16() for a in (
+        rng.randn(m, 64).astype(np.float32),
+        (rng.randn(64, 520) / 8).astype(np.float32),
+        (rng.randn(520, d2) / np.sqrt(520)).astype(np.float32)))
+    outs = [sm.sidebar_mlp_pipelined(x, w1, w2, "squared_relu", depth=t)
+            for t in (1, 2, 9)]
+    ref = sm.sidebar_mlp_plain(x.float(), w1.float(), w2.float(),
+                               "squared_relu")
+    assert outs[0].shape == (m, d2)
+    torch.testing.assert_close(outs[0].float(), ref, rtol=2e-2, atol=2e-2)
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+
+
+@pytest.mark.gpu
 def test_new_wrappers_reject_what_they_do_not_take(cuda):
     from repro_torch.core.function_table import make_default_table
     from repro_torch.kernels import activations as ak
@@ -453,6 +527,32 @@ def test_entry_without_device_expr_raises_on_the_card(cuda, name):
         kernel(*ops, "mish", table)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", WRAPPER_NAMES)
+def test_device_expr_is_held_to_its_callable_on_the_card(cuda, name):
+    """An expression that does not compute its callable (torch mish
+    against ``x * tanhf(x)``) is refused before the kernel launches,
+    naming the worst input and both values; mish's right expression
+    launches."""
+    from repro_torch.core.function_table import make_default_table
+    from repro_torch.kernels import build
+
+    table = make_default_table()
+    table.register("mish_wrong", _mish, device_expr="x * tanhf(x)")
+    table.register("mish", _mish, device_expr=MISH)
+    kernel, plain = _user_wrappers()[name]
+    ops = _gated_problem(22, 4, 64, 256, cuda)
+    before = build.launches[name]
+    with pytest.raises(ValueError, match=r"mish_wrong.*at x = .* gives .* "
+                                         r"the callable"):
+        kernel(*ops, "mish_wrong", table)
+    assert build.launches[name] == before
+    out = kernel(*ops, "mish", table)
+    assert build.launches[name] == before + 1
+    torch.testing.assert_close(out, plain(*ops, "mish", table), rtol=1e-4,
+                               atol=1e-4)
+
+
 def _mla_problem(seed, *, b, h, kvr, rope, bs, nb, lengths, device, dtype):
     """An MLA pool with ragged lengths, a duplicated (prefix-shared)
     block and scratch-padded tails; q_lat fp32, q_rope in ``dtype``."""
@@ -573,6 +673,35 @@ def test_flash_kernel_matches_plain(cuda, case, dtype):
     assert out.shape == ref.shape and out.dtype == dtype
     tol = 1e-5 if dtype == torch.float32 else 2e-2
     assert _row_rel_err(out, ref) <= tol
+    assert build.launches["flash_attention"] == before + 1
+
+
+# the wgmma route's 128-row q tiles and 128-key tiles: S not a multiple
+# of 128, T > S (queries at offset T - S), GQA group 6, and the
+# non-causal case; (B, Hq, Hkv, S, T, causal)
+FLASH_TC_SHAPES = [(1, 6, 1, 200, 200, True), (1, 12, 2, 130, 300, True),
+                   (2, 6, 1, 256, 256, False)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh", [16, 64, 96, 128])
+@pytest.mark.parametrize("shape", FLASH_TC_SHAPES, ids=str)
+def test_flash_bf16_tensor_core_route_at_its_block_size(cuda, shape, dh):
+    """Each output row within 2e-2 of its own largest |ref| (the plain
+    version on the same bf16 values), as the other bf16 cases."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
+
+    b, hq, hkv, s, t, causal = shape
+    rng = np.random.RandomState(23)
+    q, k, v = (torch.from_numpy(rng.randn(*sh).astype(np.float32)).to(
+        cuda).bfloat16() for sh in ((b, hq, s, dh), (b, hkv, t, dh),
+                                    (b, hkv, t, dh)))
+    before = build.launches["flash_attention"]
+    out = fa.flash_attention(q, k, v, causal=causal)
+    ref = fa.flash_attention_plain(q, k, v, causal=causal)
+    assert out.shape == ref.shape and out.dtype == torch.bfloat16
+    assert _row_rel_err(out, ref) <= 2e-2
     assert build.launches["flash_attention"] == before + 1
 
 

@@ -185,13 +185,69 @@ def test_dma_route_keeps_the_jax_rounding_points():
 def test_pipelined_partition_ignores_depth():
     """The ring kernel's F partition depends on M and F only (what keeps
     its output bitwise equal across depths); the ring is capped at the
-    sub-tiles a block owns."""
-    assert sm.f_range_pipelined(4, 24576) == 256       # 4 sub-tiles
-    assert sm.f_range_pipelined(64, 24576) == 384
+    sub-tiles a cluster (bf16) or block (fp32) owns (the bf16 launch caps
+    it again at the slots its shared memory holds)."""
+    # bf16: 33 clusters of 4 blocks at decode (256-column sub-tiles), 8
+    # of 8 blocks for each of two 32-row panels at 64 rows (512 columns)
+    assert sm.f_range_pipelined(4, 24576) == 768       # 3 sub-tiles
+    assert sm.f_range_pipelined(64, 24576) == 3072     # 6 sub-tiles
     assert sm.f_range_pipelined(1, 100) == 256
-    assert [sm.ring_slots(4, 24576, t) for t in (1, 2, 4, 9)] == [1, 2, 4, 4]
+    assert [sm.ring_slots(4, 24576, t) for t in (1, 2, 4, 9)] == [1, 2, 3, 3]
+    assert [sm.ring_slots(16, 24576, t) for t in (1, 4, 7)] == [1, 3, 3]
+    assert [sm.ring_slots(64, 24576, t) for t in (1, 4, 7)] == [1, 4, 6]
+    # fp32 (plain FMA): 64-column sub-tiles, at least 4 a block
+    f32 = torch.float32
+    assert sm.f_range_fma(4, 24576) == 256
+    assert sm.f_range_fma(64, 24576) == 384
+    assert sm.f_range_fma(1, 100) == 256
+    assert [sm.ring_slots(4, 24576, t, f32) for t in (1, 2, 4, 9)] == [
+        1, 2, 4, 4]
     with pytest.raises(ValueError, match="depth"):
         sm.ring_slots(4, 24576, 0)
+
+
+@pytest.mark.parametrize("m", [1, 4, 8, 9, 16, 17, 64, 130])
+def test_pipelined_cluster_split(m):
+    """The bf16 ring's panels (8 token rows at decode, 16, 32 above 16 on
+    clusters of 8), its clusters (one block per SM of 132 while the
+    panels allow), whole sub-tiles of 64 columns a block, and the depth
+    asked of the kernel at most the sub-tiles a cluster owns; no card
+    needed."""
+    f = 24576
+    n, c = sm.tokens_per_panel(m), sm.cluster_size(m)
+    assert n == (8 if m <= 8 else 16 if m <= 16 else 32)
+    assert c == (8 if n == 32 else 4) and sm.subtile_f(m) == c * 64
+    panels = -(-m // n)
+    fr = sm.f_range_pipelined(m, f)
+    clusters = panels * -(-f // fr)
+    assert fr % sm.subtile_f(m) == 0
+    assert clusters * c <= max(132, panels * c)
+    if m <= 16:
+        assert clusters * c == 128       # 32 clusters of 4
+    if m == 64:
+        assert clusters * c == 128       # 2 panels x 8 clusters of 8
+    for depth in (1, 2, 3, 4, 9):
+        assert sm.ring_slots(m, f, depth) == min(depth,
+                                                 fr // sm.subtile_f(m))
+
+
+def test_pipelined_eligibility_rule():
+    """bf16 operands need D, F, D2 multiples of 8 (the rule the wrapper
+    applies before a launch), of any width: a D2 past what the
+    consumers' registers hold is walked in passes; fp32 takes any
+    shape."""
+    def ops(d, f, d2, dtype=torch.bfloat16):
+        return (torch.zeros(4, d, dtype=dtype), torch.zeros(d, f, dtype=dtype),
+                torch.zeros(f, d2, dtype=dtype))
+
+    sm.check_pipelined_operands(*ops(6144, 24576, 6144))
+    sm.check_pipelined_operands(*ops(96, 200, 64))
+    sm.check_pipelined_operands(*ops(96, 200, 12352))
+    sm.check_pipelined_operands(*ops(7, 13, 6200, torch.float32))
+    for bad in ((100, 200, 64), (96, 201, 64), (96, 200, 68),
+                (96, 200, 6156)):
+        with pytest.raises(ValueError, match="multiples of 8"):
+            sm.check_pipelined_operands(*ops(*bad))
 
 
 def test_gather_route_equals_the_plain_paged_version():

@@ -87,7 +87,7 @@ def test_register_rejects_what_is_not_one_elementwise_expression(kw):
 
 def test_kernel_activation_forms():
     table, host_only, _ = _tables()
-    ka = build.kernel_activation
+    ka = build.kernel_form
     assert ka("k", "silu", table) == (9, None)
     assert ka("k", "mish", table) == (ft.USER_ACTIVATION_ID, MISH)
     assert ka("k", "softmax", table, rowwise_ok=True) == (13, None)
@@ -97,6 +97,60 @@ def test_kernel_activation_forms():
         ka("k", "mish", host_only)
     with pytest.raises(TypeError, match="function-table key"):
         ka("k", _mish, table)
+
+
+def test_device_expr_check_probe_and_verdict_cache_without_a_card():
+    """The check that holds a device_expr to its torch callable, with the
+    expression emulated in torch on the CPU: the probe covers a dense
+    grid over [-20, 20] and the branch points; a wrong expression (mish's
+    callable against ``x * tanhf(x)``) raises naming the worst input and
+    both values, a right one passes, and each (name, expression,
+    callable) is run once — a repeated mismatch raises from the cache."""
+    probe = build.expr_probe()
+    assert probe.dtype == torch.float32 and probe.device.type == "cpu"
+    for v in (0.0, 1e-6, -1e-6, 1.0, -1.0, 20.0, -20.0):
+        assert (probe == torch.tensor(v)).any()
+    grid = probe[:4001]
+    assert grid.min() == -20 and grid.max() == 20
+    assert float((grid[1:] - grid[:-1]).max()) <= 0.0101
+    calls = []
+
+    def runner(fn):
+        def run(x):
+            calls.append(fn)
+            return fn(x)
+        return run
+
+    wrong = ft.FunctionEntry("mish_wrong", _mish, device_expr="x * tanhf(x)")
+    with pytest.raises(ValueError, match=r"mish_wrong.*x \* tanhf\(x\).*at "
+                                         r"x = .*gives .*callable"):
+        build.check_device_expr(wrong, runner(lambda t: t * torch.tanh(t)))
+    with pytest.raises(ValueError, match="mish_wrong"):
+        build.check_device_expr(wrong, runner(lambda t: t * torch.tanh(t)))
+    assert len(calls) == 1
+    right = ft.FunctionEntry("mish_right", _mish, device_expr=MISH)
+    emulated = lambda t: t * torch.tanh(torch.log1p(torch.exp(t)))  # noqa: E731
+    build.check_device_expr(right, runner(emulated))
+    build.check_device_expr(right, runner(emulated))
+    assert len(calls) == 2
+    # the worst input is where the two differ most against the tolerance
+    try:
+        build.check_device_expr(
+            ft.FunctionEntry("off_at_3", _mish, device_expr="x"),
+            lambda t: torch.where(t == 3.0, t + 1.0, _mish(t)))
+    except ValueError as e:
+        assert "at x = 3.0 " in str(e) and "2 of 4016" in str(e)  # grid, branch
+    else:
+        raise AssertionError("a disagreement at one input passed")
+    # the kernel-side form alone runs no check; a launch's form takes the
+    # card it runs on, so there is no way to ask for it unchecked
+    table, _, _ = _tables()
+    assert build.kernel_form("k", "mish", table) == (
+        ft.USER_ACTIVATION_ID, MISH)
+    with pytest.raises(TypeError):
+        build.kernel_activation("k", "mish", table)
+    with pytest.raises(ValueError, match="not a card"):
+        build.kernel_activation("k", "mish", table, torch.device("cpu"))
 
 
 @pytest.mark.parametrize("name", build.ACTIVATION_KERNELS)
