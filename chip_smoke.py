@@ -25,7 +25,14 @@ exits non-zero):
      kernels redesigned for Hopper, the ring MLP and flash, also give
      their time before the redesign, the achieved TB/s or TFLOP/s and
      the time over the bound); the ring MLP at depths 1-4, bitwise equal
-     across depths, in fp32 and bf16; and the run-time activation
+     across depths, in fp32 and bf16, ragged bf16 widths on its FMA
+     route included; the serial MLP at nemotron's widths at 4, 16, 64
+     and 4096 rows, bitwise equal to the ring at depths 1-4 (it is the
+     ring with one slot) and timed beside the ring at depth 1; the
+     gated MLP at 4, 16 and 64 rows of deepseek-7b's and deepseek-v3's
+     widths with its route, clusters and D2 passes, equal to a second
+     run bit for bit; every case names its route ("tc": tensor cores,
+     "fma": CUDA cores); and the run-time activation
      check: mish registered with a ``device_expr`` on a fresh function
      table, through all five wrappers that take an activation, an entry
      without one refused, and an expression that does not compute its
@@ -40,7 +47,8 @@ exits non-zero):
   5. the same weights and traffic under the paper's other execution
      modes — SIDEBAR_PIPELINED at depth 2, a per-layer plan of depths 2
      and 4, and FLEXIBLE_DMA — with exact launch counts per mode and a
-     summary line of tokens/s per mode;
+     summary line of tokens/s per mode; the two ring plans must give
+     SIDEBAR's greedy tokens, all of them;
   3. the same widths with int8 KV (depth cut to 4 layers);
   4. the fp32 smoke configs of nemotron-4-15b, deepseek-7b and
      deepseek-v3-671b (no-drop capacity) on the card: ``kernel="paged"``
@@ -112,7 +120,13 @@ WRONG_MISH_EXPR = "x * tanhf(x)"
 # 2 by token rows, flash at S = T = 4096 by architecture)
 PREVIOUS_MS = {"sidebar_mlp_pipelined": {4: 1.148, 64: 3.659},
                "flash_attention": {"nemotron-4-15b": 1.241,
-                                   "deepseek-7b": 0.921}}
+                                   "deepseek-7b": 0.921},
+               # the serial MLP kernels before their redesign (FMA
+               # streams): by token rows, and by architecture
+               "sidebar_mlp": {4: 0.711, 64: 3.19},
+               "sidebar_gated_mlp": {"deepseek-7b": {4: 0.242, 64: 1.15},
+                                     "deepseek-v3-671b": {4: 0.794,
+                                                          64: 3.29}}}
 
 
 def mish(t: torch.Tensor) -> torch.Tensor:
@@ -206,35 +220,78 @@ def mlp_ops(seed: int = 0) -> dict:
             worst = max(worst, rel)
     emit({"phase": 1, "op": "sidebar_mlp", "dtype": "float32",
           "rows": [1, 3, 4, 64, 130], "max_rel_err": worst, "tol": 1e-4})
-    # nemotron-4-15b widths in bf16, decode (4 rows) and a staging round
-    # (64 rows); against the plain version run in fp32 on the same
-    # values: 2e-2 relative covers bf16 rounding of f(h) and the output
-    d, f = 6144, 24576
-    w1 = (torch.randn(d, f, generator=g, device=dev) / d ** 0.5).bfloat16()
-    w2 = (torch.randn(f, d, generator=g, device=dev) / f ** 0.5).bfloat16()
+    # a ragged bf16 shape (D, F, D2 not multiples of 8): the FMA body,
+    # against the plain version in fp32, bitwise equal to the ring
+    x, w1, w2 = (torch.randn(*sh, generator=g, device=dev).bfloat16()
+                 for sh in ((4, 100), (100, 260), (260, 68)))
+    w1, w2 = w1 / 10, w2 / 16
+    out = sm.sidebar_mlp(x, w1, w2, "squared_relu")
+    ring = [sm.sidebar_mlp_pipelined(x, w1, w2, "squared_relu", depth=t)
+            for t in (1, 2, 3, 4)]
+    torch.cuda.synchronize()
+    ref = sm.sidebar_mlp_plain(x.float(), w1.float(), w2.float(),
+                               "squared_relu")
+    _, rel = rel_err(out, ref)
+    route = sm.route(x, w1, w2)
+    check(route == "fma" and rel <= 2e-2,
+          f"sidebar_mlp bf16 ragged: route {route}, rel {rel}")
+    check(all(torch.equal(out, o) for o in ring),
+          "sidebar_mlp bf16 ragged: not the ring's bits")
+    emit({"phase": 1, "op": "sidebar_mlp", "dtype": "bfloat16",
+          "shape": [4, 100, 260, 68], "route": route, "max_rel_err": rel,
+          "tol": 2e-2, "equal_to_ring_at_depths_1_4": True})
+    # nemotron-4-15b widths in bf16: decode (4 rows), staging rounds of
+    # one request and of four (16, 64 rows) and the training forward's
+    # 4096 rows; against the plain version run in fp32 on the same
+    # values: 2e-2 relative covers bf16 rounding of f(h) and the output.
+    # The serial kernel is the ring with one slot: bitwise equal to it at
+    # depths 1-4, timed beside the ring at depth 1 in this call
+    w1, w2 = full_weights(g)
     main = None
-    for m in (4, 64):
-        x = torch.randn(m, d, generator=g, device=dev).bfloat16()
+    for m in (4, 16, 64, 4096):
+        x = torch.randn(m, D_MODEL, generator=g, device=dev).bfloat16()
         out = sm.sidebar_mlp(x, w1, w2, "squared_relu")
         torch.cuda.synchronize()
         ref = sm.sidebar_mlp_plain(x.float(), w1.float(), w2.float(),
                                    "squared_relu")
         err, rel = rel_err(out, ref)
+        del ref
         check(rel <= 2e-2, f"sidebar_mlp bf16 m={m}: rel {rel}")
-        ms = cuda_ms(lambda: sm.sidebar_mlp(x, w1, w2, "squared_relu"))
-        plain_ms = cuda_ms(
-            lambda: sm.sidebar_mlp_plain(x, w1, w2, "squared_relu"))
-        lib_ms = cuda_ms(
-            lambda: (torch.relu(x @ w1) ** 2).to(torch.bfloat16) @ w2)
-        nbytes = 2 * (x.numel() + w1.numel() + w2.numel() + m * d)
-        b_ms, b_by = bound(nbytes, 2 * 2 * m * d * f, torch.bfloat16)
+        route = sm.route(x, w1, w2)
+        check(route == "tc", f"sidebar_mlp bf16 m={m}: route {route}")
         row = {"phase": 1, "op": "sidebar_mlp", "dtype": "bfloat16",
-               "shape": [m, d, f], "max_abs_err": err, "max_rel_err": rel,
-               "tol": 2e-2, "ms": ms, "plain_ms": plain_ms,
-               "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by}
+               "shape": [m, D_MODEL, D_FF], "route": route,
+               "plan": dataclasses.asdict(sm.serial_plan(m, D_FF, route)),
+               "max_abs_err": err, "max_rel_err": rel, "tol": 2e-2}
+        if m <= 64:
+            same = all(torch.equal(out, sm.sidebar_mlp_pipelined(
+                x, w1, w2, "squared_relu", depth=t)) for t in (1, 2, 3, 4))
+            check(same, f"sidebar_mlp bf16 m={m}: not the ring's bits")
+            row["equal_to_ring_at_depths_1_4"] = same
+        iters = 20 if m <= 64 else 5
+        ms = cuda_ms(lambda: sm.sidebar_mlp(x, w1, w2, "squared_relu"),
+                     iters)
+        ring1 = cuda_ms(lambda: sm.sidebar_mlp_pipelined(
+            x, w1, w2, "squared_relu", depth=1), iters)
+        plain_ms = cuda_ms(
+            lambda: sm.sidebar_mlp_plain(x, w1, w2, "squared_relu"), iters)
+        lib_ms = cuda_ms(
+            lambda: (torch.relu(x @ w1) ** 2).to(torch.bfloat16) @ w2, iters)
+        nbytes = 2 * (x.numel() + w1.numel() + w2.numel() + m * D_MODEL)
+        ops = 2 * 2 * m * D_MODEL * D_FF
+        b_ms, b_by = bound(nbytes, ops, torch.bfloat16)
+        row.update({
+            "ms": ms, "ring_depth1_ms": ring1,
+            "previous_ms": PREVIOUS_MS["sidebar_mlp"].get(m),
+            "tb_per_s": nbytes / ms / 1e9, "tflop_per_s": ops / ms / 1e9,
+            "ms_over_bound": ms / b_ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by})
         emit(row)
         if m == 4:
             main = row
+        del x, out
+    del w1, w2
+    torch.cuda.empty_cache()
     return main
 
 
@@ -532,6 +589,33 @@ def pipelined_ops(seed: int = 4) -> dict:
           "smoke_shapes": smoke, "depths": depths,
           "max_rel_err": worst, "tol": 2e-2,
           "bitwise_equal_across_depths": True})
+    # bf16 widths TMA cannot stride (D, F or D2 not a multiple of 8):
+    # computed on the FMA body, against the plain version at 2e-2, and
+    # bitwise equal across depths
+    worst = 0.0
+    ragged = ((4, 100, 256, 64), (4, 96, 260, 64), (17, 96, 256, 68))
+    for m, d, f, d2 in ragged:
+        x = torch.randn(m, d, generator=g, device=dev).bfloat16()
+        w1 = (torch.randn(d, f, generator=g, device=dev) / d ** 0.5
+              ).bfloat16()
+        w2 = (torch.randn(f, d2, generator=g, device=dev) / f ** 0.5
+              ).bfloat16()
+        check(sm.route(x, w1, w2) == "fma",
+              f"pipelined bf16 ragged {d}x{f}x{d2}: not the fma route")
+        ref = sm.sidebar_mlp_plain(x.float(), w1.float(), w2.float(),
+                                   "squared_relu")
+        outs = [sm.sidebar_mlp_pipelined(x, w1, w2, "squared_relu",
+                                         depth=t) for t in depths]
+        torch.cuda.synchronize()
+        _, rel = rel_err(outs[0], ref)
+        check(rel <= 2e-2, f"pipelined bf16 ragged {d}x{f}x{d2}: rel {rel}")
+        check(all(torch.equal(outs[0], o) for o in outs[1:]),
+              f"pipelined bf16 ragged {d}x{f}x{d2}: depths differ")
+        worst = max(worst, rel)
+    emit({"phase": 1, "op": "sidebar_mlp_pipelined", "dtype": "bfloat16",
+          "route": "fma", "ragged_shapes": ragged, "depths": depths,
+          "max_rel_err": worst, "tol": 2e-2,
+          "bitwise_equal_across_depths": True})
     w1, w2 = full_weights(g)
     main = None
     # the three builds at full width: decode (8-row panels), a staging
@@ -553,12 +637,14 @@ def pipelined_ops(seed: int = 4) -> dict:
         nbytes = 2 * (x.numel() + w1.numel() + w2.numel() + m * D_MODEL)
         b_ms, b_by = bound(nbytes, 2 * 2 * m * D_MODEL * D_FF,
                            torch.bfloat16)
-        smem = {t: sm.pipelined_smem_bytes(m, D_FF, t, torch.bfloat16)
+        route = sm.route(x, w1, w2)
+        check(route == "tc", f"pipelined bf16 m={m}: route {route}")
+        smem = {t: sm.pipelined_smem_bytes(m, D_FF, t, route)
                 for t in depths}
         ms = per_depth[2]
         row = {"phase": 1, "op": "sidebar_mlp_pipelined",
                "dtype": "bfloat16", "shape": [m, D_MODEL, D_FF],
-               "route": "cluster ring, wgmma, TMA",
+               "route": route,
                "panel_rows": sm.tokens_per_panel(m),
                "cluster_size": sm.cluster_size(m),
                "f_range": sm.f_range_pipelined(m, D_FF),
@@ -584,8 +670,10 @@ def pipelined_ops(seed: int = 4) -> dict:
 
 
 def gated_ops(seed: int = 5) -> dict:
-    """sidebar_gated_mlp: every MLP launch of deepseek-7b."""
+    """sidebar_gated_mlp: every MLP launch of deepseek-7b and of
+    deepseek-v3's dense layers."""
     from repro_torch.kernels import sidebar_gated_mlp as sg
+    from repro_torch.kernels import sidebar_mlp as sm
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     dev = "cuda"
@@ -610,10 +698,26 @@ def gated_ops(seed: int = 5) -> dict:
             worst = max(worst, rel)
     emit({"phase": 1, "op": "sidebar_gated_mlp", "dtype": "float32",
           "shapes": shapes, "max_rel_err": worst, "tol": 1e-4})
-    # deepseek-7b widths in bf16, decode (4 rows) and a staging round (64
-    # rows), against the plain version run in fp32 on the same values:
-    # 2e-2 relative covers bf16 rounding of h and the output
-    # (and deepseek-v3-671b's dense layers, 7168 x 18432)
+    # bf16 widths TMA cannot stride: the stream kernel (fma route)
+    x, wg, wu, wd = (torch.randn(*sh, generator=g, device=dev).bfloat16()
+                     / 10 for sh in ((4, 100), (100, 260), (100, 260),
+                                     (260, 68)))
+    out = sg.sidebar_gated_mlp(x, wg, wu, wd, "silu")
+    torch.cuda.synchronize()
+    ref = sg.sidebar_gated_mlp_plain(x.float(), wg.float(), wu.float(),
+                                     wd.float(), "silu")
+    _, rel = rel_err(out, ref)
+    route = sm.route(x, wg, wu, wd)
+    check(route == "fma" and rel <= 2e-2,
+          f"sidebar_gated_mlp bf16 ragged: route {route}, rel {rel}")
+    emit({"phase": 1, "op": "sidebar_gated_mlp", "dtype": "bfloat16",
+          "shape": [4, 100, 260, 68], "route": route, "max_rel_err": rel,
+          "tol": 2e-2})
+    # deepseek-7b widths and deepseek-v3-671b's dense layers (7168 x
+    # 18432) in bf16: decode (4 rows), staging rounds of one request and
+    # of four (16, 64 rows), on the tc route; against the plain version
+    # run in fp32 on the same values: 2e-2 relative covers bf16 rounding
+    # of h and the output; a second run gives the same bits
     silu = torch.nn.functional.silu
     main = None
     for arch, d, f in (("deepseek-7b", DS_MODEL, DS_FF),
@@ -622,24 +726,43 @@ def gated_ops(seed: int = 5) -> dict:
                    ).bfloat16() for _ in range(2))
         wd = (torch.randn(f, d, generator=g, device=dev) / f ** 0.5
               ).bfloat16()
-        for m in (4, 64):
+        for m in (4, 16, 64):
             x = torch.randn(m, d, generator=g, device=dev).bfloat16()
             out = sg.sidebar_gated_mlp(x, wg, wu, wd, "silu")
+            again = sg.sidebar_gated_mlp(x, wg, wu, wd, "silu")
             torch.cuda.synchronize()
             ref = sg.sidebar_gated_mlp_plain(x.float(), wg.float(),
                                              wu.float(), wd.float(), "silu")
             err, rel = rel_err(out, ref)
-            check(rel <= 2e-2, f"sidebar_gated_mlp bf16 {arch} m={m}: "
-                               f"rel {rel}")
+            route = sm.route(x, wg, wu, wd)
+            check(rel <= 2e-2 and route == "tc",
+                  f"sidebar_gated_mlp bf16 {arch} m={m}: route {route}, "
+                  f"rel {rel}")
+            check(torch.equal(out, again),
+                  f"sidebar_gated_mlp bf16 {arch} m={m}: runs differ")
+            passes = sg.gated_passes(m, d)
+            if d == V3_MODEL and m <= 16:
+                check(passes == 1, f"sidebar_gated_mlp {arch} m={m}: "
+                                   f"{passes} D2 passes")
             nbytes = 2 * (x.numel() + wg.numel() + wu.numel() + wd.numel()
                           + m * d)
             b_ms, b_by = bound(nbytes, 3 * 2 * m * d * f, torch.bfloat16)
+            clusters = -(-m // sm.tokens_per_panel(m)) * sg.gated_splits(m, f)
+            ms = cuda_ms(lambda: sg.sidebar_gated_mlp(x, wg, wu, wd, "silu"))
             row = {"phase": 1, "op": "sidebar_gated_mlp", "arch": arch,
-                   "dtype": "bfloat16", "shape": [m, d, f],
-                   "f_range": sg.f_range(m, f),
+                   "dtype": "bfloat16", "shape": [m, d, f], "route": route,
+                   "panel_rows": sm.tokens_per_panel(m),
+                   "cluster_size": sg.gated_cluster_size(m),
+                   "clusters": clusters,
+                   "blocks": clusters * sg.gated_cluster_size(m),
+                   "d2_passes": passes,
+                   "shares_per_cluster": sorted({-(-n // 64) for _, n in
+                                                 sg.gated_f_ranges(m, f)}),
                    "max_abs_err": err, "max_rel_err": rel, "tol": 2e-2,
-                   "ms": cuda_ms(lambda: sg.sidebar_gated_mlp(
-                       x, wg, wu, wd, "silu")),
+                   "equal_to_second_run": True, "ms": ms,
+                   "previous_ms": PREVIOUS_MS["sidebar_gated_mlp"][arch]
+                   .get(m),
+                   "tb_per_s": nbytes / ms / 1e9, "ms_over_bound": ms / b_ms,
                    "plain_ms": cuda_ms(lambda: sg.sidebar_gated_mlp_plain(
                        x, wg, wu, wd, "silu")),
                    "library_ms": cuda_ms(
@@ -649,7 +772,7 @@ def gated_ops(seed: int = 5) -> dict:
             emit(row)
             if m == 4 and main is None:
                 main = row
-        del wg, wu, wd, out, ref
+        del wg, wu, wd, out, again, ref
         torch.cuda.empty_cache()
     return main
 
@@ -1200,8 +1323,11 @@ def plan_modes(cfg, params, sidebar_tokens: list) -> dict:
     modes. The drains run in the order S P L D D L P S, so every mode has
     one early and one late run (host-side time drifts between drains);
     each run's exact launch counts are checked. Greedy tokens equal to
-    phase 2's SIDEBAR run are counted and reported (bf16 routes round
-    differently: not gated)."""
+    phase 2's SIDEBAR run are counted; the ring plans (d2 and the
+    per-layer d2/d4) must give all of them: the serial kernel is the
+    ring with one slot on the ring's partition, so its output equals the
+    ring's at every depth, the reference's pipelined == serial gate.
+    FLEXIBLE_DMA rounds h and f(h) to x's type: reported, not gated."""
     from repro_torch.core.modes import ExecutionMode, ExecutionPlan, LayerPlan
 
     d2 = LayerPlan(ExecutionMode.SIDEBAR_PIPELINED, 2)
@@ -1240,6 +1366,10 @@ def plan_modes(cfg, params, sidebar_tokens: list) -> dict:
           "tokens_per_s_runs": {
               m: [r["tokens_per_s"] for r, _ in rr]
               for m, rr in runs.items()}})
+    for mode in ("sidebar_pipelined_d2", "per_layer_d2_d4"):
+        check(all(same == n for _, same in runs[mode]),
+              f"phase 5: {mode} greedy tokens equal to SIDEBAR's "
+              f"{[same for _, same in runs[mode]]} of {n}")
     # the first run of each mode other than SIDEBAR (phase 2 is its row)
     return {mode: rr[0][0] for mode, rr in runs.items() if mode != "sidebar"}
 

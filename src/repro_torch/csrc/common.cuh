@@ -37,4 +37,8 @@ __device__ __forceinline__ float round_to<int8_t>(float v) { return v; }
 // element-type codes of the C entry points (see the Python wrappers)
 enum DType : int { kF32 = 0, kBF16 = 1, kI8 = 2 };
 
+// route codes of the MLP entry points (kernels/sidebar_mlp.py ``ROUTES``):
+// the CUDA cores' FMA, or the tensor cores (sidebar_tc.cuh)
+enum Route : int { kFma = 0, kTc = 1 };
+
 }  // namespace repro

@@ -1,5 +1,5 @@
 // Hopper building blocks shared by the tensor-core kernels
-// (sidebar_mlp_pipelined.cu, flash_attention.cu): mbarriers, thread-block
+// (sidebar_tc.cuh, flash_attention.cu): mbarriers, thread-block
 // cluster helpers, TMA tile loads and their tensor maps, and wgmma on
 // 128-byte-swizzled shared-memory tiles.
 //

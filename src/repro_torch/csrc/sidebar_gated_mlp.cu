@@ -9,15 +9,36 @@
 // M = live slots, 4; prefill rows = staged rows x chunk, up to 64) the
 // three products do 3*2*M*D*F operations over 3*D*F*2 weight bytes, so
 // the kernel is memory-bound: the bf16 Wg + Wu + Wd of deepseek-7b are
-// 270.5 MB per layer, at least 81 us at 3.35 TB/s.
+// 270.5 MB per layer (at least 81 us at 3.35 TB/s), of deepseek-v3's
+// dense layers 792.7 MB (237 us).
 //
-// What the design does about it: every weight byte is read once per
-// row panel (one panel covers up to 16 rows, so decode reads each byte
-// once), and neither the gate, the up projection nor their product ever
-// leaves the SM. The TPU kernel runs its F blocks in order on one core,
-// with two fp32 (bm, bf) sidebars for gate and up and an accumulator
-// carried across them in VMEM; Hopper runs blocks in parallel and in no
-// order, so here
+// Two routes, chosen by the wrapper (kernels/sidebar_mlp.py ``route``):
+//
+// ---- tc: bf16 operands that TMA can stride (D, F, D2 multiples of 8,
+// 16-byte aligned) take the tensor-core body of the Sidebar MLP kernels
+// (sidebar_tc.cuh, G = 2) with one f(h) slot, the TPU kernel's serial
+// order: the producer warpgroup of each block computes g^T = Wg^T x^T and
+// u^T = Wu^T x^T for its 64 F columns as two wgmma accumulators over the
+// whole D (a W1 stage holds a Wg box and a Wu box beside the x box),
+// writes h = f(g) * u (fp32, rounded to Wd's type) into every block's
+// slot of the cluster, and the consumers run the ring's W2 side on Wd.
+// Clusters of 4 beside 8-row panels and of 8 beside 16- and 32-row
+// panels, so that a pass covers 12288 D2 columns at up to 16 rows:
+// deepseek-v3's 7168 in one pass, Wg and Wu read once. Filling the card:
+// the wrapper (``gated_splits``) gives each panel's clusters F ranges of
+// 64-column shares that differ by at most one share, not whole sub-tiles
+// (deepseek-7b at decode: 172 shares on 33 clusters of 4, all 132 SMs,
+// where whole 256-column sub-tiles kept 88 busy). The partition depends
+// on M and F only: one run's output equals the next one's bit for bit.
+//
+// ---- fma: fp32 operands, and bf16 ones of any other width or alignment,
+// take the stream kernel below. What it does: every weight byte is read
+// once per row panel (one panel covers up to 16 rows, so decode reads
+// each byte once), and neither the gate, the up projection nor their
+// product ever leaves the SM. The TPU kernel runs its F blocks in order
+// on one core, with two fp32 (bm, bf) sidebars for gate and up and an
+// accumulator carried across them in VMEM; Hopper runs blocks in
+// parallel and in no order, so here
 //   pass 1: block (row panel, F split) walks its F range one 64-column
 //           tile at a time. For each tile it streams the Wg and Wu
 //           panels together over the whole D contraction, holding the
@@ -39,9 +60,9 @@
 // card; a ragged last split is masked. Each product streams its weights
 // through the register-prefetched two-stage pipeline of stream.cuh (the
 // next chunk's 16-byte loads in flight while the current one is
-// multiplied out of shared memory): 16 KB of bf16 per block and chunk
-// in both passes. Products are plain fp32 FMA (no tensor cores, no
-// TF32); wgmma/TMA pipelines are later work.
+// multiplied out of shared memory, element by element where the rows or
+// pointers are not 16-byte aligned). Products are plain fp32 FMA (TF32
+// would break the fp32 gates).
 //
 // Rounding points (src/repro/kernels/sidebar_gated_mlp.py:68, :71 and
 // :84; src/repro/kernels/ref.py:40-54): fp32 gate and up, f in fp32 on
@@ -50,6 +71,7 @@
 // shape works.
 
 #include "activation.cuh"
+#include "sidebar_tc.cuh"
 #include "stream.cuh"
 
 namespace {
@@ -216,10 +238,7 @@ int launch(const void* x, const void* wg, const void* wu, const void* wd,
            int act, cudaStream_t stream) {
   // the Sidebar is read in whole BK chunks: frange is a multiple of BN1
   // (the wrapper's rule), and BN1 of BK
-  if (frange <= 0 || frange % BN1 || act < 0 ||
-      act > repro::kMaxActivation || act == repro::kSoftmax ||
-      act == repro::kRmsnorm)
-    return cudaErrorInvalidValue;
+  if (frange <= 0 || frange % BN1) return cudaErrorInvalidValue;
   const int nsplit = (F + frange - 1) / frange;
   const size_t smem = (size_t)BM * frange * sizeof(T);
   cudaError_t err = cudaFuncSetAttribute(
@@ -247,20 +266,36 @@ int launch(const void* x, const void* wg, const void* wu, const void* wd,
 
 }  // namespace
 
+// D2 passes (grid z) of the tc route at M token rows: each recomputes
+// its clusters' h, so Wg and Wu are read once a pass.
+extern "C" int sidebar_gated_mlp_passes(int M, int D2) {
+  return repro::tc::passes<2>(M, D2);
+}
+
 // x (M, D), wg and wu (D, F), wd (F, D2), y (M, D2), all contiguous
-// row-major of type ``dtype``; ws holds ceil(F / frange) * M * D2 fp32;
-// ``act`` an elementwise id of activation.cuh. Returns the cudaError_t
-// of the launches.
+// row-major of type ``dtype``; ``act`` an elementwise id of
+// activation.cuh; ``route`` a ``repro::Route``. ``part``: on the fma
+// route the F range of one block (a multiple of 64; ws holds
+// ceil(F / part) * M * D2 fp32), on the tc route the clusters a panel
+// (ws holds part * M * D2 fp32). Returns the cudaError_t of the
+// launches (cudaErrorInvalidValue for what a route does not take).
 extern "C" int sidebar_gated_mlp_launch(const void* x, const void* wg,
                                         const void* wu, const void* wd,
                                         void* y, void* ws, int M, int D,
-                                        int F, int D2, int frange, int act,
-                                        int dtype, void* stream) {
+                                        int F, int D2, int part, int act,
+                                        int dtype, int route, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (act < 0 || act > repro::kMaxActivation || act == repro::kSoftmax ||
+      act == repro::kRmsnorm)
+    return cudaErrorInvalidValue;
+  if (route == repro::kTc && dtype == repro::kBF16)
+    return repro::tc::launch_bf16<2>(x, wg, wu, wd, y, ws, M, D, F, D2, part,
+                                     1, act, s);
+  if (route != repro::kFma) return cudaErrorInvalidValue;
   if (dtype == repro::kF32)
-    return launch<float>(x, wg, wu, wd, y, ws, M, D, F, D2, frange, act, s);
+    return launch<float>(x, wg, wu, wd, y, ws, M, D, F, D2, part, act, s);
   if (dtype == repro::kBF16)
-    return launch<__nv_bfloat16>(x, wg, wu, wd, y, ws, M, D, F, D2, frange,
+    return launch<__nv_bfloat16>(x, wg, wu, wd, y, ws, M, D, F, D2, part,
                                  act, s);
   return cudaErrorInvalidValue;
 }

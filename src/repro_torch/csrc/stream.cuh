@@ -1,5 +1,6 @@
-// Register-prefetched tile streaming shared by the product kernels
-// (sidebar_mlp.cu, sidebar_mlp_pipelined.cu, sidebar_matmul.cu).
+// Register-prefetched tile streaming shared by the product kernels' FMA
+// routes (sidebar_ring.cuh, sidebar_gated_mlp.cu, sidebar_matmul.cu),
+// and the fixed-order split reduce of every MLP kernel.
 //
 // A kernel multiplies a (BM, BK) panel of its left operand, held in
 // shared memory as fp32, by a (BK, BN) chunk of a row-major weight,

@@ -38,6 +38,7 @@ from repro_torch.core.modes import ExecutionMode, ExecutionPlan, LayerPlan
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import sidebar_gated_mlp as sg
+from repro_torch.kernels import sidebar_mlp as sm
 from repro_torch.launch.scheduler import PagedContinuousBatchingServer
 from repro_torch.launch.serve import generate
 from repro_torch.models import transformer as T
@@ -130,6 +131,40 @@ def test_gated_f_range_fills_the_card_in_64_column_tiles(m, f, want):
         assert -(-f // fr) == 172
     if (m, f) == (64, 11008):
         assert -(-m // sg.BLOCK_M) * -(-f // fr) == 232
+
+
+@pytest.mark.parametrize("f", [11008, 18432], ids=["deepseek-7b",
+                                                   "deepseek-v3"])
+@pytest.mark.parametrize("m", [1, 4, 8, 9, 16, 17, 64, 130])
+def test_gated_tc_partition_covers_f_in_even_shares(m, f):
+    """The tc route's F partition (``gated_f_ranges``, the kernel's
+    ``cluster_span``): it depends on M and F only, its ranges tile F
+    exactly in order, every range is whole 64-column shares (the last
+    one cut at F), and no two ranges differ by more than one share; the
+    panels' clusters aim at one block per SM, so at decode deepseek-7b's
+    172 shares (and deepseek-v3's 288) keep all 132 SMs busy, where whole
+    256-column sub-tiles left 88 (96) of them."""
+    ranges = sg.gated_f_ranges(m, f)
+    assert ranges == sg.gated_f_ranges(m, f)
+    assert len(ranges) == sg.gated_splits(m, f)
+    begin = 0
+    for b, n in ranges:
+        assert b == begin and b % 64 == 0 and n > 0
+        begin += n
+    assert begin == f
+    shares = [-(-n // 64) for _, n in ranges]
+    assert max(shares) - min(shares) <= 1
+    n_rows, c = sm.tokens_per_panel(m), sg.gated_cluster_size(m)
+    assert c == (4 if n_rows == 8 else 8)
+    panels = -(-m // n_rows)
+    blocks = panels * len(ranges) * c
+    assert blocks <= max(132, panels * c)
+    if m <= 8:
+        assert blocks == 132             # 33 clusters of 4
+    if m in (9, 16):
+        assert blocks == 128             # 16 clusters of 8
+    if m == 64:
+        assert blocks == 128             # 2 panels x 8 clusters of 8
 
 
 # ---------------------------------------------------------------------------

@@ -147,18 +147,32 @@ def _mlp_problem(seed, m, d=64, f=256):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("m", [1, 3, 4, 64, 130])
+@pytest.mark.parametrize("m,dtype", [
+    (1, torch.float32), (3, torch.float32), (4, torch.float32),
+    (64, torch.float32), (130, torch.float32), (12, torch.bfloat16),
+    (16, torch.bfloat16), (64, torch.bfloat16)], ids=str)
 @pytest.mark.parametrize("act", ["squared_relu", "relu", "gelu"])
-def test_sidebar_mlp_kernel_matches_plain(cuda, m, act):
+def test_sidebar_mlp_kernel_matches_plain(cuda, m, dtype, act):
+    """The serial kernel against the plain version (fp32: 1e-4, the two
+    sum in different orders; bf16 against the plain version in fp32 on
+    the same values: 2e-2 covers the bf16 rounding of f(h) and of the
+    output), and bit for bit equal to the ring at depths 1-4: it is the
+    ring with one f(h) slot on the ring's partition, on both routes."""
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import sidebar_mlp as sm
 
-    x, w1, w2 = (torch.from_numpy(a).to(cuda) for a in _mlp_problem(7, m))
+    x, w1, w2 = (torch.from_numpy(a).to(cuda, dtype)
+                 for a in _mlp_problem(7, m, 96, 1000))
     before = kops.launch_counts()["sidebar_mlp"]
     out = sm.sidebar_mlp(x, w1, w2, act)
-    ref = sm.sidebar_mlp_plain(x, w1, w2, act)
-    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
     assert kops.launch_counts()["sidebar_mlp"] == before + 1
+    ref = sm.sidebar_mlp_plain(x.float(), w1.float(), w2.float(), act)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    assert out.dtype == dtype and out.shape == (m, 96)
+    torch.testing.assert_close(out.float(), ref, rtol=tol, atol=tol)
+    for t in (1, 2, 3, 4):
+        assert torch.equal(out, sm.sidebar_mlp_pipelined(x, w1, w2, act,
+                                                         depth=t))
 
 
 @pytest.mark.gpu
@@ -300,28 +314,69 @@ def test_pipelined_bf16_kernel_matches_plain_and_ignores_depth(cuda, m, f,
 @pytest.mark.parametrize("d,f,d2", [(100, 256, 64), (96, 260, 64),
                                     (96, 256, 68)])
 def test_pipelined_bf16_rejects_what_it_does_not_take(cuda, d, f, d2):
-    """The bf16 ring raises for a D, F or D2 that TMA cannot stride (not
-    a multiple of 8), and launches nothing; fp32 takes the same
-    shapes."""
+    """bf16 widths that TMA cannot stride (D, F or D2 not a multiple of
+    8) are no longer refused: they route to the FMA body and compute,
+    within 2e-2 of the plain version in fp32, bitwise equal across
+    depths 1-4, and the serial kernel gives the same bits."""
     from repro_torch.kernels import build
     from repro_torch.kernels import sidebar_mlp as sm
 
-    x, w1, w2 = (torch.zeros(s, device=cuda) for s in ((4, d), (d, f),
-                                                          (f, d2)))
+    rng = np.random.RandomState(23)
+    x, w1, w2 = (torch.from_numpy(a).to(cuda).bfloat16() for a in (
+        rng.randn(4, d).astype(np.float32),
+        (rng.randn(d, f) / np.sqrt(d)).astype(np.float32),
+        (rng.randn(f, d2) / np.sqrt(f)).astype(np.float32)))
+    assert sm.route(x, w1, w2) == "fma"
     before = build.launches["sidebar_mlp_pipelined"]
-    with pytest.raises(ValueError, match="multiples of 8"):
-        sm.sidebar_mlp_pipelined(x.bfloat16(), w1.bfloat16(), w2.bfloat16())
-    assert build.launches["sidebar_mlp_pipelined"] == before
-    assert sm.sidebar_mlp_pipelined(x, w1, w2).shape == (4, d2)
+    outs = [sm.sidebar_mlp_pipelined(x, w1, w2, "squared_relu", depth=t)
+            for t in (1, 2, 3, 4)]
+    assert build.launches["sidebar_mlp_pipelined"] == before + 4
+    ref = sm.sidebar_mlp_plain(x.float(), w1.float(), w2.float(),
+                               "squared_relu")
+    assert outs[0].shape == (4, d2) and outs[0].dtype == torch.bfloat16
+    torch.testing.assert_close(outs[0].float(), ref, rtol=2e-2, atol=2e-2)
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+    assert torch.equal(outs[0], sm.sidebar_mlp(x, w1, w2, "squared_relu"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wrapper", ["sidebar_mlp", "sidebar_mlp_pipelined",
+                                     "sidebar_gated_mlp"])
+def test_unaligned_bf16_operands_compute_on_the_fma_route(cuda, wrapper):
+    """A bf16 operand 2 bytes past a 16-byte boundary (TMA cannot take
+    it) computes on the FMA body, against the plain version in fp32 at
+    2e-2."""
+    from repro_torch.kernels import sidebar_gated_mlp as sg
+    from repro_torch.kernels import sidebar_mlp as sm
+
+    rng = np.random.RandomState(24)
+    base = torch.zeros(4 * 64 + 8, device=cuda, dtype=torch.bfloat16)
+    x = base[1:4 * 64 + 1].view(4, 64)
+    x.copy_(torch.from_numpy(rng.randn(4, 64).astype(np.float32)))
+    w = [torch.from_numpy((rng.randn(*s) / np.sqrt(s[0])).astype(
+        np.float32)).to(cuda).bfloat16() for s in ((64, 256), (64, 256),
+                                                   (256, 64))]
+    if wrapper == "sidebar_gated_mlp":
+        ops = (x, *w)
+        out = sg.sidebar_gated_mlp(*ops, "silu")
+        ref = sg.sidebar_gated_mlp_plain(*(t.float() for t in ops), "silu")
+    else:
+        ops = (x, w[0], w[2])
+        out = getattr(sm, wrapper)(*ops, "squared_relu")
+        ref = sm.sidebar_mlp_plain(*(t.float() for t in ops), "squared_relu")
+    assert sm.route(*ops) == "fma"
+    torch.testing.assert_close(out.float(), ref, rtol=2e-2, atol=2e-2)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("d2", [6152, 12352])
 @pytest.mark.parametrize("m", [4, 16, 64])
 def test_pipelined_bf16_walks_a_wide_d2_in_passes(cuda, m, d2):
-    """A D2 wider than the 6144 columns the consumers' registers hold is
-    walked in passes (a last pass of 8 or of 64 columns): against the
-    plain version at 2e-2, bitwise equal across depths 1, 2 and 9."""
+    """A D2 wider than the columns the consumers' registers hold in one
+    pass (12288 on 8-row panels, 6144 on 16- and 32-row ones) is walked
+    in passes (a last pass of 8 or of 64 columns): against the plain
+    version at 2e-2, bitwise equal across depths 1, 2 and 9, and the
+    serial kernel gives the same bits."""
     from repro_torch.kernels import sidebar_mlp as sm
 
     rng = np.random.RandomState(22)
@@ -336,6 +391,7 @@ def test_pipelined_bf16_walks_a_wide_d2_in_passes(cuda, m, d2):
     assert outs[0].shape == (m, d2)
     torch.testing.assert_close(outs[0].float(), ref, rtol=2e-2, atol=2e-2)
     assert all(torch.equal(outs[0], o) for o in outs[1:])
+    assert torch.equal(outs[0], sm.sidebar_mlp(x, w1, w2, "squared_relu"))
 
 
 @pytest.mark.gpu
@@ -404,19 +460,80 @@ def test_gated_kernel_matches_plain(cuda, m, d, f, act):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("m", [4, 64])
-def test_gated_kernel_at_deepseek_7b_shapes(cuda, m):
-    """bf16 at d 4096, d_ff 11008 (decode and a staging round) against
-    the plain version in fp32 on the same values: 2e-2 covers the bf16
-    rounding of h and of the output."""
+@pytest.mark.parametrize("d,f,m", [(4096, 11008, 4), (4096, 11008, 16),
+                                   (4096, 11008, 64), (7168, 18432, 4)],
+                         ids=["7b-4", "7b-16", "7b-64", "v3-4"])
+def test_gated_kernel_at_deepseek_7b_shapes(cuda, d, f, m):
+    """bf16 at deepseek-7b's d 4096, d_ff 11008 (decode, a staging round
+    of one request and of four) and deepseek-v3's dense 7168 x 18432 at
+    decode, on the tc route, against the plain version in fp32 on the
+    same values: 2e-2 covers the bf16 rounding of h and of the output;
+    a second run gives the same bits."""
     from repro_torch.kernels import sidebar_gated_mlp as sg
+    from repro_torch.kernels import sidebar_mlp as sm
 
-    ops = _gated_problem(13, m, 4096, 11008, cuda, torch.bfloat16)
+    ops = _gated_problem(13, m, d, f, cuda, torch.bfloat16)
+    assert sm.route(*ops) == "tc"
     out = sg.sidebar_gated_mlp(*ops, "silu")
     ref = sg.sidebar_gated_mlp_plain(*(t.float() for t in ops), "silu")
     assert out.dtype == torch.bfloat16
     torch.testing.assert_close(out.float(), ref, rtol=2e-2, atol=2e-2)
     assert torch.equal(out, sg.sidebar_gated_mlp(*ops, "silu"))
+    if d == 7168 and m <= 16:
+        assert sg.gated_passes(m, d) == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d2", [64, 96, 12352])
+@pytest.mark.parametrize("f", [200, 1000])
+@pytest.mark.parametrize("m", [1, 3, 12, 16, 17, 64, 130])
+def test_gated_bf16_tc_route_matches_plain(cuda, m, f, d2):
+    """The gated kernel's tensor-core route at smoke widths: each panel
+    build (8 rows on clusters of 4; 16 and 32 rows on clusters of 8),
+    an F whose shares leave a cluster's last sub-tile partial, D2 tiles
+    that leave consumers idle and a D2 walked in two passes; against the
+    plain version in fp32 at 2e-2; a second run gives the same bits."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import sidebar_gated_mlp as sg
+    from repro_torch.kernels import sidebar_mlp as sm
+
+    rng = np.random.RandomState(25)
+    x, wg, wu, wd = (torch.from_numpy(a).to(cuda).bfloat16() for a in (
+        rng.randn(m, 96).astype(np.float32),
+        (rng.randn(96, f) / np.sqrt(96)).astype(np.float32),
+        (rng.randn(96, f) / np.sqrt(96)).astype(np.float32),
+        (rng.randn(f, d2) / np.sqrt(f)).astype(np.float32)))
+    assert sm.route(x, wg, wu, wd) == "tc"
+    before = build.launches["sidebar_gated_mlp"]
+    out = sg.sidebar_gated_mlp(x, wg, wu, wd, "silu")
+    assert build.launches["sidebar_gated_mlp"] == before + 1
+    ref = sg.sidebar_gated_mlp_plain(x.float(), wg.float(), wu.float(),
+                                     wd.float(), "silu")
+    assert out.shape == (m, d2) and out.dtype == torch.bfloat16
+    torch.testing.assert_close(out.float(), ref, rtol=2e-2, atol=2e-2)
+    assert torch.equal(out, sg.sidebar_gated_mlp(x, wg, wu, wd, "silu"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,f,d2", [(100, 256, 64), (96, 260, 64),
+                                    (96, 256, 68)])
+def test_gated_bf16_ragged_widths_take_the_fma_route(cuda, d, f, d2):
+    """bf16 widths TMA cannot stride run the stream kernel (fma route),
+    against the plain version in fp32 at 2e-2."""
+    from repro_torch.kernels import sidebar_gated_mlp as sg
+    from repro_torch.kernels import sidebar_mlp as sm
+
+    rng = np.random.RandomState(26)
+    ops = [torch.from_numpy(a).to(cuda).bfloat16() for a in (
+        rng.randn(4, d).astype(np.float32),
+        (rng.randn(d, f) / np.sqrt(d)).astype(np.float32),
+        (rng.randn(d, f) / np.sqrt(d)).astype(np.float32),
+        (rng.randn(f, d2) / np.sqrt(f)).astype(np.float32))]
+    assert sm.route(*ops) == "fma"
+    out = sg.sidebar_gated_mlp(*ops, "silu")
+    ref = sg.sidebar_gated_mlp_plain(*(t.float() for t in ops), "silu")
+    assert out.shape == (4, d2)
+    torch.testing.assert_close(out.float(), ref, rtol=2e-2, atol=2e-2)
 
 
 @pytest.mark.gpu

@@ -108,12 +108,60 @@ def test_sidebar_mlp_shape_mismatch_raises():
         sm.sidebar_mlp(x, w1, w2)
 
 
-@pytest.mark.parametrize("m,f,want", [(4, 24576, 128), (64, 24576, 384),
-                                      (1024, 24576, 2048), (1, 256, 128)])
-def test_mlp_f_range_fills_the_card(m, f, want):
-    """The F range per block: whole 128-column tiles, enough splits for
-    ~2 blocks per SM, capped so the f(h) panel fits shared memory."""
-    assert sm.f_range(m, f) == want
+def _unaligned(shape, dtype):
+    """A contiguous view whose data sits 2 bytes past a 16-byte
+    boundary."""
+    n = int(np.prod(shape))
+    base = torch.zeros(n + 8, dtype=dtype)
+    return base[1:n + 1].view(shape)
+
+
+# (case, dims (D, F, D2), dtype, unaligned x, expected route)
+ROUTE_CASES = [
+    ("fp32", (64, 128, 64), torch.float32, False, "fma"),
+    ("bf16", (64, 128, 64), torch.bfloat16, False, "tc"),
+    ("bf16-ragged-d", (100, 128, 64), torch.bfloat16, False, "fma"),
+    ("bf16-ragged-f", (64, 260, 64), torch.bfloat16, False, "fma"),
+    ("bf16-ragged-d2", (64, 128, 68), torch.bfloat16, False, "fma"),
+    ("bf16-unaligned", (64, 128, 64), torch.bfloat16, True, "fma"),
+]
+
+
+@pytest.mark.parametrize("wrapper", ["sidebar_mlp", "sidebar_mlp_pipelined",
+                                     "sidebar_gated_mlp"])
+@pytest.mark.parametrize("case", ROUTE_CASES, ids=lambda c: c[0])
+def test_mlp_route_rule(wrapper, case):
+    """One route rule (``sidebar_mlp.route``, a pure function of dtype,
+    widths and alignment) for all three MLP wrappers: bf16 operands with
+    D, F and D2 multiples of 8 at 16-byte aligned addresses take the
+    tensor cores ("tc"); fp32, and bf16 of ragged widths or at an
+    unaligned address, the FMA body ("fma"). No case raises: on the CPU
+    every wrapper computes its plain version, within 2e-2 of the fp32
+    one for bf16."""
+    from repro_torch.kernels import sidebar_gated_mlp as sg
+
+    _, (d, f, d2), dtype, unaligned, want = case
+    rng = np.random.RandomState(31)
+    x = torch.from_numpy(rng.randn(3, d).astype(np.float32)).to(dtype)
+    if unaligned:
+        x = _unaligned((3, d), dtype).copy_(x)
+        assert x.data_ptr() % 16 and x.is_contiguous()
+    w = [torch.from_numpy((rng.randn(*s) / np.sqrt(s[0])).astype(
+        np.float32)).to(dtype) for s in ((d, f), (d, f), (f, d2))]
+    if wrapper == "sidebar_gated_mlp":
+        ops = (x, *w)
+        got = sg.sidebar_gated_mlp(*ops, "silu")
+        ref = sg.sidebar_gated_mlp_plain(*(t.float() for t in ops), "silu")
+    else:
+        ops = (x, w[0], w[2])
+        got = getattr(sm, wrapper)(*ops, "squared_relu")
+        ref = sm.sidebar_mlp_plain(*(t.float() for t in ops),
+                                   "squared_relu")
+    assert sm.route(*ops) == want
+    assert got.shape == (3, d2) and got.dtype == dtype
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    np.testing.assert_allclose(got.float().numpy(), ref.numpy(), rtol=tol,
+                               atol=tol)
 
 
 def _pool_problem(seed=0, *, quantized=False):

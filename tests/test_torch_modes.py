@@ -185,22 +185,21 @@ def test_dma_route_keeps_the_jax_rounding_points():
 def test_pipelined_partition_ignores_depth():
     """The ring kernel's F partition depends on M and F only (what keeps
     its output bitwise equal across depths); the ring is capped at the
-    sub-tiles a cluster (bf16) or block (fp32) owns (the bf16 launch caps
-    it again at the slots its shared memory holds)."""
-    # bf16: 33 clusters of 4 blocks at decode (256-column sub-tiles), 8
-    # of 8 blocks for each of two 32-row panels at 64 rows (512 columns)
+    sub-tiles a cluster (tc route) or block (fma route) owns (the tc
+    launch caps it again at the slots its shared memory holds)."""
+    # tc: 33 clusters of 4 blocks at decode (256-column sub-tiles), 8 of
+    # 8 blocks for each of two 32-row panels at 64 rows (512 columns)
     assert sm.f_range_pipelined(4, 24576) == 768       # 3 sub-tiles
     assert sm.f_range_pipelined(64, 24576) == 3072     # 6 sub-tiles
     assert sm.f_range_pipelined(1, 100) == 256
     assert [sm.ring_slots(4, 24576, t) for t in (1, 2, 4, 9)] == [1, 2, 3, 3]
     assert [sm.ring_slots(16, 24576, t) for t in (1, 4, 7)] == [1, 3, 3]
     assert [sm.ring_slots(64, 24576, t) for t in (1, 4, 7)] == [1, 4, 6]
-    # fp32 (plain FMA): 64-column sub-tiles, at least 4 a block
-    f32 = torch.float32
+    # fma (plain FMA): 64-column sub-tiles, at least 4 a block
     assert sm.f_range_fma(4, 24576) == 256
     assert sm.f_range_fma(64, 24576) == 384
     assert sm.f_range_fma(1, 100) == 256
-    assert [sm.ring_slots(4, 24576, t, f32) for t in (1, 2, 4, 9)] == [
+    assert [sm.ring_slots(4, 24576, t, "fma") for t in (1, 2, 4, 9)] == [
         1, 2, 4, 4]
     with pytest.raises(ValueError, match="depth"):
         sm.ring_slots(4, 24576, 0)
@@ -208,7 +207,7 @@ def test_pipelined_partition_ignores_depth():
 
 @pytest.mark.parametrize("m", [1, 4, 8, 9, 16, 17, 64, 130])
 def test_pipelined_cluster_split(m):
-    """The bf16 ring's panels (8 token rows at decode, 16, 32 above 16 on
+    """The tc route's panels (8 token rows at decode, 16, 32 above 16 on
     clusters of 8), its clusters (one block per SM of 132 while the
     panels allow), whole sub-tiles of 64 columns a block, and the depth
     asked of the kernel at most the sub-tiles a cluster owns; no card
@@ -231,23 +230,59 @@ def test_pipelined_cluster_split(m):
                                                  fr // sm.subtile_f(m))
 
 
+@pytest.mark.parametrize("route", ["tc", "fma"])
+@pytest.mark.parametrize("m", [1, 4, 8, 9, 16, 17, 64, 130, 4096])
+def test_serial_partition_is_the_rings_at_depth_1(m, route):
+    """The serial kernel (``sidebar_mlp``) is the ring with one f(h) slot
+    on the ring's partition: panel rows, cluster size, F range and splits
+    equal ``sidebar_mlp_pipelined``'s at depth 1 (and at every depth but
+    for the slots), which makes its output the ring's, bit for bit, at
+    every depth."""
+    f = 24576
+    serial = sm.serial_plan(m, f, route)
+    assert serial == sm.ring_plan(m, f, 1, route)
+    assert serial.slots == 1 and serial.route == route
+    for depth in (2, 4, 9):
+        ring = sm.ring_plan(m, f, depth, route)
+        assert dataclasses.replace(ring, slots=1) == serial
+    if route == "tc":
+        assert serial.panel_rows == sm.tokens_per_panel(m)
+        assert serial.cluster_size == sm.cluster_size(m)
+        assert serial.f_range == sm.f_range_pipelined(m, f)
+        assert serial.f_range % sm.subtile_f(m) == 0
+    else:
+        assert (serial.panel_rows, serial.cluster_size) == (16, 1)
+        assert serial.f_range == sm.f_range_fma(m, f)
+        assert serial.f_range % 64 == 0
+    assert serial.splits == -(-f // serial.f_range)
+    if (m, route) == (4096, "tc"):
+        # the training forward: 128 panels of 32 rows, one cluster of 8
+        # each, every panel walking all of F
+        assert (serial.panel_rows, serial.cluster_size,
+                serial.splits) == (32, 8, 1)
+
+
 def test_pipelined_eligibility_rule():
-    """bf16 operands need D, F, D2 multiples of 8 (the rule the wrapper
-    applies before a launch), of any width: a D2 past what the
-    consumers' registers hold is walked in passes; fp32 takes any
-    shape."""
+    """The ring's route rule: bf16 operands with D, F and D2 multiples of
+    8 at 16-byte aligned addresses take the tensor cores ("tc"), of any
+    width (a D2 past what the consumers' registers hold is walked in
+    passes); fp32, and bf16 of ragged widths or unaligned, take the FMA
+    body ("fma"). Nothing raises: every shape computes."""
     def ops(d, f, d2, dtype=torch.bfloat16):
         return (torch.zeros(4, d, dtype=dtype), torch.zeros(d, f, dtype=dtype),
                 torch.zeros(f, d2, dtype=dtype))
 
-    sm.check_pipelined_operands(*ops(6144, 24576, 6144))
-    sm.check_pipelined_operands(*ops(96, 200, 64))
-    sm.check_pipelined_operands(*ops(96, 200, 12352))
-    sm.check_pipelined_operands(*ops(7, 13, 6200, torch.float32))
-    for bad in ((100, 200, 64), (96, 201, 64), (96, 200, 68),
-                (96, 200, 6156)):
-        with pytest.raises(ValueError, match="multiples of 8"):
-            sm.check_pipelined_operands(*ops(*bad))
+    assert sm.route(*ops(6144, 24576, 6144)) == "tc"
+    assert sm.route(*ops(96, 200, 64)) == "tc"
+    assert sm.route(*ops(96, 200, 12352)) == "tc"
+    assert sm.route(*ops(7, 13, 6200, torch.float32)) == "fma"
+    assert sm.route(*ops(96, 200, 64, torch.float32)) == "fma"
+    for ragged in ((100, 200, 64), (96, 201, 64), (96, 200, 68),
+                   (96, 200, 6156)):
+        x, w1, w2 = ops(*ragged)
+        assert sm.route(x, w1, w2) == "fma"
+        out = sm.sidebar_mlp_pipelined(x, w1, w2, "squared_relu")
+        assert out.shape == (4, ragged[2])
 
 
 def test_gather_route_equals_the_plain_paged_version():
