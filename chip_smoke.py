@@ -21,10 +21,15 @@ exits non-zero):
      4096 with nemotron's 48 / 8 and deepseek-7b's 32 / 32 heads) —
      with the kernel's time,
      the plain version's time, the bound of the work and the time of one
-     PyTorch call of the same function where there is one (the two
-     kernels redesigned for Hopper, the ring MLP and flash, also give
-     their time before the redesign, the achieved TB/s or TFLOP/s and
-     the time over the bound); the ring MLP at depths 1-4, bitwise equal
+     PyTorch call of the same function where there is one (the kernels
+     redesigned for Hopper -- both MLPs, the ring, flash,
+     ``sidebar_matmul`` and ``paged_gqa`` -- also give their time before
+     the redesign and the time over the bound); ``sidebar_matmul``'s two
+     FLEXIBLE_DMA products at 4 and 64 rows on the tensor-core route with
+     their partition (one panel: each weight tile read from HBM once),
+     and a ragged bf16 product on its fma route; ``paged_gqa`` split-KV
+     with its split chunk and splits a row, both equal to a second run
+     bit for bit; the ring MLP at depths 1-4, bitwise equal
      across depths, in fp32 and bf16, ragged bf16 widths on its FMA
      route included; the serial MLP at nemotron's widths at 4, 16, 64
      and 4096 rows, bitwise equal to the ring at depths 1-4 (it is the
@@ -48,7 +53,8 @@ exits non-zero):
      modes — SIDEBAR_PIPELINED at depth 2, a per-layer plan of depths 2
      and 4, and FLEXIBLE_DMA — with exact launch counts per mode and a
      summary line of tokens/s per mode; the two ring plans must give
-     SIDEBAR's greedy tokens, all of them;
+     SIDEBAR's greedy tokens, all of them; every FLEXIBLE_DMA product
+     takes ``sidebar_matmul``'s tensor-core route;
   3. the same widths with int8 KV (depth cut to 4 layers);
   4. the fp32 smoke configs of nemotron-4-15b, deepseek-7b and
      deepseek-v3-671b (no-drop capacity) on the card: ``kernel="paged"``
@@ -85,6 +91,8 @@ package ``repro``.
 from __future__ import annotations
 
 import argparse
+import collections
+import contextlib
 import dataclasses
 import json
 import pathlib
@@ -126,7 +134,18 @@ PREVIOUS_MS = {"sidebar_mlp_pipelined": {4: 1.148, 64: 3.659},
                "sidebar_mlp": {4: 0.711, 64: 3.19},
                "sidebar_gated_mlp": {"deepseek-7b": {4: 0.242, 64: 1.15},
                                      "deepseek-v3-671b": {4: 0.794,
-                                                          64: 3.29}}}
+                                                          64: 3.29}},
+               # the FMA stream of sidebar_matmul and the one-block-per-
+               # (row, KV head) paged_gqa, on the same card: by (token
+               # rows, role), and by (architecture, KV type)
+               "sidebar_matmul": {(4, "producer"): 0.234,
+                                  (4, "consumer"): 0.324,
+                                  (64, "producer"): 1.420,
+                                  (64, "consumer"): 1.445},
+               "paged_gqa": {("nemotron-4-15b", "bfloat16"): 0.146,
+                             ("nemotron-4-15b", "int8"): 0.139,
+                             ("deepseek-7b", "bfloat16"): 0.105,
+                             ("deepseek-7b", "int8"): 0.114}}
 
 
 def mish(t: torch.Tensor) -> torch.Tensor:
@@ -334,13 +353,16 @@ def paged_ops(seed: int = 1) -> dict:
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     worst = 0.0
-    # smoke widths in fp32 (and int8 KV): tolerance 1e-4 relative — the
-    # kernel's online softmax against the plain two-pass softmax
+    # smoke widths in fp32 (and int8 KV), block 8: splits of 64
+    # positions, rows of one partial split, of two and of 12 blocks;
+    # tolerance 1e-4 relative — the kernel's split softmax and merge
+    # against the plain two-pass softmax
+    smoke_lengths = [5, 70, 96]
     for dh, bs, group in ((16, 8, 4), (8, 8, 4), (16, 8, 1)):
         for kvdt in (torch.float32, torch.int8):
             probs, t, ln, scale = _pool_problem(
-                g, b=3, hkv=2, group=group, dh=dh, bs=bs, nb=4,
-                lengths=[5, 16, 32], qdtype=torch.float32, kvdtype=kvdt)
+                g, b=3, hkv=2, group=group, dh=dh, bs=bs, nb=12,
+                lengths=smoke_lengths, qdtype=torch.float32, kvdtype=kvdt)
             q, k, v, ks, vs = probs[0]
             out = pa.paged_gqa(q, k, v, t, ln, scale=scale, k_scale=ks,
                                v_scale=vs)
@@ -352,7 +374,10 @@ def paged_ops(seed: int = 1) -> dict:
                                f"{kvdt}: rel {rel}")
             worst = max(worst, rel)
     emit({"phase": 1, "op": "paged_gqa", "dtype": "float32",
-          "groups": [4, 1], "max_rel_err": worst, "tol": 1e-4})
+          "groups": [4, 1], "lengths": smoke_lengths,
+          "chunk": pa.split_chunk(8),
+          "splits": [len(pa.split_bounds(n, 8)) for n in smoke_lengths],
+          "max_rel_err": worst, "tol": 1e-4})
     # nemotron-4-15b widths (48 query / 8 KV heads: group 6) and
     # deepseek-7b's (32 / 32: group 1, MHA): 4 rows, head_dim 128, block
     # 16, lengths up to 256; bf16 out against a plain run on the same
@@ -378,6 +403,10 @@ def paged_ops(seed: int = 1) -> dict:
         err, rel = rel_err(out, ref)
         check(rel <= 2e-2, f"paged_gqa bf16 group={group} {kvdt}: "
                            f"rel {rel}")
+        same = torch.equal(out, pa.paged_gqa(q, k, v, t, ln, scale=scale,
+                                             k_scale=ks, v_scale=vs))
+        check(same, f"paged_gqa bf16 group={group} {kvdt}: a second run "
+                    "gave other bits")
         it = {"i": 0}
 
         def run(fn):
@@ -396,11 +425,16 @@ def paged_ops(seed: int = 1) -> dict:
                   + 2 * 2 * q.numel() + 4 * t.numel() + 4 * 4)
         b_ms, b_by = bound(nbytes, 4 * live * hkv * group * 128,
                            torch.bfloat16)
+        kv_name = str(kvdt).replace("torch.", "")
         row = {"phase": 1, "op": "paged_gqa", "arch": arch,
                "heads": [hkv * group, hkv], "group": group,
-               "kv_dtype": str(kvdt).replace("torch.", ""),
-               "lengths": lengths, "max_abs_err": err, "max_rel_err": rel,
-               "tol": 2e-2, "ms": ms, "plain_ms": plain_ms,
+               "kv_dtype": kv_name, "lengths": lengths,
+               "route": "split-kv", "chunk": pa.split_chunk(16),
+               "splits": [len(pa.split_bounds(n, 16)) for n in lengths],
+               "max_abs_err": err, "max_rel_err": rel, "tol": 2e-2,
+               "same_bits_second_run": same, "ms": ms,
+               "previous_ms": PREVIOUS_MS["paged_gqa"][(arch, kv_name)],
+               "ms_over_bound": ms / b_ms, "plain_ms": plain_ms,
                "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
         emit(row)
         if kvdt == torch.bfloat16 and group == 6:
@@ -442,10 +476,25 @@ def matmul_ops(seed: int = 2) -> dict:
                   f"sidebar_matmul fp32 {m}x{k}x{n} {act}: rel {rel}")
             worst = max(worst, rel)
     emit({"phase": 1, "op": "sidebar_matmul", "dtype": "float32",
-          "shapes": shapes, "max_rel_err": worst, "tol": 1e-4})
+          "route": "fma", "shapes": shapes, "max_rel_err": worst,
+          "tol": 1e-4})
+    # a ragged bf16 shape (K, N not multiples of 8): the fma route,
+    # against the plain version in fp32 (2e-2: the output's rounding)
+    a = torch.randn(4, 100, generator=g, device=dev).bfloat16()
+    b = (torch.randn(100, 260, generator=g, device=dev) / 10).bfloat16()
+    route = smm.operand_route(a, b)
+    _, rel = rel_err(smm.sidebar_matmul(a, b, "squared_relu"),
+                     smm.sidebar_matmul_plain(a.float(), b.float(),
+                                              "squared_relu"))
+    check(route == "fma" and rel <= 2e-2,
+          f"sidebar_matmul bf16 ragged: route {route}, rel {rel}")
+    emit({"phase": 1, "op": "sidebar_matmul", "dtype": "bfloat16",
+          "shape": [4, 100, 260], "route": route, "max_rel_err": rel,
+          "tol": 2e-2})
     # the DMA route's two products at full width, bf16, decode (4 rows)
-    # and a staging round (64 rows); against the plain version in fp32
-    # on the same values (2e-2 relative: bf16 rounding of the output)
+    # and a staging round (64 rows) on the tensor cores; against the
+    # plain version in fp32 on the same values (2e-2 relative: bf16
+    # rounding of the output); a second run gives the same bits
     w1, w2 = full_weights(g)
     pair = None
     for m in (4, 64):
@@ -460,24 +509,42 @@ def matmul_ops(seed: int = 2) -> dict:
             err, rel = rel_err(out, ref)
             check(rel <= 2e-2, f"sidebar_matmul bf16 {role} m={m}: "
                                f"rel {rel}")
+            same = torch.equal(out, smm.sidebar_matmul(a, b))
+            check(same, f"sidebar_matmul bf16 {role} m={m}: a second run "
+                        "gave other bits")
             k, n = b.shape
+            route = smm.operand_route(a, b)
+            plan = smm.plan(m, k, n, True, route)
+            check(route == "tc" and plan.panels == 1,
+                  f"sidebar_matmul bf16 {role} m={m}: route {route}, "
+                  f"{plan.panels} panels")
             b_ms, b_by = bound(2 * (a.numel() + b.numel() + m * n),
                                2 * m * k * n, torch.bfloat16)
+            ms = cuda_ms(lambda: smm.sidebar_matmul(a, b))
             row = {"phase": 1, "op": "sidebar_matmul", "dtype": "bfloat16",
-                   "role": role, "shape": [m, k, n],
-                   "k_range": smm.k_range(m, k, n, True),
+                   "role": role, "shape": [m, k, n], "route": route,
+                   "plan": dataclasses.asdict(plan),
+                   "weight_reads_from_hbm": plan.panels,
+                   "smem_bytes": smm.smem_bytes(m, a.dtype, route),
                    "max_abs_err": err, "max_rel_err": rel, "tol": 2e-2,
-                   "ms": cuda_ms(lambda: smm.sidebar_matmul(a, b)),
+                   "same_bits_second_run": same, "ms": ms,
+                   "previous_ms": PREVIOUS_MS["sidebar_matmul"][(m, role)],
+                   "tb_per_s": 2 * (a.numel() + b.numel() + m * n) / ms
+                   / 1e9, "ms_over_bound": ms / b_ms,
                    "plain_ms": cuda_ms(
                        lambda: smm.sidebar_matmul_plain(a, b)),
                    "library_ms": cuda_ms(lambda: torch.matmul(a, b)),
                    "bound_ms": b_ms, "bound_by": b_by}
             emit(row)
             rows.append(row)
+        # one MLP's pair of products, summed
+        both = {key: rows[0][key] + rows[1][key]
+                for key in ("ms", "previous_ms", "plain_ms", "library_ms",
+                            "bound_ms")}
+        emit({"phase": 1, "op": "sidebar_matmul", "pair_of_rows": m,
+              **both})
         if m == 4:
-            # one decode-step MLP's pair of products, summed
-            pair = {key: rows[0][key] + rows[1][key]
-                    for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+            pair = both
             pair["bound_by"] = rows[0]["bound_by"]
             pair["max_abs_err"] = max(r["max_abs_err"] for r in rows)
     del w1, w2
@@ -1318,6 +1385,26 @@ def full_width(phase: int, cfg, params, init_s: float,
     return row, tokens
 
 
+@contextlib.contextmanager
+def count_matmul_routes(into: collections.Counter):
+    """Count the route of every ``sidebar_matmul`` launch in the block
+    (its wrapper asks ``operand_route`` once a launch)."""
+    from repro_torch.kernels import sidebar_matmul as smm
+
+    orig = smm.operand_route
+
+    def counted(a, b):
+        r = orig(a, b)
+        into[r] += 1
+        return r
+
+    smm.operand_route = counted
+    try:
+        yield into
+    finally:
+        smm.operand_route = orig
+
+
 def plan_modes(cfg, params, sidebar_tokens: list) -> dict:
     """Phase 5: phase 2's weights and traffic under the paper's execution
     modes. The drains run in the order S P L D D L P S, so every mode has
@@ -1327,7 +1414,8 @@ def plan_modes(cfg, params, sidebar_tokens: list) -> dict:
     per-layer d2/d4) must give all of them: the serial kernel is the
     ring with one slot on the ring's partition, so its output equals the
     ring's at every depth, the reference's pipelined == serial gate.
-    FLEXIBLE_DMA rounds h and f(h) to x's type: reported, not gated."""
+    FLEXIBLE_DMA rounds h and f(h) to x's type: reported, not gated; its
+    products must all take ``sidebar_matmul``'s tensor-core route."""
     from repro_torch.core.modes import ExecutionMode, ExecutionPlan, LayerPlan
 
     d2 = LayerPlan(ExecutionMode.SIDEBAR_PIPELINED, 2)
@@ -1345,8 +1433,14 @@ def plan_modes(cfg, params, sidebar_tokens: list) -> dict:
     n = sum(t.size for t in sidebar_tokens)
     runs = {mode: [] for mode in plans}
     for mode in [*plans, *reversed(plans)]:
-        row, tokens = serve(cfg, params, prompts, 32, phase=5, mode=mode,
-                            plan=plans[mode], **FULL_SERVER)
+        routes = collections.Counter()
+        with count_matmul_routes(routes):
+            row, tokens = serve(cfg, params, prompts, 32, phase=5,
+                                mode=mode, plan=plans[mode], **FULL_SERVER)
+        check(sum(routes.values()) == row["launches"]["sidebar_matmul"]
+              and routes["fma"] == 0,
+              f"phase 5 {mode}: sidebar_matmul routes {dict(routes)}")
+        row["sidebar_matmul_routes"] = dict(routes)
         same = sum(int((a == b).sum())
                    for a, b in zip(tokens, sidebar_tokens))
         runs[mode].append((row, same))
@@ -1356,6 +1450,7 @@ def plan_modes(cfg, params, sidebar_tokens: list) -> dict:
               "tokens_per_s_mean": sum(tps) / len(tps),
               "ttft_s_median": [r["ttft_s_median"] for r, _ in rr],
               "launches": rr[0][0]["launches"],
+              "sidebar_matmul_routes": rr[0][0]["sidebar_matmul_routes"],
               "greedy_tokens_equal_to_sidebar": [same for _, same in rr],
               "of": n})
     emit({"phase": 5, "summary": "tokens_per_s by execution mode",

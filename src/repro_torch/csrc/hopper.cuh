@@ -1,7 +1,7 @@
 // Hopper building blocks shared by the tensor-core kernels
-// (sidebar_tc.cuh, flash_attention.cu): mbarriers, thread-block
-// cluster helpers, TMA tile loads and their tensor maps, and wgmma on
-// 128-byte-swizzled shared-memory tiles.
+// (sidebar_tc.cuh and the products built on it, flash_attention.cu):
+// mbarriers, thread-block cluster helpers, TMA tile loads and their
+// tensor maps, and wgmma on 128-byte-swizzled shared-memory tiles.
 //
 // Tiles. Every tile a kernel hands to wgmma has rows of 64 bf16 (128
 // bytes) laid out as CU_TENSOR_MAP_SWIZZLE_128B lands a TMA box (or as
@@ -294,6 +294,31 @@ __device__ __forceinline__ void wgmma_m64n32k16_ss(float* d, uint64_t da,
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// D (64 x 64, fp32, this thread's 32) = A * B (16 x 64) + D, both in
+// shared memory
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float* d, uint64_t da,
+                                                   uint64_t db,
+                                                   int scale_d = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
 }
 

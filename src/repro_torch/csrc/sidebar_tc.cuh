@@ -6,6 +6,8 @@
 //     ring of f(h) slots (G = 1, depth T);
 //   * sidebar_gated_mlp.cu: y = (f(x Wg) * (x Wu)) Wd with one slot
 //     (G = 2: the producer computes the gate and the up projection).
+// sidebar_matmul.cu runs the producer's product alone (``Chunk``, the
+// tensor maps), without the consumers: c^T = b^T a^T.
 // Each source's header says which TPU kernel it replaces and what bounds
 // it; this one says how the body works.
 //
@@ -113,8 +115,7 @@ struct Layout {
   static constexpr int SUB = C * SHARE;         // F columns of a sub-tile
   static constexpr int MT = ACC_REGS / R;       // D2 tiles of a consumer
   static constexpr int PASS = MT * 2 * C * 64;  // D2 columns of a pass
-  static constexpr int XBOX = N * 128;          // N rows x 64 of x
-  static constexpr int W1_STAGE = G * TILE + 2 * XBOX;
+  static constexpr int W1_STAGE = G * TILE + 2 * N * 128;  // Chunk::BYTES
   static constexpr int W1_STAGES = G == 2 ? (N == 32 ? 3 : 4)
                                           : (N == 8 ? 5 : 4);
   static constexpr int W2_STAGES = G == 2 || C == 8 ? 2 : 3;
@@ -139,12 +140,76 @@ struct Layout {
 // m64nNk16, A (the weight) MN-major, B K-major, both in shared memory
 template <int N>
 __device__ __forceinline__ void mma(float* d, uint64_t da, uint64_t db) {
+  static_assert(N == 8 || N == 16 || N == 32 || N == 64, "m64nN product");
   if constexpr (N == 8)
     hp::wgmma_m64n8k16_ss<1, 0>(d, da, db);
   else if constexpr (N == 16)
     hp::wgmma_m64n16k16_ss<1, 0>(d, da, db);
-  else
+  else if constexpr (N == 32)
     hp::wgmma_m64n32k16_ss<1, 0>(d, da, db);
+  else
+    hp::wgmma_m64n64k16_ss<1, 0>(d, da, db);
+}
+
+// One KD-deep contraction chunk of the swapped product h^T = W^T x^T on
+// N token rows, as the MLP body's producer and sidebar_matmul.cu's
+// consumer run it. A stage holds G 128 x 64 weight boxes (KD contraction
+// rows x 64 output columns: the 64-row MN-major operand; Wg then Wu
+// under G = 2) and then two N x 64 boxes of the token rows (contraction
+// columns [k, k + 64) and [k + 64, k + 128): the K-major operand).
+template <int N, int G>
+struct Chunk {
+  static constexpr int XBOX = N * 128;               // N rows x 64 of x
+  static constexpr int BYTES = G * TILE + 2 * XBOX;  // one stage
+
+  // h^T (+)= W^T x^T over the stage at shared address ``st``; under
+  // G = 2 the second weight box into ``u``. The caller fences, commits
+  // and waits.
+  static __device__ __forceinline__ void mma_stage(float* h, float* u,
+                                                   uint32_t st) {
+    const uint32_t xb = st + G * TILE;
+#pragma unroll
+    for (int kk = 0; kk < KD / 16; ++kk) {
+      const uint64_t dx =
+          hp::desc_sw128(xb + (kk / 4) * XBOX + (kk % 4) * 32);
+      mma<N>(h, hp::desc_sw128(st + kk * 2048), dx);
+      if constexpr (G == 2)
+        mma<N>(u, hp::desc_sw128(st + TILE + kk * 2048), dx);
+    }
+  }
+
+  // the loader's side: the weight box(es) at (column c, row k) and the
+  // token rows' boxes at (column k, row m0) into the stage ``st``,
+  // completing on ``bar``
+  static __device__ __forceinline__ void load(
+      unsigned char* st, const CUtensorMap* mw, const CUtensorMap* mwu,
+      const CUtensorMap* mx, uint64_t* bar, int c, int k, int m0) {
+    hp::mbar_arrive_expect_tx(bar, BYTES);
+    hp::tma_load_2d(st, mw, bar, c, k);
+    if constexpr (G == 2) hp::tma_load_2d(st + TILE, mwu, bar, c, k);
+    unsigned char* xs = st + G * TILE;
+    hp::tma_load_2d(xs, mx, bar, k, m0);
+    hp::tma_load_2d(xs + XBOX, mx, bar, k + 64, m0);
+  }
+};
+
+// The tensor maps of the swapped product: a row-major (rows, cols) bf16
+// weight in boxes of 128 rows x 64 columns, and N token rows of a
+// row-major (M, D) operand in boxes of N rows x 64 columns. False if
+// the encoding is refused.
+inline bool weight_map(CUtensorMap* map, const void* w, int rows, int cols) {
+  const uint64_t dims[2] = {(uint64_t)cols, (uint64_t)rows};
+  const uint64_t strides[1] = {2ull * cols};
+  const uint32_t box[2] = {64, 128};
+  return hp::make_tensor_map(map, w, 2, dims, strides, box);
+}
+
+template <int N>
+bool rows_map(CUtensorMap* map, const void* x, int M, int D) {
+  const uint64_t dims[2] = {(uint64_t)D, (uint64_t)M};
+  const uint64_t strides[1] = {2ull * D};
+  const uint32_t box[2] = {64, N};
+  return hp::make_tensor_map(map, x, 2, dims, strides, box);
 }
 
 // F columns [begin, begin + len) of the cluster of F split ``split``
@@ -172,6 +237,7 @@ ring(const __grid_constant__ CUtensorMap mx,
      const __grid_constant__ CUtensorMap mw2, float* __restrict__ ws,
      int M, int D, int F, int D2, int part, int slots, int act) {
   using L = Layout<N, C, G>;
+  static_assert(L::W1_STAGE == Chunk<N, G>::BYTES, "a W1 stage is a chunk");
   constexpr int R = L::R;
   constexpr int SUB = L::SUB, MT = L::MT, W2_STAGES = L::W2_STAGES;
   extern __shared__ __align__(1024) unsigned char ring_smem[];
@@ -307,17 +373,8 @@ ring(const __grid_constant__ CUtensorMap mx,
       }
       for (int kc = 0; kc < nk; ++kc) {
         hp::mbar_wait(&w1_full[s], ph);
-        const uint32_t ab = w10 + s * L::W1_STAGE;
-        const uint32_t xb = ab + G * TILE;
         hp::wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < KD / 16; ++kk) {
-          const uint64_t dx =
-              hp::desc_sw128(xb + (kk / 4) * L::XBOX + (kk % 4) * 32);
-          mma<N>(h, hp::desc_sw128(ab + kk * 2048), dx);
-          if constexpr (G == 2)
-            mma<N>(u, hp::desc_sw128(ab + TILE + kk * 2048), dx);
-        }
+        Chunk<N, G>::mma_stage(h, u, w10 + s * L::W1_STAGE);
         hp::wgmma_commit();
         hp::wgmma_wait<0>();
         hp::fence_regs<R>(h);
@@ -364,14 +421,8 @@ ring(const __grid_constant__ CUtensorMap mx,
         const int nk = share0 < flen ? nkc : 0;
         for (int kc = 0; kc < nk; ++kc) {
           hp::mbar_wait(&w1_empty[s], ph ^ 1);
-          unsigned char* st = w1s + s * L::W1_STAGE;
-          hp::mbar_arrive_expect_tx(&w1_full[s], L::W1_STAGE);
-          hp::tma_load_2d(st, &mw1, &w1_full[s], fc, kc * KD);
-          if constexpr (G == 2)
-            hp::tma_load_2d(st + TILE, &mwu, &w1_full[s], fc, kc * KD);
-          unsigned char* xs = st + G * TILE;
-          hp::tma_load_2d(xs, &mx, &w1_full[s], kc * KD, m0);
-          hp::tma_load_2d(xs + L::XBOX, &mx, &w1_full[s], kc * KD + 64, m0);
+          Chunk<N, G>::load(w1s + s * L::W1_STAGE, &mw1, &mwu, &mx,
+                            &w1_full[s], fc, kc * KD, m0);
           if (++s == L::W1_STAGES) {
             s = 0;
             ph ^= 1;
@@ -418,14 +469,9 @@ int launch(const void* x, const void* w1, const void* wu, const void* w2,
     return cudaErrorInvalidValue;
   const int slots = L::slots(depth);
   CUtensorMap mx, mw1, mwu, mw2;
-  const uint64_t dx[2] = {(uint64_t)D, (uint64_t)M}, sx[1] = {2ull * D};
-  const uint64_t d1[2] = {(uint64_t)F, (uint64_t)D}, s1[1] = {2ull * F};
-  const uint64_t d2[2] = {(uint64_t)D2, (uint64_t)F}, s2[1] = {2ull * D2};
-  const uint32_t bx[2] = {64, N}, b1[2] = {64, KD}, b2[2] = {64, KF};
-  if (!hp::make_tensor_map(&mx, x, 2, dx, sx, bx) ||
-      !hp::make_tensor_map(&mw1, w1, 2, d1, s1, b1) ||
-      !hp::make_tensor_map(&mwu, G == 2 ? wu : w1, 2, d1, s1, b1) ||
-      !hp::make_tensor_map(&mw2, w2, 2, d2, s2, b2))
+  if (!rows_map<N>(&mx, x, M, D) || !weight_map(&mw1, w1, D, F) ||
+      !weight_map(&mwu, G == 2 ? wu : w1, D, F) ||
+      !weight_map(&mw2, w2, F, D2))
     return cudaErrorInvalidValue;
   const size_t smem = L::bytes(depth);
   cudaError_t err = cudaFuncSetAttribute(

@@ -8,7 +8,10 @@ the plain PyTorch versions, ``paged_gqa_reference`` and
 path's dense math fed by a table gather, op for op: masked logits are
 -1e30, which underflow to exactly 0.0 in fp32, so junk behind the mask
 and the width of the table change no sum. The kernels accumulate online
-instead and match them to fp32 tolerance.
+instead and match them to fp32 tolerance. ``paged_gqa`` splits each
+row's positions at multiples of ``split_chunk(bs)`` (split-KV) and
+merges the splits in a fixed order: ``split_bounds`` is its partition,
+a function of the row's own length.
 
 The plain versions are also the FLEXIBLE_DMA route, on every device:
 the dense view's round trip through HBM is that mode's memory
@@ -32,13 +35,32 @@ Tensor = torch.Tensor
 
 _QTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KVTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_float]
-             + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
+             + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+# csrc/paged_gqa.cu: a split covers SPLIT_POSITIONS positions (or one
+# pool block where a block is longer), always whole blocks; head dims up
+# to GQA_MAX_HEAD_DIM
+SPLIT_POSITIONS = 64
+GQA_MAX_HEAD_DIM = 256
 # widths the MLA kernel takes (csrc/paged_mla.cu)
 MLA_MAX_KVR = 512
 MLA_MAX_WIDTH = 640
 _MLA_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
                  + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+
+
+def split_chunk(bs: int) -> int:
+    """Positions of one split of ``paged_gqa``'s kernel at pool block
+    size ``bs``: the fewest whole blocks that cover SPLIT_POSITIONS."""
+    return bs * max(1, -(-SPLIT_POSITIONS // bs))
+
+
+def split_bounds(length: int, bs: int) -> list[tuple[int, int]]:
+    """The [start, end) positions of a row's live splits: boundaries at
+    multiples of ``split_chunk(bs)``, a function of the row's own length
+    (never of the batch or the table width); a length-0 row has none."""
+    c = split_chunk(bs)
+    return [(s, min(s + c, length)) for s in range(0, max(length, 0), c)]
 
 
 def gather_kv(leaf: Tensor, tables: Tensor) -> Tensor:
@@ -136,17 +158,29 @@ def paged_gqa(
         raise ValueError("paged_gqa: operands on different devices")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("paged_gqa kernel takes contiguous operands")
+    if dh > GQA_MAX_HEAD_DIM:
+        raise ValueError(f"paged_gqa kernel takes head_dim <= "
+                         f"{GQA_MAX_HEAD_DIM}, got {dh}")
     out = torch.empty_like(q)
-    if b == 0:
-        return out
+    nb = tables.shape[1]
+    if b == 0 or nb == 0:
+        return out.zero_() if b else out
+    # the splits' partials (m, l and acc, fp32): S splits a row at most
+    chunk = split_chunk(bs)
+    splits = -(-nb * bs // chunk)
+    ws_acc = torch.empty((b * h * splits * dh,), dtype=torch.float32,
+                         device=q.device)
+    ws_ml = torch.empty((b * h * splits * 2,), dtype=torch.float32,
+                        device=q.device)
     fn = build.entry("paged_gqa", "paged_gqa_launch", _ARGTYPES)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
              k_scale.data_ptr() if quantized else None,
              v_scale.data_ptr() if quantized else None,
              tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-             b, h, hkv, bs, dh, tables.shape[1], float(scale),
-             _QTYPES[q.dtype], _KVTYPES[k_pool.dtype], stream)
+             ws_acc.data_ptr(), ws_ml.data_ptr(), b, h, hkv, bs, dh, nb,
+             chunk, float(scale), _QTYPES[q.dtype], _KVTYPES[k_pool.dtype],
+             stream)
     build.check(err, "paged_gqa")
     build.launches["paged_gqa"] += 1
     return out

@@ -224,23 +224,79 @@ def test_kernel_wrappers_reject_what_they_do_not_take(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("m,k,n", [(1, 64, 128), (3, 100, 130),
-                                   (4, 4096, 64), (17, 513, 257)])
+@pytest.mark.parametrize("m,k,n,dtype,route", [
+    (1, 64, 128, torch.float32, "fma"), (3, 100, 130, torch.float32, "fma"),
+    (4, 4096, 64, torch.float32, "fma"),
+    (17, 513, 257, torch.float32, "fma"),
+    # the tensor-core route: one panel of 8, 16 and 64 rows, K split
+    # several ways under the identity, panels of 64 above 64 rows (a
+    # ragged last one) and a column tile past N
+    (4, 1024, 512, torch.bfloat16, "tc"),
+    (16, 1024, 512, torch.bfloat16, "tc"),
+    (64, 4096, 384, torch.bfloat16, "tc"),
+    (130, 640, 264, torch.bfloat16, "tc"),
+    # bf16 widths TMA cannot stride (K, N not multiples of 8): fma
+    (4, 100, 260, torch.bfloat16, "fma")], ids=str)
 @pytest.mark.parametrize("act", ["identity", "squared_relu", "gelu"])
-def test_sidebar_matmul_kernel_matches_plain(cuda, m, k, n, act):
-    """Ragged M, K and N; K split across blocks under the identity."""
+def test_sidebar_matmul_kernel_matches_plain(cuda, m, k, n, dtype, route,
+                                             act):
+    """Ragged M, K and N; K split across blocks under the identity only
+    (any other epilogue: one block owns the whole K). fp32 against the
+    plain version at 1e-4 (the two sum K in different orders); bf16
+    against the plain version in fp32 on the same values at 2e-2 (the
+    output's bf16 rounding). A second call gives the same bits."""
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import sidebar_matmul as smm
 
     rng = np.random.RandomState(9)
-    a = torch.from_numpy(rng.randn(m, k).astype(np.float32)).to(cuda)
+    a = torch.from_numpy(rng.randn(m, k).astype(np.float32)).to(cuda, dtype)
     b = torch.from_numpy((rng.randn(k, n) / np.sqrt(k)).astype(np.float32)
-                         ).to(cuda)
+                         ).to(cuda, dtype)
+    assert smm.operand_route(a, b) == route
+    plan = smm.plan(m, k, n, act == "identity", route)
+    assert plan.splits == 1 or act == "identity"
     before = kops.launch_counts()["sidebar_matmul"]
     out = smm.sidebar_matmul(a, b, act)
-    ref = smm.sidebar_matmul_plain(a, b, act)
-    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
     assert kops.launch_counts()["sidebar_matmul"] == before + 1
+    ref = smm.sidebar_matmul_plain(a.float(), b.float(), act)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    assert out.dtype == dtype and out.shape == (m, n)
+    torch.testing.assert_close(out.float(), ref, rtol=tol, atol=tol)
+    assert torch.equal(out, smm.sidebar_matmul(a, b, act))
+
+
+@pytest.mark.gpu
+def test_sidebar_matmul_tc_ring_fits_two_blocks_an_sm(cuda):
+    """The library's shared memory for the tc route's panel widths
+    leaves room for ``TC_BLOCKS_PER_SM`` blocks on an H100 SM (228 KB,
+    1 KB reserved a block), which the K split assumes."""
+    from repro_torch.kernels import sidebar_matmul as smm
+
+    for m in (4, 16, 32, 64):
+        smem = smm.smem_bytes(m, torch.bfloat16, "tc")
+        assert 0 < smem and smm.TC_BLOCKS_PER_SM * (smem + 1024) <= 233472
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [4, 64])
+def test_sidebar_matmul_device_expr_on_the_tc_route(cuda, m):
+    """A run-time activation (mish, ``device_expr``) as the epilogue of
+    the tensor-core route: one block owns the whole K."""
+    from repro_torch.core.function_table import make_default_table
+    from repro_torch.kernels import sidebar_matmul as smm
+
+    table = make_default_table()
+    table.register("mish", _mish, device_expr=MISH)
+    rng = np.random.RandomState(23)
+    a = torch.from_numpy(rng.randn(m, 512).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    b = torch.from_numpy((rng.randn(512, 256) / np.sqrt(512)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    assert smm.operand_route(a, b) == "tc"
+    assert smm.plan(m, 512, 256, False, "tc").splits == 1
+    out = smm.sidebar_matmul(a, b, "mish", table=table)
+    ref = smm.sidebar_matmul_plain(a.float(), b.float(), "mish", table)
+    torch.testing.assert_close(out.float(), ref, rtol=2e-2, atol=2e-2)
 
 
 @pytest.mark.gpu
@@ -572,6 +628,105 @@ def test_paged_gqa_kernel_at_group_1(cuda, quantized):
                                  k_scale=ks, v_scale=vs)
     torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2,
                                atol=2e-2)
+
+
+def _gqa_problem(seed, *, hkv, group, dh, bs, nb, lengths, kv_dtype,
+                 device):
+    """A bf16 q against a pool of ``kv_dtype`` (int8 with fp32 scales),
+    ragged lengths, scratch-padded tails and a shared block."""
+    rng = np.random.RandomState(seed)
+    b = len(lengths)
+    P = b * nb + 1
+    tables = rng.randint(1, P, size=(b, nb)).astype(np.int32)
+    for r, ln in enumerate(lengths):
+        tables[r, -(-ln // bs):] = 0
+    tables[1, 2] = tables[1, 1]
+    ks = vs = None
+    if kv_dtype == torch.int8:
+        k, v = (torch.from_numpy(rng.randint(-127, 128, (P, hkv, bs, dh)
+                                             ).astype(np.int8))
+                for _ in range(2))
+        ks, vs = (torch.from_numpy(((rng.rand(P, hkv, bs) + .5) / 127
+                                    ).astype(np.float32)).to(device)
+                  for _ in range(2))
+    else:
+        k, v = (torch.from_numpy(rng.randn(P, hkv, bs, dh).astype(
+            np.float32)).to(kv_dtype) for _ in range(2))
+    q = torch.from_numpy(rng.randn(b, hkv * group, dh).astype(np.float32)
+                         ).to(torch.bfloat16)
+    q, k, v, t, ln = (a.to(device) for a in (
+        q, k, v, torch.from_numpy(tables),
+        torch.from_numpy(np.asarray(lengths, np.int32))))
+    return q, k, v, ks, vs, t, ln, dh ** -0.5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hkv,group", [(8, 6), (32, 1)],
+                         ids=["nemotron-48-8", "deepseek-7b-32-32"])
+@pytest.mark.parametrize("kv_dtype", [torch.bfloat16, torch.int8], ids=str)
+def test_paged_gqa_split_kv_at_serving_widths(cuda, hkv, group, kv_dtype):
+    """Split-KV decode at the served models' widths (head_dim 128, block
+    16, lengths up to 256 on a 64-block table: up to 4 live splits of 16
+    a row) against the plain version (2e-2: bf16 q, p and output); a
+    second call gives the same bits; one launch counted per call."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import paged_attention as pa
+
+    q, k, v, ks, vs, t, ln, scale = _gqa_problem(
+        41, hkv=hkv, group=group, dh=128, bs=16, nb=64,
+        lengths=[256, 241, 200, 129], kv_dtype=kv_dtype, device=cuda)
+    before = build.launches["paged_gqa"]
+    out = pa.paged_gqa(q, k, v, t, ln, scale=scale, k_scale=ks, v_scale=vs)
+    assert build.launches["paged_gqa"] == before + 1
+    ref = pa.paged_gqa_reference(q, k, v, t, ln, scale=scale, k_scale=ks,
+                                 v_scale=vs)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2,
+                               atol=2e-2)
+    assert torch.equal(out, pa.paged_gqa(q, k, v, t, ln, scale=scale,
+                                         k_scale=ks, v_scale=vs))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hkv,group", [(8, 6), (32, 1)],
+                         ids=["nemotron-48-8", "deepseek-7b-32-32"])
+def test_paged_gqa_row_alone_equals_row_in_batch(cuda, hkv, group):
+    """A row's output is a function of its own q, blocks and length: each
+    row served alone, on a table cut to its own blocks, gives the bits it
+    gets inside a batch of four with other lengths."""
+    from repro_torch.kernels import paged_attention as pa
+
+    q, k, v, _, _, t, ln, scale = _gqa_problem(
+        42, hkv=hkv, group=group, dh=128, bs=16, nb=16,
+        lengths=[256, 70, 5, 129], kv_dtype=torch.bfloat16, device=cuda)
+    batch = pa.paged_gqa(q, k, v, t, ln, scale=scale)
+    for r, length in enumerate((256, 70, 5, 129)):
+        nb = -(-length // 16)
+        alone = pa.paged_gqa(q[r:r + 1].contiguous(), k, v,
+                             t[r:r + 1, :nb].contiguous(),
+                             ln[r:r + 1].contiguous(), scale=scale)
+        assert torch.equal(alone[0], batch[r]), r
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_dtype", [torch.float32, torch.int8], ids=str)
+@pytest.mark.parametrize("dh,group", [(16, 4), (8, 4), (16, 1)])
+def test_paged_gqa_masked_splits_and_empty_rows(cuda, kv_dtype, dh, group):
+    """Smoke widths (block 8: splits of 64) with a length-0 row (no
+    split: its output is 0, as the Pallas kernel's), a row whose second
+    split would be fully masked, one whole split and two splits, fp32 q:
+    1e-4 against the plain version on the rows that attend something."""
+    from repro_torch.kernels import paged_attention as pa
+
+    lengths = [0, 5, 64, 70, 96]
+    q, k, v, ks, vs, t, ln, scale = _gqa_problem(
+        43, hkv=2, group=group, dh=dh, bs=8, nb=12, lengths=lengths,
+        kv_dtype=kv_dtype, device=cuda)
+    q = q.float()
+    out = pa.paged_gqa(q, k, v, t, ln, scale=scale, k_scale=ks, v_scale=vs)
+    ref = pa.paged_gqa_reference(q, k, v, t, ln, scale=scale, k_scale=ks,
+                                 v_scale=vs)
+    assert not out[0].any()
+    torch.testing.assert_close(out[1:], ref[1:], rtol=1e-4, atol=1e-4)
 
 
 def _user_wrappers():
