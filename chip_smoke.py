@@ -23,8 +23,17 @@ exits non-zero):
      the plain version's time, the bound of the work and the time of one
      PyTorch call of the same function where there is one (the kernels
      redesigned for Hopper -- both MLPs, the ring, flash,
-     ``sidebar_matmul`` and ``paged_gqa`` -- also give their time before
-     the redesign and the time over the bound); ``sidebar_matmul``'s two
+     ``sidebar_matmul``, ``paged_gqa``, ``paged_mla`` and ``activation``
+     -- also give their time before the redesign and the time over the
+     bound); ``paged_mla`` split-KV at deepseek-v3's widths on its
+     tensor-core route with its splits a row, its bound on that route
+     and the fp32-FMA bound beside it, equal to a second run bit for bit
+     and each row alone equal to its row in the batch, and its FMA route
+     at smoke widths with a length-0 row; ``flexible_dma_chain``:
+     FLEXIBLE_DMA's whole MLP (five programmatic dependent launches) at
+     4 and 64 rows beside the sum of its parts' times and bounds and the
+     fused ``sidebar_mlp``, equal with and without a synchronize between
+     its launches; ``sidebar_matmul``'s two
      FLEXIBLE_DMA products at 4 and 64 rows on the tensor-core route with
      their partition (one panel: each weight tile read from HBM once),
      and a ragged bf16 product on its fma route; ``paged_gqa`` split-KV
@@ -107,9 +116,10 @@ ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 # H100 SXM, NVIDIA data sheet (dense): HBM rate and peak operation rates
-# (bf16 on the tensor cores; fp32 outside them, for elementwise work)
+# (bf16 and TF32 on the tensor cores; fp32 outside them, for elementwise
+# work)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_OPS = {torch.bfloat16: 989e12, "tf32": 495e12, torch.float32: 67e12}
 # torch.cuda._sleep spins for a count of SM clock cycles (H100 SXM:
 # 1.98 GHz at most; a lower clock only lengthens the sleep)
 SLEEP_CYCLES_PER_S = 1.98e9
@@ -145,7 +155,11 @@ PREVIOUS_MS = {"sidebar_mlp_pipelined": {4: 1.148, 64: 3.659},
                "paged_gqa": {("nemotron-4-15b", "bfloat16"): 0.146,
                              ("nemotron-4-15b", "int8"): 0.139,
                              ("deepseek-7b", "bfloat16"): 0.105,
-                             ("deepseek-7b", "int8"): 0.114}}
+                             ("deepseek-7b", "int8"): 0.114},
+               # the one-block-per-(row, 4 heads) paged_mla on the CUDA
+               # cores, and the plain-launch activation by token rows
+               "paged_mla": 0.0635,
+               "activation": {4: 0.00323, 64: 0.00400}}
 
 
 def mish(t: torch.Tensor) -> torch.Tensor:
@@ -585,7 +599,8 @@ def activation_ops(seed: int = 3) -> dict:
         b_ms, b_by = bound(2 * 2 * x.numel(), 2 * x.numel(), torch.float32)
         row = {"phase": 1, "op": "activation", "dtype": "bfloat16",
                "shape": [m, D_FF], "max_abs_err": err, "max_rel_err": rel,
-               "tol": 2e-2,
+               "tol": 2e-2, "launch": "programmatic dependent",
+               "previous_ms": PREVIOUS_MS["activation"][m],
                "ms": cuda_ms(lambda: ak.activation_2d(x, "squared_relu")),
                "plain_ms": cuda_ms(
                    lambda: ak.activation_plain(x, "squared_relu")),
@@ -595,6 +610,69 @@ def activation_ops(seed: int = 3) -> dict:
         if m == 4:
             main = row
     return main
+
+
+def dma_chain_ops(seed: int = 9) -> None:
+    """flexible_dma_chain: FLEXIBLE_DMA's whole MLP at nemotron's widths
+    (producer ``sidebar_matmul``, its split reduce, ``activation``,
+    consumer, its split reduce: five programmatic dependent launches),
+    timed as the route runs it, beside the sum of its parts timed
+    separately, the sum of their bounds and the fused ``sidebar_mlp`` at
+    the same rows; the same bits with a synchronize between its calls as
+    without (no race between the dependent launches)."""
+    from repro_torch.core.modes import ExecutionMode
+    from repro_torch.kernels import activations as ak
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import sidebar_matmul as smm
+    from repro_torch.kernels import sidebar_mlp as sm
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    w1, w2 = full_weights(g)
+    act = "squared_relu"
+    for m in (4, 64):
+        x = torch.randn(m, D_MODEL, generator=g, device="cuda").bfloat16()
+
+        def chain():
+            with ops.execution_plan(ExecutionMode.FLEXIBLE_DMA):
+                return ops.sidebar_mlp(x, w1, w2, act)
+
+        out = chain()
+        h = smm.sidebar_matmul(x, w1)
+        torch.cuda.synchronize()
+        fh = ak.activation(h, act)
+        torch.cuda.synchronize()
+        synced = smm.sidebar_matmul(fh, w2)
+        torch.cuda.synchronize()
+        same = torch.equal(out, synced)
+        check(same, f"flexible_dma_chain m={m}: other bits with a "
+                    "synchronize between the launches")
+        ref = sm.sidebar_mlp_plain(x.float(), w1.float(), w2.float(), act)
+        err, rel = rel_err(out, ref)
+        del ref
+        check(rel <= 2e-2, f"flexible_dma_chain m={m}: rel {rel}")
+        parts = {"producer": cuda_ms(lambda: smm.sidebar_matmul(x, w1)),
+                 "activation": cuda_ms(lambda: ak.activation(h, act)),
+                 "consumer": cuda_ms(lambda: smm.sidebar_matmul(fh, w2))}
+        bounds = {
+            "producer": bound(2 * (x.numel() + w1.numel() + h.numel()),
+                              2 * m * D_MODEL * D_FF, torch.bfloat16)[0],
+            "activation": bound(2 * 2 * h.numel(), 2 * h.numel(),
+                                torch.float32)[0],
+            "consumer": bound(2 * (fh.numel() + w2.numel() + out.numel()),
+                              2 * m * D_FF * D_MODEL, torch.bfloat16)[0]}
+        emit({"phase": 1, "op": "flexible_dma_chain", "dtype": "bfloat16",
+              "shape": [m, D_MODEL, D_FF], "launches": 5,
+              "max_abs_err": err, "max_rel_err": rel, "tol": 2e-2,
+              "same_bits_with_synchronize": same,
+              "cuda_ms": cuda_ms(chain), "parts_ms": parts,
+              "sum_of_parts_ms": sum(parts.values()),
+              "parts_bound_ms": bounds,
+              "sum_of_bounds_ms": sum(bounds.values()),
+              "fused_sidebar_mlp_ms": cuda_ms(
+                  lambda: sm.sidebar_mlp(x, w1, w2, act))})
+        del x, h, fh, out, synced
+    del w1, w2
+    torch.cuda.empty_cache()
 
 
 def pipelined_ops(seed: int = 4) -> dict:
@@ -868,14 +946,18 @@ def _mla_problem(g, *, b, h, kvr, rope, bs, nb, lengths, dtype, copies=1):
 
 def mla_ops(seed: int = 7) -> dict:
     """paged_mla: deepseek-v3's absorbed decode on the compressed pool."""
+    from repro_torch.kernels import build
     from repro_torch.kernels import paged_attention as pa
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     worst = 0.0
-    # smoke widths in fp32 (H 4, kvr 32, rope 8, block 8): 1e-4 relative,
-    # the kernel's online softmax against the plain two-pass one
+    # smoke widths in fp32 (H 4, kvr 32, rope 8, block 8; the fma route):
+    # 1e-4 relative, the kernel's split online softmax against the plain
+    # two-pass one; a length-0 row gives 0
+    smoke_route = pa.mla_route(32, 8, 8, torch.float32)
+    check(smoke_route == "fma", f"paged_mla smoke route {smoke_route}")
     for b, nb, lengths in ((3, 4, [5, 16, 32]), (4, 4, [1, 9, 30, 2]),
-                           (3, 6, [48, 17, 8])):
+                           (3, 6, [48, 17, 8]), (4, 12, [0, 96, 70, 5])):
         probs, t, ln = _mla_problem(g, b=b, h=4, kvr=32, rope=8, bs=8,
                                     nb=nb, lengths=lengths,
                                     dtype=torch.float32)
@@ -884,13 +966,20 @@ def mla_ops(seed: int = 7) -> dict:
         out = pa.paged_mla(ql, qr, ckv, kr, t, ln, scale=scale)
         torch.cuda.synchronize()
         ref = pa.paged_mla_reference(ql, qr, ckv, kr, t, ln, scale=scale)
-        _, rel = rel_err(out, ref)
+        # rows of length 0: 0 from the kernel (the plain version's
+        # all-masked softmax is uniform); the others against the plain one
+        live = [r for r, n in enumerate(lengths) if n > 0]
+        check(all(not out[r].any() for r, n in enumerate(lengths)
+                  if n == 0), f"paged_mla fp32 lengths={lengths}: a "
+                              "length-0 row is not 0")
+        _, rel = rel_err(out[live], ref[live])
         check(out.shape == ref.shape and rel <= 1e-4,
               f"paged_mla fp32 lengths={lengths}: rel {rel}")
         worst = max(worst, rel)
     emit({"phase": 1, "op": "paged_mla", "dtype": "float32",
           "heads": 4, "kv_lora_rank": 32, "rope_head_dim": 8,
-          "max_rel_err": worst, "tol": 1e-4})
+          "route": smoke_route, "max_rel_err": worst, "tol": 1e-4,
+          "length_0_row_is_0": True})
     # deepseek-v3-671b widths: 128 heads, kvr 512, rope 64, block 16, a
     # bf16 pool and q_rope, fp32 q_lat; 4 rows at lengths up to 256.
     # 2e-2 relative against the plain version on the same values (bf16
@@ -904,11 +993,33 @@ def mla_ops(seed: int = 7) -> dict:
                                 nb=16, lengths=lengths,
                                 dtype=torch.bfloat16, copies=32)
     ql, qr, ckv, kr = probs[0]
+    route = pa.mla_route(kvr, rope, bs, ckv.dtype)
+    check(route == "tc", f"paged_mla bf16 full width: route {route}")
+    before = build.launches["paged_mla"]
     out = pa.paged_mla(ql, qr, ckv, kr, t, ln, scale=scale)
     torch.cuda.synchronize()
+    counted = build.launches["paged_mla"] - before
     ref = pa.paged_mla_reference(ql, qr, ckv, kr, t, ln, scale=scale)
     err, rel = rel_err(out, ref)
     check(rel <= 2e-2, f"paged_mla bf16: rel {rel}")
+    same = torch.equal(out, pa.paged_mla(ql, qr, ckv, kr, t, ln,
+                                         scale=scale))
+    check(same, "paged_mla bf16: a second run gave other bits")
+    # each row alone, on a table cut to its own blocks, against its row
+    # in the batch: bit for bit
+    alone_same = True
+    for r, n in enumerate(lengths):
+        nbr = -(-n // bs)
+        alone = pa.paged_mla(ql[r:r + 1].contiguous(),
+                             qr[r:r + 1].contiguous(), ckv, kr,
+                             t[r:r + 1, :nbr].contiguous(),
+                             ln[r:r + 1].contiguous(), scale=scale)
+        alone_same = alone_same and torch.equal(alone[0], out[r])
+    check(alone_same, "paged_mla bf16: a row alone gave other bits than "
+                      "in the batch")
+    emit({"phase": 1, "op": "paged_mla", "arch": "deepseek-v3-671b",
+          "check": "row alone against the batch", "route": route,
+          "lengths": lengths, "same_bits": alone_same})
     it = {"i": 0}
 
     def run(fn):
@@ -924,15 +1035,28 @@ def mla_ops(seed: int = 7) -> dict:
               + 4 * t.numel() + 4 * ln.numel()       # tables, lengths
               + 4 * ql.numel())                      # ctx_lat fp32
     ops = 2 * live * h * (kvr + rope) + 2 * live * h * kvr
-    b_ms, b_by = bound(nbytes, ops, torch.float32)
+    # the tc route does each product twice (TF32 high and low parts);
+    # the first design's fp32 FMA bound stands beside it
+    b_ms, b_by = bound(nbytes, 2 * ops, "tf32")
+    fma_ms, fma_by = bound(nbytes, ops, torch.float32)
+    ms = cuda_ms(run(pa.paged_mla), iters=64)
     row = {"phase": 1, "op": "paged_mla", "arch": "deepseek-v3-671b",
            "heads": h, "kv_lora_rank": kvr, "rope_head_dim": rope,
            "block": bs, "pool_dtype": "bfloat16", "lengths": lengths,
+           "route": route, "split_positions": pa.split_chunk(bs),
+           "splits_per_row": [len(pa.split_bounds(n, bs)) for n in lengths],
+           "head_group": pa.MLA_TC_HEADS,
+           "split_blocks": sum(len(pa.split_bounds(n, bs)) for n in lengths)
+           * -(-h // pa.MLA_TC_HEADS),
+           "launches_counted_per_call": counted,
+           "kernel_launches_per_call": 2,
            "max_abs_err": err, "max_rel_err": rel, "tol": 2e-2,
-           "ms": cuda_ms(run(pa.paged_mla), iters=64),
+           "same_bits_second_run": same, "row_alone_same_bits": alone_same,
+           "ms": ms, "previous_ms": PREVIOUS_MS["paged_mla"],
            "plain_ms": cuda_ms(run(pa.paged_mla_reference), iters=64),
            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
-           "bytes": nbytes, "flops": ops}
+           "ms_over_bound": ms / b_ms, "bound_ms_fp32_fma": fma_ms,
+           "bound_by_fp32_fma": fma_by, "bytes": nbytes, "flops": ops}
     emit(row)
     return row
 
@@ -1793,6 +1917,7 @@ def main() -> None:
         rows["sidebar_mlp_pipelined"] = pipelined_ops()
         rows["sidebar_matmul"] = matmul_ops()
         rows["activation"] = activation_ops()
+        dma_chain_ops()
         rows["sidebar_gated_mlp"] = gated_ops()
         rows["paged_mla"] = mla_ops()
         rows["flash_attention"] = flash_ops()

@@ -41,4 +41,44 @@ enum DType : int { kF32 = 0, kBF16 = 1, kI8 = 2 };
 // the CUDA cores' FMA, or the tensor cores (sidebar_tc.cuh)
 enum Route : int { kFma = 0, kTc = 1 };
 
+// ---- programmatic dependent launch --------------------------------------
+// A kernel launched by ``launch_dependent`` may start while the kernel
+// before it on the stream still runs. It must call ``griddep_wait``
+// before it reads anything an earlier launch wrote AND before it writes
+// any global memory: the caching allocator hands a buffer freed by the
+// host straight to the next call, so a buffer this kernel writes may be
+// one the kernel before it still reads. Only work that touches no global
+// memory (barrier setup, register set-up) may come first. Every thread
+// waits, so a grid never completes before its predecessor has.
+
+// block until every earlier grid on the stream has completed and its
+// memory operations are visible
+__device__ __forceinline__ void griddep_wait() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+
+// let the next launch on the stream be scheduled once every block of
+// this grid has issued this (or exited); the first call in a block counts
+__device__ __forceinline__ void griddep_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;");
+}
+
+// launch ``kern`` as a programmatic dependent of the launch before it
+template <typename... Params, typename... Args>
+cudaError_t launch_dependent(void (*kern)(Params...), dim3 grid, dim3 block,
+                             size_t smem, cudaStream_t stream,
+                             Args&&... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kern, static_cast<Params>(args)...);
+}
+
 }  // namespace repro

@@ -109,6 +109,12 @@ __device__ __forceinline__ uint32_t cluster_rank() {
   return r;
 }
 
+__device__ __forceinline__ uint32_t cluster_size() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(r));
+  return r;
+}
+
 // the address, in the cluster's shared window, of this CTA's shared
 // address ``addr`` in the CTA of rank ``rank``
 __device__ __forceinline__ uint32_t map_rank(uint32_t addr, uint32_t rank) {
@@ -154,6 +160,32 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       "bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
       "r"(c1)
+      : "memory");
+}
+
+// ``bytes`` (a multiple of 16) contiguous bytes from global to shared
+// memory, both 16-byte aligned, completing on ``bar``: a 1-D bulk copy,
+// no tensor map
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// the same copy into the same shared offset of every CTA of the cluster
+// in ``mask``, completing on the barrier at ``bar``'s offset in each
+__device__ __forceinline__ void bulk_load_multicast(void* dst,
+                                                    const void* src,
+                                                    uint32_t bytes,
+                                                    uint64_t* bar,
+                                                    uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes."
+      "multicast::cluster [%0], [%1], %2, [%3], %4;" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar)), "h"(mask)
       : "memory");
 }
 

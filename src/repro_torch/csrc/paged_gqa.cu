@@ -136,7 +136,7 @@ gqa_split(const void* __restrict__ q, int qtype, const TKV* __restrict__ kp,
   const int p0 = split * chunk;
   // the merge launch may start now: it waits for this grid to finish
   // (griddepcontrol.wait) before it reads the workspace
-  asm volatile("griddepcontrol.launch_dependents;");
+  repro::griddep_launch_dependents();
 
   float* s_p = sm;                    // (GT, chunk) logits, then p
   float* s_m = s_p + GT * chunk;      // (GT,) the split's max
@@ -360,7 +360,7 @@ __global__ void gqa_merge(const float* __restrict__ ws_acc,
   const int live = length > 0 ? (length + chunk - 1) / chunk : 0;
   // launched as the split grid's programmatic dependent: every write of
   // that grid is complete and visible after this wait
-  asm volatile("griddepcontrol.wait;" ::: "memory");
+  repro::griddep_wait();
   const size_t row = (size_t)b * H + h;
   const float* ml = ws_ml + row * S * 2;
   float m = NEG_INF;
@@ -485,22 +485,15 @@ extern "C" int paged_gqa_launch(const void* q, const void* k, const void* v,
   // the merge as a programmatic dependent launch: it is scheduled while
   // the splits run and waits for them on the device, so the gap between
   // the two launches is hidden
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(H, B);
-  cfg.blockDim = dim3(min(MAX_DH, (Dh + 31) / 32 * 32));
-  cfg.stream = s;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
+  const dim3 grid(H, B), block(min(MAX_DH, (Dh + 31) / 32 * 32));
   const int* ln = static_cast<const int*>(lengths);
   if (qtype == repro::kF32)
-    return cudaLaunchKernelEx(&cfg, gqa_merge<float>, (const float*)wa,
-                              (const float*)wm, ln, static_cast<float*>(out),
-                              H, bs, Dh, nb, chunk, S);
-  return cudaLaunchKernelEx(&cfg, gqa_merge<__nv_bfloat16>, (const float*)wa,
-                            (const float*)wm, ln,
-                            static_cast<__nv_bfloat16*>(out), H, bs, Dh, nb,
-                            chunk, S);
+    return repro::launch_dependent(gqa_merge<float>, grid, block, 0, s,
+                                   (const float*)wa, (const float*)wm, ln,
+                                   static_cast<float*>(out), H, bs, Dh, nb,
+                                   chunk, S);
+  return repro::launch_dependent(gqa_merge<__nv_bfloat16>, grid, block, 0, s,
+                                 (const float*)wa, (const float*)wm, ln,
+                                 static_cast<__nv_bfloat16*>(out), H, bs, Dh,
+                                 nb, chunk, S);
 }

@@ -50,6 +50,14 @@
 // block owns the whole K range of its tile, so the pre-activation sum
 // never reaches HBM (sidebar_matmul.py:16-17).
 //
+// Both routes, and the split reduce, launch as programmatic dependents
+// (common.cuh ``launch_dependent``), so FLEXIBLE_DMA's chain of five
+// launches (producer, its reduce, the activation, consumer, its reduce)
+// overlaps each launch's ramp with the end of the one before. A block
+// sets up only shared memory before ``griddep_wait``: a operand is the
+// launch before's output, and c or ws may reuse a buffer it still reads.
+// It lets the next launch be scheduled once its last K chunk is in.
+//
 // Rounding points (src/repro/kernels/ref.py:sidebar_matmul_ref): fp32
 // accumulation, f on the fp32 sum (``apply_activation``, so run-time
 // ``device_expr`` builds keep working), one cast to a's type.
@@ -100,6 +108,7 @@ matmul_tile(const T* __restrict__ a, const T* __restrict__ b,
 #pragma unroll
   for (int r = 0; r < ROWS; ++r) acc[r] = 0.f;
 
+  repro::griddep_wait();  // a is the launch before's output
   W<T>::fetch(reg, b, N, k_begin, k_end, n0, N, vecb, tid);
   A::fetch(ar, a, K, m0, M, k_begin, k_end, tid);
   W<T>::stash(sb, reg, tid);
@@ -127,6 +136,7 @@ matmul_tile(const T* __restrict__ a, const T* __restrict__ b,
     }
     __syncthreads();
   }
+  repro::griddep_launch_dependents();
 
   if (!live || n0 + col >= N) return;
   float* part = ws + (size_t)blockIdx.z * M * N;
@@ -151,11 +161,11 @@ int launch_fma(const void* a, const void* b, void* c, void* ws, int M,
   const int vecb = (reinterpret_cast<uintptr_t>(b) % 16 == 0) &&
                    (N % VEC == 0);
   dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN, nsplit);
-  matmul_tile<T><<<grid, THREADS, 0, stream>>>(
+  cudaError_t err = repro::launch_dependent(
+      matmul_tile<T>, grid, dim3(THREADS), 0, stream,
       static_cast<const T*>(a), static_cast<const T*>(b),
       static_cast<T*>(c), static_cast<float*>(ws), M, K, N, krange, act,
       vecb);
-  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || nsplit == 1) return err;
   return repro::launch_split_reduce(static_cast<const float*>(ws),
                                     static_cast<T*>(c), (size_t)M * N,
@@ -218,6 +228,7 @@ matmul_tc(const __grid_constant__ CUtensorMap ma,
     hp::fence_barrier_init();
   }
   __syncthreads();
+  repro::griddep_wait();  // a is the launch before's output
 
   if (tid < 128) {
     // ---- consumer: c^T += b^T a^T, stage by stage --------------------
@@ -240,6 +251,7 @@ matmul_tc(const __grid_constant__ CUtensorMap ma,
         ph ^= 1;
       }
     }
+    repro::griddep_launch_dependents();
     // thread t holds c^T rows (output columns) 16 w + l / 4 (+ 8) and
     // columns (token rows) 8 i + 2 (l % 4) (+ 1): hopper.cuh's layout
     const int warp = tid / 32, lane = tid % 32;
@@ -286,10 +298,11 @@ int launch_tc(const void* a, const void* b, void* c, void* ws, int M, int K,
       Ring<N>::BYTES);
   if (err != cudaSuccess) return err;
   const dim3 grid((M + N - 1) / N, (Ncol + TC_N - 1) / TC_N, nsplit);
-  matmul_tc<N><<<grid, TC_THREADS, Ring<N>::BYTES, stream>>>(
-      ma, mb, static_cast<__nv_bfloat16*>(c), static_cast<float*>(ws), M, K,
-      Ncol, krange, act);
-  err = cudaGetLastError();
+  err = repro::launch_dependent(matmul_tc<N>, grid, dim3(TC_THREADS),
+                                Ring<N>::BYTES, stream, ma, mb,
+                                static_cast<__nv_bfloat16*>(c),
+                                static_cast<float*>(ws), M, K, Ncol, krange,
+                                act);
   if (err != cudaSuccess || nsplit == 1) return err;
   return repro::launch_split_reduce(static_cast<const float*>(ws),
                                     static_cast<__nv_bfloat16*>(c),

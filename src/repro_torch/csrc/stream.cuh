@@ -93,24 +93,28 @@ struct RowPanel {
 
 // y = cast(sum over ``nsplit`` fp32 partials of ``total`` elements, in
 // split order 0, 1, 2, ...): the fixed-order second pass of a product
-// split across blocks (no atomics: bit-identical run to run)
+// split across blocks (no atomics: bit-identical run to run). Launched
+// as a programmatic dependent of the product (common.cuh): every thread
+// waits for it before touching global memory.
 template <typename T>
 __global__ void split_reduce(const float* __restrict__ ws, T* __restrict__ y,
                              size_t total, int nsplit) {
+  griddep_wait();
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= total) return;
   float s = 0.f;
   for (int sp = 0; sp < nsplit; ++sp) s += ws[(size_t)sp * total + i];
+  griddep_launch_dependents();
   y[i] = from_f<T>(s);
 }
 
 template <typename T>
 cudaError_t launch_split_reduce(const float* ws, T* y, size_t total,
                                 int nsplit, cudaStream_t stream) {
-  const int threads = 256;
-  split_reduce<T><<<(unsigned)((total + threads - 1) / threads), threads, 0,
-                    stream>>>(ws, y, total, nsplit);
-  return cudaGetLastError();
+  const unsigned threads = 256;
+  return launch_dependent(split_reduce<T>,
+                          dim3((unsigned)((total + threads - 1) / threads)),
+                          dim3(threads), 0, stream, ws, y, total, nsplit);
 }
 
 }  // namespace repro

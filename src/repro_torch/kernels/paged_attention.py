@@ -8,10 +8,14 @@ the plain PyTorch versions, ``paged_gqa_reference`` and
 path's dense math fed by a table gather, op for op: masked logits are
 -1e30, which underflow to exactly 0.0 in fp32, so junk behind the mask
 and the width of the table change no sum. The kernels accumulate online
-instead and match them to fp32 tolerance. ``paged_gqa`` splits each
+instead and match them to fp32 tolerance. Both kernels split each
 row's positions at multiples of ``split_chunk(bs)`` (split-KV) and
-merges the splits in a fixed order: ``split_bounds`` is its partition,
-a function of the row's own length.
+merge the splits in a fixed order: ``split_bounds`` is their
+partition, a function of the row's own length. ``paged_mla`` has two
+routes, chosen by ``mla_route``, a rule of shape and type: "tc" (the
+heads of a group on the tensor cores, TF32 split into high and low
+parts) and "fma" (the CUDA cores: fp32 pools and widths too small or
+ragged for the tiles).
 
 The plain versions are also the FLEXIBLE_DMA route, on every device:
 the dense view's round trip through HBM is that mode's memory
@@ -30,6 +34,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import attend_direct_offset, attend_mla_absorbed
+from repro_torch.kernels.sidebar_mlp import ROUTES
 
 Tensor = torch.Tensor
 
@@ -42,15 +47,23 @@ _ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
 # to GQA_MAX_HEAD_DIM
 SPLIT_POSITIONS = 64
 GQA_MAX_HEAD_DIM = 256
-# widths the MLA kernel takes (csrc/paged_mla.cu)
+# widths the MLA kernel takes on its fma route (csrc/paged_mla.cu)
 MLA_MAX_KVR = 512
 MLA_MAX_WIDTH = 640
-_MLA_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
-                 + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+# its tc route: 16 heads a block (the M of mma.sync m16n8k8), 8 warps
+# sharing the contraction (kvr + rope, a multiple of 64 up to 576) and
+# the latent columns (kvr, a multiple of 64 up to 512), one split of
+# MLA_TC_SPLIT positions staged at once
+MLA_TC_HEADS = 16
+MLA_TC_MAX_KVR = 512
+MLA_TC_MAX_WIDTH = 576
+MLA_TC_SPLIT = 64
+_MLA_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
+                 + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 
 
 def split_chunk(bs: int) -> int:
-    """Positions of one split of ``paged_gqa``'s kernel at pool block
+    """Positions of one split of the paged decode kernels at pool block
     size ``bs``: the fewest whole blocks that cover SPLIT_POSITIONS."""
     return bs * max(1, -(-SPLIT_POSITIONS // bs))
 
@@ -61,6 +74,22 @@ def split_bounds(length: int, bs: int) -> list[tuple[int, int]]:
     (never of the batch or the table width); a length-0 row has none."""
     c = split_chunk(bs)
     return [(s, min(s + c, length)) for s in range(0, max(length, 0), c)]
+
+
+def mla_route(kvr: int, rope: int, bs: int, pool_dtype: torch.dtype
+              ) -> str:
+    """The route of ``paged_mla``'s kernel, a pure function of widths and
+    the pool's type: "tc" for a bf16 pool whose kvr is a multiple of 64
+    up to MLA_TC_MAX_KVR, whose kvr + rope is a multiple of 64 up to
+    MLA_TC_MAX_WIDTH and whose splits are MLA_TC_SPLIT positions; "fma"
+    for everything else (fp32 pools, and widths such as the smoke
+    configs' kvr 32, rope 8)."""
+    w = kvr + rope
+    if (pool_dtype == torch.bfloat16 and kvr % 64 == 0
+            and 0 < kvr <= MLA_TC_MAX_KVR and w % 64 == 0
+            and w <= MLA_TC_MAX_WIDTH and split_chunk(bs) == MLA_TC_SPLIT):
+        return "tc"
+    return "fma"
 
 
 def gather_kv(leaf: Tensor, tables: Tensor) -> Tensor:
@@ -257,26 +286,40 @@ def paged_mla(
         raise ValueError("paged_mla: operands on different devices")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("paged_mla kernel takes contiguous operands")
-    # csrc/paged_mla.cu: a lane holds five float4 of the query and four
-    # of the accumulator, and pool rows stream as whole 16-byte vectors
+    # csrc/paged_mla.cu: pool rows and q_lat rows stream as whole 16-byte
+    # vectors; on the fma route a lane holds five float4 of the query and
+    # four of the accumulator
     vec = 16 // ckv_pool.element_size()
     if kvr > MLA_MAX_KVR or kvr + rope > MLA_MAX_WIDTH or kvr % vec \
             or rope % vec or ckv_pool.data_ptr() % 16 \
-            or krope_pool.data_ptr() % 16:
+            or krope_pool.data_ptr() % 16 or q_lat.data_ptr() % 16:
         raise ValueError(
             f"paged_mla kernel takes kvr <= {MLA_MAX_KVR}, kvr + rope <= "
             f"{MLA_MAX_WIDTH}, both multiples of {vec} and 16-byte aligned "
-            f"pools; got kvr {kvr}, rope {rope}")
+            f"pools and q_lat; got kvr {kvr}, rope {rope}")
+    # the tc route copies q_rope rows in bulk: a view that starts off a
+    # 16-byte boundary takes the fma route, which reads it by element
+    route = (mla_route(kvr, rope, ckv_pool.shape[1], ckv_pool.dtype)
+             if q_rope.data_ptr() % 16 == 0 else "fma")
     out = torch.empty((b, h, kvr), dtype=torch.float32, device=q_lat.device)
-    if b == 0 or h == 0:
-        return out
+    nb = tables.shape[1]
+    if b == 0 or h == 0 or nb == 0:
+        return out.zero_()
+    # the splits' partials (m, l and acc, fp32): S splits a row at most
+    bs = ckv_pool.shape[1]
+    chunk = split_chunk(bs)
+    splits = -(-nb * bs // chunk)
+    ws_acc = torch.empty((b * h * splits * kvr,), dtype=torch.float32,
+                         device=q_lat.device)
+    ws_ml = torch.empty((b * h * splits * 2,), dtype=torch.float32,
+                        device=q_lat.device)
     fn = build.entry("paged_mla", "paged_mla_launch", _MLA_ARGTYPES)
     stream = torch.cuda.current_stream(q_lat.device).cuda_stream
     err = fn(q_lat.data_ptr(), q_rope.data_ptr(), ckv_pool.data_ptr(),
              krope_pool.data_ptr(), tables.data_ptr(), lengths.data_ptr(),
-             out.data_ptr(), b, h, kvr, rope, ckv_pool.shape[1],
-             tables.shape[1], float(scale), _QTYPES[q_rope.dtype],
-             _QTYPES[ckv_pool.dtype], stream)
+             out.data_ptr(), ws_acc.data_ptr(), ws_ml.data_ptr(), b, h, kvr,
+             rope, bs, nb, chunk, float(scale), _QTYPES[q_rope.dtype],
+             _QTYPES[ckv_pool.dtype], ROUTES[route], stream)
     build.check(err, "paged_mla")
     build.launches["paged_mla"] += 1
     return out

@@ -851,8 +851,11 @@ def _mla_problem(seed, *, b, h, kvr, rope, bs, nb, lengths, device, dtype):
 def test_paged_mla_kernel_matches_plain(cuda, shape, dtype):
     """deepseek-v3's absorbed decode: smoke widths (4 heads, kvr 32,
     rope 8, block 8) and full ones (128 heads, kvr 512, rope 64, block
-    16, lengths up to 256). Both sides do fp32 math on the same values
-    (the kernel online, the plain version in two passes): 1e-4."""
+    16, lengths up to 256). Both sides do fp32-grade math on the same
+    values (the kernel split-KV, on the tc route in TF32 split into high
+    and low parts; the plain version in two passes): 1e-4. The full
+    widths take the tensor-core route with a bf16 pool, everything else
+    the FMA route."""
     from repro_torch.kernels import build
     from repro_torch.kernels import paged_attention as pa
 
@@ -862,6 +865,8 @@ def test_paged_mla_kernel_matches_plain(cuda, shape, dtype):
     else:
         dims = dict(b=4, h=128, kvr=512, rope=64, bs=16, nb=16,
                     lengths=[256, 241, 200, 129])
+    want = "tc" if shape == "full" and dtype == torch.bfloat16 else "fma"
+    assert pa.mla_route(dims["kvr"], dims["rope"], dims["bs"], dtype) == want
     ops = _mla_problem(17, device=cuda, dtype=dtype, **dims)
     scale = (dims["rope"] + 128) ** -0.5
     before = build.launches["paged_mla"]
@@ -871,6 +876,97 @@ def test_paged_mla_kernel_matches_plain(cuda, shape, dtype):
     torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
     assert build.launches["paged_mla"] == before + 1
     assert torch.equal(out, pa.paged_mla(*ops, scale=scale))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", ["smoke", "full"])
+def test_paged_mla_row_alone_equals_row_in_batch(cuda, shape):
+    """A row's output is a function of its own q, blocks and length: each
+    row served alone, on a table cut to its own blocks, gives the bits it
+    gets inside a batch with other lengths (bf16 pool: the fma route at
+    smoke widths, the tc route at full ones)."""
+    from repro_torch.kernels import paged_attention as pa
+
+    if shape == "smoke":
+        dims = dict(b=4, h=4, kvr=32, rope=8, bs=8, nb=12,
+                    lengths=[96, 70, 5, 64])
+    else:
+        dims = dict(b=4, h=128, kvr=512, rope=64, bs=16, nb=16,
+                    lengths=[256, 70, 5, 129])
+    ql, qr, ckv, kr, t, ln = _mla_problem(19, device=cuda,
+                                          dtype=torch.bfloat16, **dims)
+    scale = (dims["rope"] + 128) ** -0.5
+    batch = pa.paged_mla(ql, qr, ckv, kr, t, ln, scale=scale)
+    for r, length in enumerate(dims["lengths"]):
+        nb = -(-length // dims["bs"])
+        alone = pa.paged_mla(ql[r:r + 1].contiguous(),
+                             qr[r:r + 1].contiguous(), ckv, kr,
+                             t[r:r + 1, :nb].contiguous(),
+                             ln[r:r + 1].contiguous(), scale=scale)
+        assert torch.equal(alone[0], batch[r]), r
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", ["smoke", "full"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32_pool", "bf16_pool"])
+def test_paged_mla_length_0_row_gives_zeros(cuda, shape, dtype):
+    """A row of length 0 has no split: its output is 0 (the Pallas
+    kernel's l == 0 divides by 1); the other rows, among them one whose
+    second split is fully masked, stay within 1e-4 of the plain
+    version."""
+    from repro_torch.kernels import paged_attention as pa
+
+    if shape == "smoke":
+        dims = dict(b=4, h=4, kvr=32, rope=8, bs=8, nb=12,
+                    lengths=[0, 5, 64, 70])
+    else:
+        dims = dict(b=4, h=128, kvr=512, rope=64, bs=16, nb=16,
+                    lengths=[0, 5, 64, 200])
+    ops = _mla_problem(20, device=cuda, dtype=dtype, **dims)
+    scale = (dims["rope"] + 128) ** -0.5
+    out = pa.paged_mla(*ops, scale=scale)
+    ref = pa.paged_mla_reference(*ops, scale=scale)
+    assert not out[0].any()
+    torch.testing.assert_close(out[1:], ref[1:], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [4, 64])
+def test_flexible_dma_chain_has_no_race(cuda, m):
+    """FLEXIBLE_DMA's MLP is five programmatic dependent launches
+    (producer, its split reduce, the activation, consumer, its split
+    reduce): it gives the same bits with a ``torch.cuda.synchronize()``
+    between its wrapper calls as without, at full width (bf16, tc
+    route, K split on both products), and within 2e-2 of the plain
+    version. The buffers each call frees go straight back to the next
+    call, so a kernel that touched memory before its wait would show."""
+    from repro_torch.core.modes import ExecutionMode
+    from repro_torch.kernels import activations as ak
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import sidebar_matmul as smm
+
+    g = torch.Generator(device=cuda).manual_seed(m)
+    d, f = 6144, 24576
+    x = torch.randn(m, d, generator=g, device=cuda).bfloat16()
+    w1 = (torch.randn(d, f, generator=g, device=cuda) / d ** 0.5).bfloat16()
+    w2 = (torch.randn(f, d, generator=g, device=cuda) / f ** 0.5).bfloat16()
+    with ops.execution_plan(ExecutionMode.FLEXIBLE_DMA):
+        chained = [ops.sidebar_mlp(x, w1, w2, "squared_relu")
+                   for _ in range(3)]
+    h = smm.sidebar_matmul(x, w1)
+    torch.cuda.synchronize()
+    h = ak.activation(h, "squared_relu")
+    torch.cuda.synchronize()
+    synced = smm.sidebar_matmul(h, w2)
+    torch.cuda.synchronize()
+    for y in chained:
+        assert torch.equal(y, synced)
+    ref = smm.sidebar_matmul_plain(
+        ak.activation_plain(smm.sidebar_matmul_plain(x, w1), "squared_relu"),
+        w2)
+    torch.testing.assert_close(synced.float(), ref.float(), rtol=2e-2,
+                               atol=2e-2)
 
 
 @pytest.mark.gpu
