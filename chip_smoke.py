@@ -57,7 +57,12 @@ exits non-zero):
      ``PagedContinuousBatchingServer(kernel="paged")`` with the kernels
      on under the default SIDEBAR plan: 8 requests, half sharing a
      128-token prefix, 32 greedy tokens each; launch counts are reset
-     before and read after the run;
+     before and read after the run. Its segments run as captured CUDA
+     graphs (``launch.graphs``: captured once a key, replayed after), as
+     do those of phases 3, 5 and 6 (each row says ``captured`` and
+     counts ``captures`` and ``replays``; phase 7's MoE model syncs with
+     the host and runs eagerly, ``captured: false``); launch counts stay
+     exact through replays;
   5. the same weights and traffic under the paper's other execution
      modes — SIDEBAR_PIPELINED at depth 2, a per-layer plan of depths 2
      and 4, and FLEXIBLE_DMA — with exact launch counts per mode and a
@@ -90,7 +95,18 @@ exits non-zero):
      ``make_train_step`` steps at full width cut to 2 layers (two
      microbatches of 4096 tokens, remat, AdamW), with the kernels'
      refusal under autograd; (8c) ``Trainer`` at the fp32 smoke size:
-     checkpoint, resume, and the uninterrupted run's losses.
+     checkpoint, resume, and the uninterrupted run's losses;
+  9. on phase 2's weights: (9a) the static-batch ``Server`` on 4 prompts
+     of 128 tokens, 32 new: ``decode="scan"`` (one graph of the 31
+     steps) == ``"loop"`` bit for bit, greedy and sampled (temperature
+     0.9, top-k 50, top-p 0.95), temperature 0 and top-k 1 == greedy,
+     SIDEBAR_PIPELINED d2 == SIDEBAR, exact ``sidebar_mlp`` launches,
+     ms a decode step scan beside loop; (9b) the slot-cache
+     ``ContinuousBatchingServer`` on phase 2's traffic, every other
+     request sampled: captured == eager (``disable_capture()``) bit for
+     bit, compiles/hits, tokens/s, TTFT, peak memory; (9c) the paged
+     server on the same traffic, greedy and half sampled: captured ==
+     eager, tokens/s of both in the order E C C E.
 
 The line before the last holds the kernel table, the last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or of the JAX
@@ -1395,26 +1411,37 @@ def expected_launches(plan, cfg, decode: int, prefill: int) -> dict:
     return want
 
 
+def _programs(srv) -> dict:
+    """Whether ``srv`` runs captured graphs, and its programs' captures
+    and replays."""
+    progs = srv.programs()
+    return {"captured": srv.captured,
+            "captures": sum(p.captures for p in progs),
+            "replays": sum(p.replays for p in progs)}
+
+
 def serve(cfg, params, prompts, gen: int, *, phase: int, mode: str,
           plan=None, **kw) -> tuple[dict, list]:
     """Drive the paged server once under ``plan`` with fresh launch
-    counts; returns its JSON row and the generated tokens by rid."""
+    counts; returns its JSON row and the generated tokens by rid. Decode
+    calls are counted by the segments' steps (a replayed graph calls no
+    Python step), prefill calls by the staging rounds (eager)."""
     from repro_torch.kernels import ops as kops
     from repro_torch.launch.scheduler import PagedContinuousBatchingServer
 
     srv = PagedContinuousBatchingServer(cfg, params, plan=plan, **kw)
     calls = {"decode": 0, "prefill": 0}
-    step, pre = srv._serve_step, srv._prefill_step
+    seg, pre = srv._run_segment, srv._prefill_step
 
-    def counted_step(*a, **k):
-        calls["decode"] += 1
-        return step(*a, **k)
+    def counted_segment(steps, *a, **k):
+        calls["decode"] += steps
+        return seg(steps, *a, **k)
 
     def counted_prefill(*a, **k):
         calls["prefill"] += 1
         return pre(*a, **k)
 
-    srv._serve_step, srv._prefill_step = counted_step, counted_prefill
+    srv._run_segment, srv._prefill_step = counted_segment, counted_prefill
     recs: list = []
     torch.cuda.synchronize()
     kops.reset_launch_counts()
@@ -1425,6 +1452,9 @@ def serve(cfg, params, prompts, gen: int, *, phase: int, mode: str,
         done = srv.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    # the counting wrappers close over the server: unwrap, so it is freed
+    # with its graphs when the phase lets go of it
+    del srv._run_segment, srv._prefill_step
     counts = kops.launch_counts()
     ops = {r.op for r in recs}
     n_tok = sum(r.generated for r in done)
@@ -1433,6 +1463,7 @@ def serve(cfg, params, prompts, gen: int, *, phase: int, mode: str,
     L = cfg.num_layers
     want = expected_launches(srv.plan, cfg, calls["decode"],
                              calls["prefill"])
+    graphs = _programs(srv)
     row = {
         "phase": phase, "mode": mode, "arch": cfg.arch_id, "layers": L,
         "kv_cache_dtype": str(cfg.kv_cache_dtype).replace("torch.", ""),
@@ -1446,6 +1477,7 @@ def serve(cfg, params, prompts, gen: int, *, phase: int, mode: str,
         "launches": counts, "expected_launches": want,
         "gather_blocks": sum(r.op == "gather_blocks" for r in recs),
         "scatter_blocks": sum(r.op == "scatter_blocks" for r in recs),
+        **graphs,
     }
     emit(row)
     check(len(done) == len(prompts) and all(r.generated == gen
@@ -1456,6 +1488,12 @@ def serve(cfg, params, prompts, gen: int, *, phase: int, mode: str,
     check(st.prefix_block_hits > 0, f"phase {phase} {mode}: no prefix hits")
     check(counts == want, f"phase {phase} {mode}: launches {counts} != "
                           f"expected {want}")
+    # a model without a host sync runs its segments as graphs (captured
+    # once a key, replayed when the key recurs); the MoE model eagerly
+    check(graphs["captured"] == (not cfg.num_experts)
+          and (graphs["captures"] > 0) == graphs["captured"]
+          and (graphs["captured"] or graphs["replays"] == 0),
+          f"phase {phase} {mode}: capture {graphs}")
     check("gather_blocks" not in ops and "scatter_blocks" not in ops,
           f"phase {phase} {mode}: the paged route gathered or scattered "
           "blocks")
@@ -1594,27 +1632,35 @@ def plan_modes(cfg, params, sidebar_tokens: list) -> dict:
 
 
 def _capture(cfg, params, prompts, gen: int, **kw) -> tuple[list, list]:
-    """Serve ``prompts`` recording every decode step's logits; returns
-    (logits per step, tokens per request)."""
-    from repro_torch.launch.scheduler import PagedContinuousBatchingServer
+    """Serve ``prompts`` eagerly, recording every decode step's logits;
+    returns (logits per step, tokens per request)."""
+    from repro_torch.launch import graphs
+    from repro_torch.launch import scheduler
     from repro_torch.models import layers as L
 
-    srv = PagedContinuousBatchingServer(cfg, params, device="cuda",
-                                        num_slots=3, max_len=64,
-                                        block_size=8, segment=4, **kw)
     seen = []
 
-    def step(p, tok, cache, pos, block_tables=None):
-        logits, cache = srv.api.decode_step(p, cfg, tok, cache, pos,
+    def make_step(cfg, api):
+        def step(p, tok, cache, pos, sample=None, block_tables=None):
+            logits, cache = api.decode_step(p, cfg, tok, cache, pos,
                                             block_tables=block_tables)
-        logits = L.mask_pad_logits(logits, cfg.vocab_size)[:, -1]
-        seen.append(logits.clone())
-        return torch.argmax(logits, -1).to(torch.int32)[:, None], cache
+            logits = L.mask_pad_logits(logits, cfg.vocab_size)[:, -1]
+            seen.append(logits.clone())
+            return torch.argmax(logits, -1).to(torch.int32)[:, None], cache
+        return step
 
-    srv._serve_step = step
-    for p in prompts:
-        srv.submit(p, gen)
-    return seen, [r.tokens for r in srv.run()]
+    orig = scheduler.make_serve_step
+    scheduler.make_serve_step = make_step
+    try:
+        srv = scheduler.PagedContinuousBatchingServer(
+            cfg, params, device="cuda", num_slots=3, max_len=64,
+            block_size=8, segment=4, **kw)
+        with graphs.disable_capture():
+            for p in prompts:
+                srv.submit(p, gen)
+            return seen, [r.tokens for r in srv.run()]
+    finally:
+        scheduler.make_serve_step = orig
 
 
 def smoke_routes(arch: str) -> None:
@@ -1672,6 +1718,230 @@ def smoke_routes(arch: str) -> None:
             mlp = ["sidebar_mlp_pipelined", "sidebar_matmul", "activation"]
             check(any(counts[k] for k in mlp),
                   f"phase 4: {name} launched none of {mlp}")
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: sampling, the static-batch Server, the slot-cache server, and
+# captured segments against eager ones, on phase 2's weights
+# ---------------------------------------------------------------------------
+
+SP_KW = dict(temperature=0.9, top_k=50, top_p=0.95, seed=11)
+
+
+def _timed(fn) -> tuple[float, object]:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def loop_breakdown(run, steps: int, top: int = 10) -> dict:
+    """Device time a step of ``run`` (an eager decode of ``steps``
+    forward calls) by kernel name, from ``torch.profiler``: the ``top``
+    names, the rest, and the total; "not measured" when the profiler
+    saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    times = {}
+    for evt in prof.key_averages():
+        ms = getattr(evt, "device_time_total",
+                     getattr(evt, "cuda_time_total", 0)) / 1e3
+        if ms > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
+            times[evt.key] = times.get(evt.key, 0.0) + ms / steps
+    if not times:
+        return {"not measured": "the profiler saw no device time"}
+    names = sorted(times, key=times.get, reverse=True)
+    out = {name[:60]: times[name] for name in names[:top]}
+    out["(the rest)"] = sum(times[n] for n in names[top:])
+    out["(total)"] = sum(times.values())
+    return out
+
+
+def phase9_server(cfg, params) -> dict:
+    """9a: ``Server`` on 4 prompts of 128 seeded tokens, 32 new tokens,
+    max_len 1024. ``decode="scan"`` (a graph, replayed) == ``"loop"``
+    bit for bit, greedy and sampled; temperature 0 and top-k 1 ==
+    greedy; SIDEBAR_PIPELINED d2 == SIDEBAR; sampled != greedy; exact
+    ``sidebar_mlp`` launches; ms a decode step, scan beside loop (each
+    timed as generate(32) less generate(1), the prefill alone, in the
+    order L S S L, medians)."""
+    from repro_torch.core.modes import ExecutionMode, LayerPlan
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch.sampling import SamplingParams
+    from repro_torch.launch.serve import Server
+
+    sp = SamplingParams(**SP_KW)
+    srv = Server(cfg, params, max_len=1024, device="cuda")
+    prompts = np.random.RandomState(9).randint(0, cfg.vocab_size, (4, 128))
+
+    def gen(n=32, **kw):
+        return srv.generate(prompts, n, **kw).tokens.cpu().numpy()
+
+    out = {}
+    for name, sample in (("greedy", None), ("sampled", sp)):
+        first = gen(sample=sample, decode="scan")       # warm-up + capture
+        kops.reset_launch_counts()
+        scan = gen(sample=sample, decode="scan")        # replay
+        counts = kops.launch_counts()
+        loop = gen(sample=sample, decode="loop")
+        out[name] = scan
+        want = dict.fromkeys(KERNELS, 0)
+        want["sidebar_mlp"] = cfg.num_layers * 32       # prefill + 31 steps
+        check(np.array_equal(first, scan) and np.array_equal(scan, loop),
+              f"phase 9a {name}: scan {scan[:, 128:136].tolist()} != loop "
+              f"{loop[:, 128:136].tolist()}")
+        check(counts == want, f"phase 9a {name}: launches {counts} != "
+                              f"{want}")
+    t0 = gen(sample=SamplingParams(temperature=0.0, seed=3))
+    k1 = gen(sample=SamplingParams(temperature=0.9, top_k=1, seed=5))
+    check(np.array_equal(t0, out["greedy"]) and np.array_equal(
+        k1, out["greedy"]), "phase 9a: temperature 0 / top-k 1 != greedy")
+    check(not np.array_equal(out["sampled"], out["greedy"]),
+          "phase 9a: sampled tokens equal greedy everywhere")
+    d2 = Server(cfg, params, max_len=1024, device="cuda",
+                plan=LayerPlan(ExecutionMode.SIDEBAR_PIPELINED, 2))
+    pipe = [d2.generate(prompts, 32).tokens.cpu().numpy() for _ in range(2)]
+    check(all(np.array_equal(p, out["greedy"]) for p in pipe),
+          "phase 9a: SIDEBAR_PIPELINED d2 != SIDEBAR")
+    del d2
+    # ms a decode step: (generate(32) - generate(1)) / 31, L S S L x 2
+    times = {"scan": [], "loop": []}
+    for decode in ("loop", "scan", "scan", "loop") * 2:
+        full, _ = _timed(lambda: srv.generate(prompts, 32, decode=decode))
+        pre, _ = _timed(lambda: srv.generate(prompts, 1, decode=decode))
+        times[decode].append((full - pre) / 31 * 1e3)
+    prog = srv._decode_scans[(31, None)]
+    row = {"phase": 9, "part": "9a", "arch": cfg.arch_id,
+           "device_ms_per_step_by_kernel": loop_breakdown(
+               lambda: srv.generate(prompts, 32, decode="loop"), 32),
+           "layers": cfg.num_layers, "batch": 4, "prompt": 128, "gen": 32,
+           "scan_equals_loop": True, "greedy_equals_t0_and_top_k_1": True,
+           "pipelined_d2_equals_sidebar": True,
+           "sampled_differs_from_greedy": int(
+               (out["sampled"] != out["greedy"]).sum()),
+           "sidebar_mlp_launches": cfg.num_layers * 32,
+           "captured": srv.captured, "captures": prog.captures,
+           "replays": prog.replays, "order": "L S S L L S S L",
+           "step_ms_scan": times["scan"], "step_ms_loop": times["loop"],
+           "step_ms_scan_median": float(np.median(times["scan"])),
+           "step_ms_loop_median": float(np.median(times["loop"]))}
+    emit(row)
+    check(srv.captured and prog.captures >= 1 and prog.replays > 0,
+          f"phase 9a: the scan was not replayed ({prog.captures} "
+          f"captures, {prog.replays} replays)")
+    return row
+
+
+def _sampled_every_other(n: int) -> list:
+    from repro_torch.launch.sampling import SamplingParams
+
+    return [SamplingParams(**{**SP_KW, "seed": 100 + i}) if i % 2 else None
+            for i in range(n)]
+
+
+def _drain(srv, prompts, samples, gen: int = 32) -> tuple[float, list,
+                                                          list]:
+    """(wall s, tokens by rid, TTFTs) of one drain of ``srv``."""
+    def run():
+        for p, sp in zip(prompts, samples):
+            srv.submit(p, gen, sample=sp)
+        return srv.run()
+
+    wall, done = _timed(run)
+    return wall, [r.tokens for r in done], [r.ttft for r in done]
+
+
+def phase9_slots(cfg, params) -> dict:
+    """9b: the slot-cache server on phase 2's traffic (8 requests of
+    32-256 tokens, 32 new each, every other one sampled with its own
+    seed), 4 slots, segment 8: a captured drain (cold: the programs
+    captured), an eager one (``disable_capture()``) and a captured one
+    (warm: replays) on one server, bit for bit equal."""
+    from repro_torch.launch import graphs
+    from repro_torch.launch.scheduler import ContinuousBatchingServer
+
+    torch.cuda.reset_peak_memory_stats()
+    prompts = traffic(2, 8, cfg.vocab_size, shared=128, lo=32, hi=256)
+    samples = _sampled_every_other(len(prompts))
+    srv = ContinuousBatchingServer(cfg, params, device="cuda", num_slots=4,
+                                   max_len=1024, segment=8)
+    cold, tokens, ttft = _drain(srv, prompts, samples)
+    with graphs.disable_capture():
+        eager, e_tokens, e_ttft = _drain(srv, prompts, samples)
+    warm, w_tokens, w_ttft = _drain(srv, prompts, samples)
+    n = 32 * len(prompts)
+    same = all(np.array_equal(a, b) and np.array_equal(a, c)
+               for a, b, c in zip(tokens, e_tokens, w_tokens))
+    row = {"phase": 9, "part": "9b", "server": "slot cache",
+           "arch": cfg.arch_id, "layers": cfg.num_layers,
+           "requests": len(prompts), "generated": n,
+           "captured_equals_eager": same,
+           "tokens_per_s": {"captured_cold": n / cold, "eager": n / eager,
+                            "captured_warm": n / warm},
+           "ttft_s_median": {"captured_cold": float(np.median(ttft)),
+                             "eager": float(np.median(e_ttft)),
+                             "captured_warm": float(np.median(w_ttft))},
+           "ttft_s_max": {"captured_cold": float(np.max(ttft)),
+                          "eager": float(np.max(e_ttft)),
+                          "captured_warm": float(np.max(w_ttft))},
+           "compiles": srv.stats.compiles, "hits": srv.stats.hits,
+           **_programs(srv),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    emit(row)
+    check(same, "phase 9b: captured tokens != eager tokens")
+    check(row["captures"] > 0 and row["replays"] > 0,
+          f"phase 9b: capture {_programs(srv)}")
+    return row
+
+
+def phase9_paged(cfg, params) -> dict:
+    """9c: the paged server (phase 2's set-up) on phase 2's traffic,
+    greedy and half sampled: per traffic, one server's warm-up drain
+    (captured: its programs captured, its prompts published to the
+    prefix index), then eager and captured drains in the order E C C E,
+    all bit for bit equal. (Not to the warm-up: its staging prefilled
+    whole prompts, the later drains splice the published prefix blocks
+    and prefill the rest in other row counts, and on the card a product
+    rounds by its shape.)"""
+    from repro_torch.launch import graphs
+    from repro_torch.launch.scheduler import PagedContinuousBatchingServer
+
+    prompts = traffic(2, 8, cfg.vocab_size, shared=128, lo=32, hi=256)
+    out = {}
+    for name, samples in (("greedy", [None] * len(prompts)),
+                          ("half_sampled", _sampled_every_other(
+                              len(prompts)))):
+        srv = PagedContinuousBatchingServer(cfg, params, **FULL_SERVER)
+        _drain(srv, prompts, samples)
+        runs = {"eager": [], "captured": []}
+        want, same = None, True
+        for mode in ("eager", "captured", "captured", "eager"):
+            ctx = (graphs.disable_capture() if mode == "eager"
+                   else contextlib.nullcontext())
+            with ctx:
+                wall, got, _ = _drain(srv, prompts, samples)
+            runs[mode].append(32 * len(prompts) / wall)
+            want = got if want is None else want
+            same &= all(np.array_equal(a, b) for a, b in zip(got, want))
+        out[name] = {
+            "captured_equals_eager": same,
+            "tokens_per_s_eager": runs["eager"],
+            "tokens_per_s_captured": runs["captured"],
+            "tokens_per_s_eager_mean": float(np.mean(runs["eager"])),
+            "tokens_per_s_captured_mean": float(np.mean(runs["captured"])),
+            **_programs(srv)}
+        check(same, f"phase 9c {name}: captured tokens != eager tokens")
+        del srv
+    row = {"phase": 9, "part": "9c", "server": "paged", "arch": cfg.arch_id,
+           "layers": cfg.num_layers, "order": "warm-up, E C C E", **out}
+    emit(row)
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -1878,10 +2148,11 @@ def trainer_resume() -> dict:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8",
+    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9",
                     help="comma-separated subset of phases to run")
     ap.add_argument("--layers", type=int, default=None,
-                    help="cut the depth of the full-width phases 2 and 5")
+                    help="cut the depth of the full-width phases 2, 5 "
+                         "and 9")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
     if not torch.cuda.is_available():
@@ -1925,12 +2196,16 @@ def main() -> None:
         autograd_refusals()
     served = {}
     params = None
-    if phases & {2, 5}:
+    if phases & {2, 5, 9}:
         cfg, params, init_s = full_width_params(args.layers)
         row, tokens = full_width(2, cfg, params, init_s)
         served["sidebar"] = row
         if 5 in phases:
             served.update(plan_modes(cfg, params, tokens))
+        if 9 in phases:
+            phase9_server(cfg, params)
+            phase9_slots(cfg, params)
+            phase9_paged(cfg, params)
         if 8 not in phases or cfg.num_layers != D_LAYERS:
             params = None
             torch.cuda.empty_cache()

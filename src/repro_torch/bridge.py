@@ -19,6 +19,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
+
 
 def _tensor(a, device) -> torch.Tensor:
     a = np.asarray(a)
@@ -51,9 +53,11 @@ def _unstack(stacks: dict, device) -> list:
             for i in range(_depth(stacks[kind]))]
 
 
-def params_from_jax(params: dict, device="cpu") -> dict:
+def params_from_jax(params: dict, device=None) -> dict:
     """JAX transformer params (numpy leaves; dense and/or moe stacks) ->
-    the port's."""
+    the port's, on ``device`` (``cuda`` unless the caller asks for
+    another, as every entry point of the port)."""
+    device = resolve_device(device)
     unknown = set(params["blocks"]) - set(KINDS)
     if unknown:
         raise NotImplementedError(f"layer stacks {sorted(unknown)} are not "
@@ -65,9 +69,10 @@ def params_from_jax(params: dict, device="cpu") -> dict:
     }
 
 
-def cache_from_jax(cache: dict, device="cpu") -> list:
-    """JAX slab cache (numpy leaves) -> per-layer dicts in layer order."""
-    return _unstack(cache, device)
+def cache_from_jax(cache: dict, device=None) -> list:
+    """JAX slab cache (numpy leaves) -> per-layer dicts in layer order,
+    on ``device`` (``cuda`` unless asked otherwise)."""
+    return _unstack(cache, resolve_device(device))
 
 
 def cache_to_numpy(cache: list, kinds: list[str] | None = None) -> dict:

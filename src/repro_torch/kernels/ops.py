@@ -161,6 +161,14 @@ def _record(op: str, mode: ExecutionMode, depth: int, variant: str,
                                 used_kernel))
 
 
+def extend_dispatches(records: list) -> None:
+    """Append records made earlier (a captured graph's, at its replay) to
+    the ambient recorder, if any."""
+    rec = getattr(_PLAN_STATE, "recorder", None)
+    if rec is not None:
+        rec.extend(records)
+
+
 def record_dispatch(op: str, variant: str, used_kernel: bool = False) -> None:
     """Dispatch record for non-kernel hot-path ops (``kvpool``'s
     ``gather_blocks``/``scatter_blocks``)."""

@@ -240,19 +240,34 @@ class BlockAllocator:
 # ---------------------------------------------------------------------------
 
 
+def _probe(small: list, large: list, what: str) -> list[dict[str, int]]:
+    """Per layer and leaf, the one axis whose extent differs between two
+    cache-shape probes."""
+    def axis(a, b):
+        diff = [i for i, (x, y) in enumerate(zip(a[0], b[0])) if x != y]
+        if len(diff) != 1:
+            raise ValueError(f"cannot find the {what} axis of {a[0]}")
+        return diff[0]
+
+    return [{name: axis(ls[name], ll[name]) for name in ls}
+            for ls, ll in zip(small, large)]
+
+
 def length_axes(api, cfg) -> list[dict[str, int]]:
     """Each cache leaf's position (length) axis, per layer: the axis
     whose extent follows ``max_len`` in the model's cache shapes
     (``probe_length_axes`` of the JAX package)."""
-    def axis(a, b):
-        diff = [i for i, (x, y) in enumerate(zip(a[0], b[0])) if x != y]
-        if len(diff) != 1:
-            raise ValueError(f"cannot find the length axis of {a[0]}")
-        return diff[0]
+    return _probe(api.cache_shapes(cfg, 1, 16), api.cache_shapes(cfg, 1, 32),
+                  "length")
 
-    s16, s32 = api.cache_shapes(cfg, 1, 16), api.cache_shapes(cfg, 1, 32)
-    return [{name: axis(l16[name], l32[name]) for name in l16}
-            for l16, l32 in zip(s16, s32)]
+
+def probe_batch_axes(api, cfg, max_len: int) -> list[dict[str, int]]:
+    """Each cache leaf's batch (slot) axis, per layer: the axis whose
+    extent follows the batch in the model's cache shapes (batch 2 against
+    3, as the JAX package probes it) — where the slot-cache server
+    gathers and scatters a slot's row."""
+    return _probe(api.cache_shapes(cfg, 2, max_len),
+                  api.cache_shapes(cfg, 3, max_len), "batch")
 
 
 def _device(cache: list) -> torch.device:

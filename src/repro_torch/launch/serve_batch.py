@@ -1,0 +1,223 @@
+"""End-to-end serving driver of the port (mirror of
+``examples/serve_batch.py``), on the card unless ``--device cpu``.
+
+Static-batch mode: prefill once, then decode N tokens as one captured
+program (``--decode loop`` keeps one eager step a token).
+``--pipeline-depths 2,4`` builds a per-layer ``ExecutionPlan`` (layer i
+gets depth[i % len]).
+
+Continuous mode (``--continuous``): mixed-length traffic through the
+slot-cache scheduler (bucketed admission into freed slots between
+segments, one persistent slot cache); with ``--paged`` through the
+paged KV pool (block tables, prefix caching, chunked prefill-ahead).
+``--temperature``/``--top-k``/``--top-p`` sample (every other request in
+continuous mode). Weights are random, from seed 0, at the smoke size of
+``--arch``.
+
+Run: python -m repro_torch.launch.serve_batch --arch nemotron-4-15b \\
+         --batch 4 --prompt-len 32 --gen 16 \\
+         --execution-mode sidebar_pipelined --pipeline-depth 4
+     python -m repro_torch.launch.serve_batch --continuous --paged \\
+         --requests 8 --slots 4 --segment 8 --temperature 0.8
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from repro_torch import configs as cfglib
+from repro_torch.core.modes import ExecutionMode, ExecutionPlan, LayerPlan
+from repro_torch.device import resolve_device
+from repro_torch.launch.sampling import SamplingParams
+from repro_torch.launch.scheduler import (
+    ContinuousBatchingServer,
+    PagedContinuousBatchingServer,
+)
+from repro_torch.launch.serve import UNPORTED, Server
+from repro_torch.models.registry import get_model
+
+# flags of the JAX driver whose features are not ported
+_UNPORTED_FLAGS = {
+    "overload": UNPORTED["priority"], "faults": UNPORTED["faults"],
+    "rag": UNPORTED["rag"], "spec_k": UNPORTED["spec"],
+    "mesh": UNPORTED["mesh"],
+}
+
+
+def build_sampling(args) -> SamplingParams | None:
+    temperature = args.temperature
+    if temperature is None:
+        if args.top_k is None and args.top_p is None:
+            return None                 # no sampling flags: greedy
+        temperature = 1.0               # top-k/top-p imply sampling
+    return SamplingParams(temperature=temperature, top_k=args.top_k,
+                          top_p=args.top_p, seed=args.seed)
+
+
+def build_plan(args, cfg):
+    if args.pipeline_depths:
+        depths = [int(d) for d in args.pipeline_depths.split(",")]
+        return ExecutionPlan.by_index([
+            LayerPlan(ExecutionMode.SIDEBAR_PIPELINED,
+                      depth=depths[i % len(depths)])
+            for i in range(cfg.num_layers)])
+    return LayerPlan(ExecutionMode(args.execution_mode),
+                     depth=args.pipeline_depth)
+
+
+def run_static(args, cfg, params, plan, device) -> None:
+    sample = build_sampling(args)
+    server = Server(cfg, params, max_len=args.prompt_len + args.gen,
+                    plan=plan, device=device)
+    print(f"arch={cfg.arch_id}, batch={args.batch}, prompt="
+          f"{args.prompt_len}, gen={args.gen}, plan={plan}, decode="
+          f"{args.decode}, sample={sample}, device={device}, captured="
+          f"{server.captured and args.decode == 'scan'}")
+    prompts = np.random.RandomState(1).randint(
+        0, cfg.vocab_size, (args.batch, args.prompt_len))
+    # the first call builds (and, on the card, captures) the program;
+    # the timed one replays it
+    server.generate(prompts, args.gen, decode=args.decode, sample=sample)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    result = server.generate(prompts, args.gen, decode=args.decode,
+                             sample=sample)
+    tokens = result.tokens.cpu()
+    dt = time.perf_counter() - t0
+    total = args.batch * args.gen
+    print(f"generated {total} tokens in {dt:.3f}s ({total / dt:.1f} "
+          f"tokens/s on {device})")
+    print("sample continuation ids:",
+          tokens[0, args.prompt_len:args.prompt_len + 8].tolist())
+
+
+def run_continuous(args, cfg, params, plan, device) -> None:
+    sample = build_sampling(args)
+    max_len = args.prompt_len + args.gen
+    if args.paged:
+        bs = args.block_size            # must divide max_len: snap down
+        while max_len % bs:
+            bs -= 1
+        sched = PagedContinuousBatchingServer(
+            cfg, params, device=device, num_slots=args.slots,
+            max_len=max_len, block_size=bs, num_blocks=args.num_blocks,
+            prefill_chunk=args.prefill_chunk, segment=args.segment,
+            plan=plan, kernel=args.kernel)
+        kind = f"paged (block_size={bs}, kernel={args.kernel})"
+    else:
+        sched = ContinuousBatchingServer(
+            cfg, params, device=device, num_slots=args.slots,
+            max_len=max_len,
+            buckets=(args.prompt_len // 2, args.prompt_len),
+            segment=args.segment, plan=plan)
+        kind = "slot cache"
+    print(f"arch={cfg.arch_id} continuous [{kind}]: requests="
+          f"{args.requests}, slots={args.slots}, segment={args.segment}, "
+          f"plan={plan}, sample={sample}, device={device}, captured="
+          f"{sched.captured}")
+    rng = np.random.RandomState(0)
+    # paged traffic shares a prefix (the chat system-prompt shape), so
+    # prefix caching is exercised
+    prefix = rng.randint(0, cfg.vocab_size, size=args.prompt_len // 2)
+    useful = 0
+    for i in range(args.requests):
+        gen = int(rng.randint(1, args.gen))
+        useful += gen
+        if args.paged:
+            tail = int(rng.randint(2, max(3, args.prompt_len // 2)))
+            prompt = np.concatenate(
+                [prefix, rng.randint(0, cfg.vocab_size, size=tail)])
+        else:
+            prompt = rng.randint(0, cfg.vocab_size,
+                                 size=int(rng.randint(2, args.prompt_len)))
+        # every other request sampled: the mixed segment program
+        sched.submit(prompt, gen, sample=sample if i % 2 == 0 else None)
+    t0 = time.perf_counter()
+    done = sched.run()
+    dt = time.perf_counter() - t0
+    print(f"drained {len(done)} requests / {useful} tokens in {dt:.2f}s "
+          f"({useful / dt:.1f} tokens/s on {device}, cold)")
+    print(sched.stats.summary())
+    print("executables:", [k[:3] for k in sched.executable_cache_keys()])
+    if len(done) != args.requests:
+        raise RuntimeError(f"drain lost requests: {len(done)} != "
+                           f"{args.requests}")
+    if args.paged and args.requests >= 3 \
+            and sched.stats.prefix_block_hits == 0:
+        raise RuntimeError("shared-prefix traffic produced zero prefix "
+                           "hits")
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", default="deepseek-7b", choices=cfglib.ARCH_IDS)
+    ap.add_argument("--device", default=None,
+                    help="cuda (default) or cpu (the plain versions)")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--execution-mode", default="sidebar",
+                    choices=[ExecutionMode.SIDEBAR.value,
+                             ExecutionMode.SIDEBAR_PIPELINED.value])
+    ap.add_argument("--pipeline-depth", type=int, default=2,
+                    help="ring depth T for sidebar_pipelined (>= 1)")
+    ap.add_argument("--pipeline-depths", default=None,
+                    help="comma list of per-layer ring depths (layer i "
+                         "gets depths[i %% len])")
+    ap.add_argument("--decode", default="scan", choices=["scan", "loop"],
+                    help="scan: the N steps as one program (a CUDA graph "
+                         "on the card); loop: one eager step a token")
+    ap.add_argument("--continuous", action="store_true",
+                    help="mixed-length traffic through the slot-cache "
+                         "scheduler")
+    ap.add_argument("--paged", action="store_true",
+                    help="with --continuous: the paged KV pool")
+    ap.add_argument("--kernel", default="paged", choices=["paged", "slab"])
+    ap.add_argument("--use-pallas", action="store_true",
+                    help="the MLP through its Sidebar kernel (the plain "
+                         "version on the CPU)")
+    ap.add_argument("--block-size", type=int, default=8)
+    ap.add_argument("--num-blocks", type=int, default=None)
+    ap.add_argument("--prefill-chunk", type=int, default=None)
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--segment", type=int, default=8)
+    ap.add_argument("--temperature", type=float, default=None,
+                    help="sampled decoding (temperature 0 = exact greedy)")
+    ap.add_argument("--top-k", type=int, default=None)
+    ap.add_argument("--top-p", type=float, default=None)
+    ap.add_argument("--seed", type=int, default=0,
+                    help="sampling seed (same seed => same tokens)")
+    # the JAX driver's flags of features that are not ported: they raise
+    ap.add_argument("--overload", action="store_true")
+    ap.add_argument("--faults", default=None)
+    ap.add_argument("--rag", action="store_true")
+    ap.add_argument("--spec-k", type=int, default=0)
+    ap.add_argument("--mesh", default=None)
+    args = ap.parse_args(argv)
+    asked = [k for k in _UNPORTED_FLAGS if getattr(args, k)]
+    if asked:
+        raise NotImplementedError("not ported yet: " + "; ".join(
+            f"--{k.replace('_', '-')} ({_UNPORTED_FLAGS[k]})"
+            for k in asked))
+
+    device = resolve_device(args.device)
+    cfg = cfglib.get_smoke_config(args.arch)
+    if args.use_pallas:
+        cfg = dataclasses.replace(cfg, use_pallas=True)
+    plan = build_plan(args, cfg)
+    params = get_model(cfg).init(cfg, seed=0, device=device)
+    if args.continuous:
+        run_continuous(args, cfg, params, plan, device)
+    else:
+        run_static(args, cfg, params, plan, device)
+
+
+if __name__ == "__main__":
+    main()

@@ -32,9 +32,12 @@ card gives the same result run to run. The sum is rounded once to the
 activation type before the shared experts are added (the JAX package
 sums the experts' parts in that type).
 
+Which experts the tokens chose is copied to the host once a call (the
+experts run as host-indexed products), so a MoE model's steps cannot be
+captured in a CUDA graph (``launch.graphs``; ROADMAP Queue 1 item 2).
 Tensor parallelism (``tp.active()``) and the ``shard_map`` expert-
 parallel branch of the JAX module are not ported (ROADMAP Queue 1 item
-11).
+6).
 """
 
 from __future__ import annotations

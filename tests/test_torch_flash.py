@@ -137,8 +137,8 @@ def weights():
         cj, _ = _pair(arch)
         pj = jax.jit(lambda k, cj=cj: jget(cj).init(k, cj))(
             jax.random.PRNGKey(0))
-        out[arch] = (pj, bridge.params_from_jax(jax.tree.map(np.asarray,
-                                                              pj)))
+        out[arch] = (pj, bridge.params_from_jax(
+            jax.tree.map(np.asarray, pj), device="cpu"))
     return out
 
 

@@ -188,7 +188,8 @@ def _cfgs(variant):
 def weights():
     cj, _ = _cfgs("fp32")
     pj = jget(cj).init(jax.random.PRNGKey(0), cj)
-    return pj, bridge.params_from_jax(jax.tree.map(np.asarray, pj))
+    return pj, bridge.params_from_jax(jax.tree.map(np.asarray, pj),
+                                   device="cpu")
 
 
 def test_deepseek_config_mirrors_jax():

@@ -60,7 +60,9 @@ def test_scan_sees_the_whole_port():
             "models/attention.py", "kernels/flash_attention.py",
             "launch/train.py", "optim/optimizer.py", "optim/compression.py",
             "data/pipeline.py", "checkpoint/manager.py", "ft/watchdog.py",
-            "tree.py"} <= names
+            "tree.py", "launch/prng.py", "launch/sampling.py",
+            "launch/graphs.py", "launch/serve.py",
+            "launch/serve_batch.py"} <= names
 
 
 def test_import_needs_no_nvcc_no_triton_and_builds_nothing(tmp_path):
@@ -88,8 +90,12 @@ def test_import_needs_no_nvcc_no_triton_and_builds_nothing(tmp_path):
 
 
 def test_entry_points_default_to_cuda():
-    from repro_torch import configs, resolve_device
-    from repro_torch.launch.scheduler import PagedContinuousBatchingServer
+    from repro_torch import bridge, configs, resolve_device
+    from repro_torch.launch.scheduler import (
+        ContinuousBatchingServer,
+        PagedContinuousBatchingServer,
+    )
+    from repro_torch.launch.serve import Server
     from repro_torch.models import transformer as T
 
     assert resolve_device("cpu") == torch.device("cpu")
@@ -101,7 +107,12 @@ def test_entry_points_default_to_cuda():
                  lambda: T.init(cfg),
                  lambda: T.init_cache(cfg, 1, 8),
                  lambda: PagedContinuousBatchingServer(
-                     cfg, params, num_slots=1, max_len=16, block_size=8)):
+                     cfg, params, num_slots=1, max_len=16, block_size=8),
+                 lambda: ContinuousBatchingServer(cfg, params, num_slots=1,
+                                                  max_len=16),
+                 lambda: Server(cfg, params, max_len=16),
+                 lambda: bridge.params_from_jax({"blocks": {}}),
+                 lambda: bridge.cache_from_jax({})):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
 

@@ -272,7 +272,8 @@ def weights():
     cj = jcfg.get_smoke_config(ARCH)
     # one compiled init (the eager one dispatches leaf by leaf)
     pj = jax.jit(lambda key: jget(cj).init(key, cj))(jax.random.PRNGKey(0))
-    return pj, bridge.params_from_jax(jax.tree.map(np.asarray, pj))
+    return pj, bridge.params_from_jax(jax.tree.map(np.asarray, pj),
+                                   device="cpu")
 
 
 def test_params_from_jax_over_dense_and_moe_stacks(weights):
@@ -303,7 +304,7 @@ def test_cache_bridge_roundtrip_keeps_the_layer_plan():
     rng = np.random.RandomState(9)
     cache = jax.tree.map(lambda a: rng.randn(*a.shape).astype(a.dtype),
                          cache)
-    mine = bridge.cache_from_jax(cache)
+    mine = bridge.cache_from_jax(cache, device="cpu")
     assert [set(layer) for layer in mine] == [{"c_kv", "k_rope"}] * 3
     assert mine[0]["c_kv"].shape == (2, 16, 32)
     back = bridge.cache_to_numpy(mine, T.layer_kinds(ct))

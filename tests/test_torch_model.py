@@ -48,7 +48,8 @@ def _cfgs(variant):
 def weights():
     cj, _ = _cfgs("fp32")
     pj = jget(cj).init(jax.random.PRNGKey(0), cj)
-    return pj, bridge.params_from_jax(jax.tree.map(np.asarray, pj))
+    return pj, bridge.params_from_jax(jax.tree.map(np.asarray, pj),
+                                   device="cpu")
 
 
 def test_config_mirrors_jax():
@@ -145,7 +146,7 @@ def test_rowwise_decode_matches_jax(weights):
     lj, cj_out = api.decode_step(pj, cj, jnp.asarray(toks),
                                  jax.tree.map(jnp.asarray, cache_np),
                                  jnp.asarray(pos))
-    cache_t = bridge.cache_from_jax(cache_np)
+    cache_t = bridge.cache_from_jax(cache_np, device="cpu")
     lt, _ = T.decode_step(pt, ct, torch.from_numpy(toks), cache_t,
                           torch.from_numpy(pos))
     np.testing.assert_allclose(lt.numpy(), np.asarray(lj), **TOL)

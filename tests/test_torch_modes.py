@@ -380,7 +380,7 @@ def planned(request):
     ct = dataclasses.replace(tcfg.get_smoke_config("nemotron-4-15b"),
                              use_pallas=True, **WIDTHS[name])
     pj = jget(cj).init(jax.random.PRNGKey(0), cj)
-    pt = bridge.params_from_jax(jax.tree.map(np.asarray, pj))
+    pt = bridge.params_from_jax(jax.tree.map(np.asarray, pj), device="cpu")
     tmodes = importlib.import_module("repro_torch.core.modes")
     return name, cj, ct, pj, pt, PLANS[name](jmodes), PLANS[name](tmodes)
 

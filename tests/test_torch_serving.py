@@ -44,7 +44,7 @@ def models():
     cj = jcfg.get_smoke_config("nemotron-4-15b")
     ct = tcfg.get_smoke_config("nemotron-4-15b")
     pj = jget(cj).init(jax.random.PRNGKey(0), cj)
-    pt = bridge.params_from_jax(jax.tree.map(np.asarray, pj))
+    pt = bridge.params_from_jax(jax.tree.map(np.asarray, pj), device="cpu")
     return {
         "fp32": (cj, ct, pj, pt),
         "int8": (dataclasses.replace(cj, kv_cache_dtype=jnp.int8),
@@ -212,17 +212,20 @@ def test_unsupported_server_arguments_raise(kw, models):
 def test_submit_rejects_what_is_not_ported(models):
     _, ct, _, pt = models["fp32"]
     srv = PagedContinuousBatchingServer(ct, pt, **SERVER)
-    with pytest.raises(NotImplementedError, match="threefry"):
-        srv.submit([1, 2], 3, SamplingParams(temperature=0.7))
     with pytest.raises(NotImplementedError, match="priorit"):
         srv.submit([1, 2], 3, priority=1)
     with pytest.raises(ValueError, match="max_len"):
         srv.submit(np.arange(40), 10)
     rid = srv.submit([1, 2], 3, SamplingParams(temperature=0.0))
     greedy = srv.submit([1, 2], 3)
-    a, b = srv.run()
-    assert (a.rid, b.rid) == (rid, greedy)
+    # sampled decoding is ported: one seed, one stream, in any slot
+    hot = SamplingParams(temperature=0.7, seed=4)
+    s1 = srv.submit([1, 2], 3, hot)
+    s2 = srv.submit([1, 2], 3, hot)
+    a, b, c, d = srv.run()
+    assert (a.rid, b.rid, c.rid, d.rid) == (rid, greedy, s1, s2)
     np.testing.assert_array_equal(a.tokens, b.tokens)
+    np.testing.assert_array_equal(c.tokens, d.tokens)
 
 
 # ---------------------------------------------------------------------------

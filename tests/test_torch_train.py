@@ -81,7 +81,8 @@ def weights():
 
 
 def _port(pj):
-    return bridge.params_from_jax(jax.tree.map(np.asarray, pj))
+    return bridge.params_from_jax(jax.tree.map(np.asarray, pj),
+                                  device="cpu")
 
 
 def _batch(seed, b, s, vocab):
