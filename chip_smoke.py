@@ -16,7 +16,8 @@ exits non-zero):
      ragged lengths, duplicate table entries, scratch-padded tails,
      several activations and epilogues, the rowwise softmax and rmsnorm)
      and nemotron-4-15b, deepseek-7b and deepseek-v3-671b shapes in
-     bf16, fp and int8 KV (paged decode at group 6 and at group 1; MLA
+     bf16, fp and int8 KV (paged decode at group 6 and at group 1, and
+     at group 5 (bf16) and 16 (int8) for the configs of phases 10-12; MLA
      absorbed decode at 128 heads, kvr 512; flash attention at S = T =
      4096 with nemotron's 48 / 8 and deepseek-7b's 32 / 32 heads) —
      with the kernel's time,
@@ -44,25 +45,35 @@ exits non-zero):
      and 4096 rows, bitwise equal to the ring at depths 1-4 (it is the
      ring with one slot) and timed beside the ring at depth 1; the
      gated MLP at 4, 16 and 64 rows of deepseek-7b's and deepseek-v3's
-     widths with its route, clusters and D2 passes, equal to a second
-     run bit for bit; every case names its route ("tc": tensor cores,
-     "fma": CUDA cores); and the run-time activation
-     check: mish registered with a ``device_expr`` on a fresh function
-     table, through all five wrappers that take an activation, an entry
-     without one refused, and an expression that does not compute its
-     torch callable (``x * tanhf(x)`` for mish) refused before any
-     launch; and every CUDA wrapper's refusal of an operand that
-     requires grad (no kernel has a backward);
+     widths and at 16 and 64 rows of qwen3-14b's (5120 x 17408) and
+     llama3-405b's (16384 x 53248) with its route, clusters and D2
+     passes, equal to a second run bit for bit; every case names its
+     route ("tc": tensor cores, "fma": CUDA cores);
+     ``moe_grouped_mm`` (the MoE layers' expert products) at
+     llama4-scout's and deepseek-v3's widths at decode and in a staging
+     round, on the tensor-core route, each row alone equal to its row in
+     the batch, and fp32 / ragged bf16 on its FMA route; the routed
+     expert pass in its plain form (JAX's: every expert on its
+     top-capacity tokens, batched cuBLAS products) and its kernel form
+     at those widths at 4, 64 and 4096 tokens, both timed, agreeing to
+     1e-2; and the
+     run-time activation check: mish registered with a ``device_expr``
+     on a fresh function table, through all five wrappers that take an
+     activation, an entry without one refused, and an expression that
+     does not compute its torch callable (``x * tanhf(x)`` for mish)
+     refused before any launch; and every CUDA wrapper's refusal of an
+     operand that requires grad (no kernel has a backward);
   2. nemotron-4-15b at full width (bf16 weights from a seed) served by
      ``PagedContinuousBatchingServer(kernel="paged")`` with the kernels
      on under the default SIDEBAR plan: 8 requests, half sharing a
      128-token prefix, 32 greedy tokens each; launch counts are reset
      before and read after the run. Its segments run as captured CUDA
-     graphs (``launch.graphs``: captured once a key, replayed after), as
-     do those of phases 3, 5 and 6 (each row says ``captured`` and
-     counts ``captures`` and ``replays``; phase 7's MoE model syncs with
-     the host and runs eagerly, ``captured: false``); launch counts stay
-     exact through replays;
+     graphs (``launch.graphs``: captured once a key, replayed after),
+     as do those of every serving phase, and so does a staging key from
+     its ``stage_capture_after``-th round (each row says ``captured``
+     and counts ``captures``, ``replays`` and the capture's host
+     seconds, the staging rounds' apart: eager, captured, replayed);
+     launch counts stay exact through replays;
   5. the same weights and traffic under the paper's other execution
      modes — SIDEBAR_PIPELINED at depth 2, a per-layer plan of depths 2
      and 4, and FLEXIBLE_DMA — with exact launch counts per mode and a
@@ -70,11 +81,13 @@ exits non-zero):
      SIDEBAR's greedy tokens, all of them; every FLEXIBLE_DMA product
      takes ``sidebar_matmul``'s tensor-core route;
   3. the same widths with int8 KV (depth cut to 4 layers);
-  4. the fp32 smoke configs of nemotron-4-15b, deepseek-7b and
-     deepseek-v3-671b (no-drop capacity) on the card: ``kernel="paged"``
-     against ``kernel="slab"``, and the SIDEBAR_PIPELINED, FLEXIBLE_DMA
-     and a mixed per-layer plan against SIDEBAR, on the same traffic,
-     compared by tokens and logits;
+  4. the fp32 smoke configs of all six architectures (MoE at no-drop
+     capacity) on the card: ``kernel="paged"`` against
+     ``kernel="slab"``, and the SIDEBAR_PIPELINED, FLEXIBLE_DMA and a
+     mixed per-layer plan against SIDEBAR, on the same traffic, compared
+     by tokens and logits; and a warm drain (its prompts' prefix blocks
+     spliced) against the cold drain on one server: equal greedy tokens,
+     logits within 1e-4;
   6. deepseek-7b at full width (all 30 layers, bf16 weights from a
      seed) served like phase 2: every layer's MLP through the gated
      kernel, decode attention at group 1, exact launch counts, tokens/s,
@@ -85,8 +98,12 @@ exits non-zero):
      whole model does not fit one card), bf16 weights from a seed,
      served like phase 6 on phase 6's traffic: decode attention through
      ``paged_mla`` in place on the compressed pool, the dense layers'
-     MLP through the gated kernel, exact launch counts, no
-     ``gather_blocks``, tokens/s, TTFT and peak memory;
+     MLP through the gated kernel, the MoE layers' experts through the
+     grouped expert kernel with the routing on the card (captured), exact
+     launch counts, no ``gather_blocks``, tokens/s, TTFT and peak memory;
+     then on a fresh server a warm-up drain, an eager drain and a
+     captured one: the same greedy tokens bit for bit, each with exact
+     launch counts;
   8. the training path: (8a) ``forward`` and the loss of nemotron-4-15b
      at full width and depth (phase 2's 32-layer weights) on one
      4096-token sequence under ``no_grad``, with the kernels (exactly 32
@@ -105,8 +122,19 @@ exits non-zero):
      ``ContinuousBatchingServer`` on phase 2's traffic, every other
      request sampled: captured == eager (``disable_capture()``) bit for
      bit, compiles/hits, tokens/s, TTFT, peak memory; (9c) the paged
-     server on the same traffic, greedy and half sampled: captured ==
-     eager, tokens/s of both in the order E C C E.
+     server on the same traffic, greedy and half sampled, its staging
+     keys captured at their first round: captured == eager (staging
+     rounds replayed), tokens/s of both in the order
+     E C C E, and the count of tokens that differ from the cold
+     warm-up drain's;
+ 10. qwen3-14b (qk-norm, GQA group 5) at full width and depth (40
+     layers, ~28 GB of bf16 weights from a seed), served like phase 6;
+ 11. llama3-405b at full width with its int8 KV pool (GQA group 16),
+     depth cut from 126 to 8 layers (~55 GB), served like phase 6;
+ 12. llama4-scout-17b-a16e at full width (16 experts top-1 and one
+     shared expert in every layer), depth cut from 48 to 8 layers (~37
+     GB), served like phase 6 and then eager against captured like
+     phase 7.
 
 The line before the last holds the kernel table, the last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or of the JAX
@@ -142,9 +170,11 @@ SLEEP_CYCLES_PER_S = 1.98e9
 D_MODEL, D_FF, D_LAYERS = 6144, 24576, 32   # nemotron-4-15b
 DS_MODEL, DS_FF = 4096, 11008         # deepseek-7b
 V3_MODEL, V3_FF = 7168, 18432         # deepseek-v3-671b's dense layers
+QW_MODEL, QW_FF = 5120, 17408         # qwen3-14b
+L3_MODEL, L3_FF = 16384, 53248        # llama3-405b
 KERNELS = ("sidebar_mlp", "paged_gqa", "sidebar_mlp_pipelined",
            "sidebar_matmul", "activation", "sidebar_gated_mlp", "paged_mla",
-           "flash_attention")
+           "flash_attention", "moe_grouped_mm")
 # the run-time activation of phase 0's variant builds and phase 1's check,
 # and an expression that does not compute mish (refused by the check)
 MISH_EXPR = "x * tanhf(log1pf(expf(x)))"
@@ -420,7 +450,12 @@ def paged_ops(seed: int = 1) -> dict:
             ("nemotron-4-15b", 8, 6, torch.bfloat16),
             ("nemotron-4-15b", 8, 6, torch.int8),
             ("deepseek-7b", 32, 1, torch.bfloat16),
-            ("deepseek-7b", 32, 1, torch.int8)):
+            ("deepseek-7b", 32, 1, torch.int8),
+            # qwen3-14b and llama4-scout (40 / 8 heads: group 5, the
+            # 6-head tile with one head masked), llama3-405b (128 / 8:
+            # group 16, two 8-head tiles) with its int8 pool
+            ("qwen3-14b", 8, 5, torch.bfloat16),
+            ("llama3-405b", 8, 16, torch.int8)):
         probs, t, ln, scale = _pool_problem(
             g, b=4, hkv=hkv, group=group, dh=128, bs=16, nb=16,
             lengths=lengths, qdtype=torch.bfloat16, kvdtype=kvdt, copies=12)
@@ -463,7 +498,7 @@ def paged_ops(seed: int = 1) -> dict:
                "splits": [len(pa.split_bounds(n, 16)) for n in lengths],
                "max_abs_err": err, "max_rel_err": rel, "tol": 2e-2,
                "same_bits_second_run": same, "ms": ms,
-               "previous_ms": PREVIOUS_MS["paged_gqa"][(arch, kv_name)],
+               "previous_ms": PREVIOUS_MS["paged_gqa"].get((arch, kv_name)),
                "ms_over_bound": ms / b_ms, "plain_ms": plain_ms,
                "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
         emit(row)
@@ -881,13 +916,16 @@ def gated_ops(seed: int = 5) -> dict:
     # of h and the output; a second run gives the same bits
     silu = torch.nn.functional.silu
     main = None
-    for arch, d, f in (("deepseek-7b", DS_MODEL, DS_FF),
-                       ("deepseek-v3-671b", V3_MODEL, V3_FF)):
+    for arch, d, f, rows in (("deepseek-7b", DS_MODEL, DS_FF, (4, 16, 64)),
+                             ("deepseek-v3-671b", V3_MODEL, V3_FF,
+                              (4, 16, 64)),
+                             ("qwen3-14b", QW_MODEL, QW_FF, (16, 64)),
+                             ("llama3-405b", L3_MODEL, L3_FF, (16, 64))):
         wg, wu = ((torch.randn(d, f, generator=g, device=dev) / d ** 0.5
                    ).bfloat16() for _ in range(2))
         wd = (torch.randn(f, d, generator=g, device=dev) / f ** 0.5
               ).bfloat16()
-        for m in (4, 16, 64):
+        for m in rows:
             x = torch.randn(m, d, generator=g, device=dev).bfloat16()
             out = sg.sidebar_gated_mlp(x, wg, wu, wd, "silu")
             again = sg.sidebar_gated_mlp(x, wg, wu, wd, "silu")
@@ -921,8 +959,8 @@ def gated_ops(seed: int = 5) -> dict:
                                                  sg.gated_f_ranges(m, f)}),
                    "max_abs_err": err, "max_rel_err": rel, "tol": 2e-2,
                    "equal_to_second_run": True, "ms": ms,
-                   "previous_ms": PREVIOUS_MS["sidebar_gated_mlp"][arch]
-                   .get(m),
+                   "previous_ms": PREVIOUS_MS["sidebar_gated_mlp"].get(
+                       arch, {}).get(m),
                    "tb_per_s": nbytes / ms / 1e9, "ms_over_bound": ms / b_ms,
                    "plain_ms": cuda_ms(lambda: sg.sidebar_gated_mlp_plain(
                        x, wg, wu, wd, "silu")),
@@ -936,6 +974,156 @@ def gated_ops(seed: int = 5) -> dict:
         del wg, wu, wd, out, again, ref
         torch.cuda.empty_cache()
     return main
+
+
+# MoE layers at decode (4 rows) and in a staging round of four rows of
+# 16 tokens: (architecture, product, K, N, experts, top-k, tokens)
+MOE_CASES = (("llama4-scout-17b-a16e", "gate", 5120, 8192, 16, 1, 4),
+             ("llama4-scout-17b-a16e", "down", 8192, 5120, 16, 1, 4),
+             ("llama4-scout-17b-a16e", "gate", 5120, 8192, 16, 1, 64),
+             ("deepseek-v3-671b", "gate", 7168, 2048, 256, 8, 4),
+             ("deepseek-v3-671b", "down", 2048, 7168, 256, 8, 4),
+             ("deepseek-v3-671b", "gate", 7168, 2048, 256, 8, 64))
+
+
+def moe_ops(seed: int = 10) -> dict:
+    """moe_grouped_mm: the expert products of a MoE layer, each token's
+    k pairs grouped by expert as ``models/moe.py`` groups them (experts
+    drawn at random, so a decode step of 4 x 8 pairs chooses up to 32 of
+    256 experts), against the plain version; each row alone equal to its
+    row in the batch, and a second run's bits."""
+    from repro_torch.kernels import moe_experts as me
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dev = "cuda"
+    # fp32 and ragged bf16 smoke shapes: the fma route
+    worst = 0.0
+    for dtype, (n, k, nout, e) in ((torch.float32, (12, 64, 128, 4)),
+                                   (torch.float32, (40, 64, 64, 8)),
+                                   (torch.bfloat16, (12, 60, 36, 4))):
+        a = torch.randn(n, k, generator=g, device=dev).to(dtype)
+        w = (torch.randn(e, k, nout, generator=g, device=dev) / k ** 0.5
+             ).to(dtype)
+        off = torch.tensor(np.linspace(0, n - 2, e + 1).round(),
+                           dtype=torch.int32, device=dev)
+        out = me.grouped_mm(a, w, off)
+        torch.cuda.synchronize()
+        _, rel = row_rel_err(out[:n - 2], me.grouped_mm_plain(a, w, off)
+                             [:n - 2])
+        check(me.route(a, w) == "fma" and rel <= 1e-4
+              and not out[n - 2:].any(),
+              f"moe_grouped_mm {dtype} {n}x{k}x{nout}: rel {rel}")
+        worst = max(worst, rel)
+    emit({"phase": 1, "op": "moe_grouped_mm", "route": "fma",
+          "max_rel_err": worst, "tol": 1e-4})
+    main = None
+    weights = {}
+    for arch, prod, k, nout, e, top, t in MOE_CASES:
+        if (arch, prod) not in weights:
+            weights.clear()
+            torch.cuda.empty_cache()
+            weights[(arch, prod)] = (torch.randn(
+                e, k, nout, generator=g, device=dev) / k ** 0.5).bfloat16()
+        w = weights[(arch, prod)]
+        ids = torch.stack([torch.randperm(e, generator=g, device=dev)[:top]
+                           for _ in range(t)])
+        key = ids.reshape(-1)
+        counts = torch.bincount(key, minlength=e)
+        off = torch.cat([counts.new_zeros(1), counts.cumsum(0)]).int()
+        a = torch.randn(t * top, k, generator=g, device=dev).bfloat16()
+        out = me.grouped_mm(a, w, off)
+        again = me.grouped_mm(a, w, off)
+        torch.cuda.synchronize()
+        ref = me.grouped_mm_plain(a, w, off)
+        err, rel = row_rel_err(out, ref)
+        chosen = int((counts > 0).sum())
+        # row 0 (the first chosen expert's) alone, a group of one,
+        # against its row in the batch
+        e0 = int(key.min())
+        one = torch.tensor([0] * (e0 + 1) + [1] * (e - e0),
+                           dtype=torch.int32, device=dev)
+        alone = torch.equal(me.grouped_mm(a[:1].contiguous(), w, one)[0],
+                            out[0])
+        check(rel <= 1e-4 and torch.equal(out, again) and alone
+              and me.route(a, w) == "tc",
+              f"moe_grouped_mm {arch} {prod} t={t}: rel {rel}, "
+              f"alone {alone}")
+        n = t * top
+        nbytes = 2 * a.numel() + 2 * chosen * k * nout + 4 * n * nout \
+            + 4 * off.numel()
+        b_ms, b_by = bound(nbytes, 2 * n * k * nout, torch.bfloat16)
+        ms = cuda_ms(lambda: me.grouped_mm(a, w, off))
+        row = {"phase": 1, "op": "moe_grouped_mm", "arch": arch,
+               "product": prod, "dtype": "bfloat16", "route": "tc",
+               "tokens": t, "top_k": top, "rows": n, "k": k, "n": nout,
+               "experts": e, "experts_chosen": chosen,
+               "max_abs_err": err, "max_rel_err": rel, "tol": 1e-4,
+               "equal_to_second_run": True, "row_alone_equal": alone,
+               "ms": ms, "ms_over_bound": ms / b_ms,
+               "tb_per_s": nbytes / ms / 1e9,
+               "plain_ms": cuda_ms(lambda: me.grouped_mm_plain(a, w, off),
+                                   iters=3, warmup=1),
+               # no PyTorch call computes the fp32-out grouped product
+               # of bf16 operands; the nearest, with a bf16 output:
+               "library_ms": None,
+               "library_bf16_out_ms": cuda_ms(lambda: torch._grouped_mm(
+                   a, w, offs=off[1:])),
+               "bound_ms": b_ms, "bound_by": b_by}
+        emit(row)
+        if main is None:
+            main = row
+    weights.clear()
+    torch.cuda.empty_cache()
+    return main
+
+
+def moe_pass_ops(seed: int = 11) -> None:
+    """The routed expert pass of a MoE layer (``models/moe.py``) in its
+    two forms at llama4-scout's and deepseek-v3's widths, bf16 weights
+    from a seed: the plain form (JAX's: every expert on its top-``cap``
+    tokens, one batched cuBLAS product a weight, the config default and
+    the training route) against the kernel form (the kept pairs through
+    ``moe_grouped_mm``), at a decode step (4 tokens), a staging round of
+    four requests (64) and a training micro-batch (4096). The forms agree
+    to 1e-2 of the output's largest magnitude (bf16 rounds g*u and each
+    expert's output; the two products sum in different orders)."""
+    from repro_torch import configs
+    from repro_torch.models import moe
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    act = torch.nn.functional.silu
+    for arch in ("llama4-scout-17b-a16e", "deepseek-v3-671b"):
+        cfg = configs.get_config(arch)
+        d, f, e = cfg.d_model, cfg.moe_d_ff, cfg.num_experts
+        ws = [(torch.randn(e, k, n, generator=g, device="cuda") / k ** 0.5
+               ).bfloat16() for k, n in ((d, f), (d, f), (f, d))]
+        router = (torch.randn(d, e, generator=g, device="cuda")
+                  / d ** 0.5).bfloat16()
+        for t in (4, 64, 4096):
+            x = torch.randn(t, d, generator=g, device="cuda").bfloat16()
+            w, ids = moe._route(x, router, cfg)
+            forms = {}
+            for name, kernel in (("plain", False), ("kernel", True)):
+                c = dataclasses.replace(cfg, use_pallas=kernel)
+                forms[name] = (c, moe._local_expert_pass(x, w, ids, *ws, c,
+                                                         act))
+            want, got = forms["plain"][1], forms["kernel"][1]
+            err = float((got - want).abs().max() / want.abs().max())
+            row = {"phase": 1, "op": "moe_expert_pass", "arch": arch,
+                   "tokens": t, "top_k": cfg.experts_per_token,
+                   "experts": e, "capacity": moe._capacity(t, cfg),
+                   "experts_chosen": int(torch.unique(ids).numel()),
+                   "rel_err_kernel_vs_plain": err, "tol": 1e-2}
+            for name, (c, _) in forms.items():
+                row[f"{name}_ms"] = cuda_ms(
+                    lambda c=c: moe._local_expert_pass(x, w, ids, *ws, c,
+                                                       act),
+                    iters=5, warmup=1)
+            emit(row)
+            check(err <= 1e-2, f"moe expert pass {arch} t={t}: plain and "
+                               f"kernel forms differ by {err}")
+        del ws
+        torch.cuda.empty_cache()
 
 
 def _mla_problem(g, *, b, h, kvr, rope, bs, nb, lengths, dtype, copies=1):
@@ -1190,6 +1378,7 @@ def autograd_refusals() -> None:
     from repro_torch.kernels import activations as ak
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_experts as me
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import sidebar_gated_mlp as sg
     from repro_torch.kernels import sidebar_matmul as smm
@@ -1197,6 +1386,8 @@ def autograd_refusals() -> None:
 
     dev = "cuda"
     x = torch.randn(4, 64, device=dev, requires_grad=True)
+    experts = torch.randn(2, 64, 32, device=dev)
+    groups = torch.tensor([0, 1, 4], dtype=torch.int32, device=dev)
     w1, wu = torch.randn(64, 128, device=dev), torch.randn(64, 128, device=dev)
     w2 = torch.randn(128, 64, device=dev)
     probs, t, ln, scale = _pool_problem(
@@ -1224,6 +1415,7 @@ def autograd_refusals() -> None:
             scale=0.2),
         "flash_attention": lambda a: fa.flash_attention(
             fq.requires_grad_(a.requires_grad), fk, fk),
+        "moe_grouped_mm": lambda a: me.grouped_mm(a, experts, groups),
     }
     check(set(calls) == set(KERNELS), "autograd refusals: a wrapper is "
                                       "missing")
@@ -1382,8 +1574,9 @@ def expected_launches(plan, cfg, decode: int, prefill: int) -> dict:
     """Launches each kernel must count in a drain of ``cfg`` under
     ``plan``: per dense layer and forward call, one MLP launch of the
     plan's route (two products and one activation on the FLEXIBLE_DMA
-    route; the gated kernel under every plan for a gated MLP; a MoE
-    layer's experts are plain products, no kernel), and per layer and
+    route; the gated kernel under every plan for a gated MLP), per MoE
+    layer and forward call three grouped expert products (gate, up,
+    down; the shared experts are plain products), and per layer and
     decode call one paged decode launch (paged_mla for MLA, else
     paged_gqa) unless the layer is FLEXIBLE_DMA (gathered-view
     attention, no kernel)."""
@@ -1398,8 +1591,8 @@ def expected_launches(plan, cfg, decode: int, prefill: int) -> dict:
         if lp.mode is not M.FLEXIBLE_DMA:
             want[attn] += decode
         if kind == "moe":
-            continue
-        if cfg.gated_mlp:
+            want["moe_grouped_mm"] += 3 * calls
+        elif cfg.gated_mlp:
             want["sidebar_gated_mlp"] += calls
         elif lp.mode is M.FLEXIBLE_DMA:
             want["sidebar_matmul"] += 2 * calls
@@ -1417,44 +1610,69 @@ def _programs(srv) -> dict:
     progs = srv.programs()
     return {"captured": srv.captured,
             "captures": sum(p.captures for p in progs),
-            "replays": sum(p.replays for p in progs)}
+            "replays": sum(p.replays for p in progs),
+            "capture_s": sum(p.capture_s for p in progs)}
 
 
-def serve(cfg, params, prompts, gen: int, *, phase: int, mode: str,
-          plan=None, **kw) -> tuple[dict, list]:
-    """Drive the paged server once under ``plan`` with fresh launch
-    counts; returns its JSON row and the generated tokens by rid. Decode
-    calls are counted by the segments' steps (a replayed graph calls no
-    Python step), prefill calls by the staging rounds (eager)."""
-    from repro_torch.kernels import ops as kops
-    from repro_torch.launch.scheduler import PagedContinuousBatchingServer
-
-    srv = PagedContinuousBatchingServer(cfg, params, plan=plan, **kw)
-    calls = {"decode": 0, "prefill": 0}
-    seg, pre = srv._run_segment, srv._prefill_step
+@contextlib.contextmanager
+def counted_calls(srv):
+    """Count ``srv``'s forward calls in the block: decode calls by the
+    segments' steps, prefill calls by the staging rounds (a replayed
+    graph calls no Python step, so both are counted where the server
+    dispatches them). Yields the counts; unwraps after, so the server is
+    freed with its graphs when its phase lets go of it."""
+    calls = {"decode": 0, "prefill": 0, "stage_s": 0.0}
+    seg, stage = srv._run_segment, srv._stage_round
 
     def counted_segment(steps, *a, **k):
         calls["decode"] += steps
         return seg(steps, *a, **k)
 
-    def counted_prefill(*a, **k):
+    def counted_stage(*a, **k):
         calls["prefill"] += 1
-        return pre(*a, **k)
+        t0 = time.perf_counter()
+        try:
+            return stage(*a, **k)
+        finally:
+            calls["stage_s"] += time.perf_counter() - t0
 
-    srv._run_segment, srv._prefill_step = counted_segment, counted_prefill
+    srv._run_segment, srv._stage_round = counted_segment, counted_stage
+    try:
+        yield calls
+    finally:
+        del srv._run_segment, srv._stage_round
+
+
+def stage_programs(srv) -> dict:
+    """Eager rounds, captures and replays of ``srv``'s staging-round
+    programs, and the host seconds their captures took."""
+    progs = [p for k, p in srv._exec.items() if k[0] == "stage"]
+    return {"stage_keys": len(progs),
+            "stage_capture_after": srv.stage_capture_after,
+            "stage_eager_rounds": sum(p.eager_calls for p in progs),
+            "stage_captures": sum(p.captures for p in progs),
+            "stage_replays": sum(p.replays for p in progs),
+            "stage_capture_s": sum(p.capture_s for p in progs)}
+
+
+def serve(cfg, params, prompts, gen: int, *, phase: int, mode: str,
+          plan=None, **kw) -> tuple[dict, list]:
+    """Drive the paged server once under ``plan`` with fresh launch
+    counts; returns its JSON row and the generated tokens by rid."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch.scheduler import PagedContinuousBatchingServer
+
+    srv = PagedContinuousBatchingServer(cfg, params, plan=plan, **kw)
     recs: list = []
     torch.cuda.synchronize()
     kops.reset_launch_counts()
     t0 = time.perf_counter()
-    with kops.record_dispatches(recs):
+    with counted_calls(srv) as calls, kops.record_dispatches(recs):
         for p in prompts:
             srv.submit(p, gen)
         done = srv.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    # the counting wrappers close over the server: unwrap, so it is freed
-    # with its graphs when the phase lets go of it
-    del srv._run_segment, srv._prefill_step
     counts = kops.launch_counts()
     ops = {r.op for r in recs}
     n_tok = sum(r.generated for r in done)
@@ -1474,10 +1692,14 @@ def serve(cfg, params, prompts, gen: int, *, phase: int, mode: str,
         "prefix_block_hits": st.prefix_block_hits,
         "prefix_prompt_blocks": st.prefix_prompt_blocks,
         "decode_calls": calls["decode"], "prefill_calls": calls["prefill"],
+        "stage_round_host_s": calls["stage_s"],
         "launches": counts, "expected_launches": want,
         "gather_blocks": sum(r.op == "gather_blocks" for r in recs),
         "scatter_blocks": sum(r.op == "scatter_blocks" for r in recs),
-        **graphs,
+        # the DMA route's products, by the route each launched
+        "sidebar_matmul_routes": dict(collections.Counter(
+            rt for r in recs for rt in r.routes)),
+        **graphs, **stage_programs(srv),
     }
     emit(row)
     check(len(done) == len(prompts) and all(r.generated == gen
@@ -1488,12 +1710,15 @@ def serve(cfg, params, prompts, gen: int, *, phase: int, mode: str,
     check(st.prefix_block_hits > 0, f"phase {phase} {mode}: no prefix hits")
     check(counts == want, f"phase {phase} {mode}: launches {counts} != "
                           f"expected {want}")
-    # a model without a host sync runs its segments as graphs (captured
-    # once a key, replayed when the key recurs); the MoE model eagerly
-    check(graphs["captured"] == (not cfg.num_experts)
-          and (graphs["captures"] > 0) == graphs["captured"]
-          and (graphs["captured"] or graphs["replays"] == 0),
+    # every model runs its segments as graphs (captured once a key,
+    # replayed when the key recurs); a staging key runs eagerly until its
+    # round ``stage_capture_after``, then as a graph
+    check(graphs["captured"] and graphs["captures"] > 0,
           f"phase {phase} {mode}: capture {graphs}")
+    check(row["stage_eager_rounds"] + row["stage_replays"]
+          == calls["prefill"],
+          f"phase {phase} {mode}: staging rounds {stage_programs(srv)} "
+          f"!= {calls['prefill']} prefill calls")
     check("gather_blocks" not in ops and "scatter_blocks" not in ops,
           f"phase {phase} {mode}: the paged route gathered or scattered "
           "blocks")
@@ -1526,6 +1751,12 @@ FULL_SERVER = dict(device="cuda", num_slots=4, block_size=16, max_len=1024,
                    segment=8, kernel="paged")
 
 
+# the servers that hold captured against eager on one warm server
+# (phases 7, 9c, 12): every staging key captured at its first round, so
+# the captured drains replay staging rounds too
+WARM_SERVER = {**FULL_SERVER, "stage_capture_after": 1}
+
+
 def full_width(phase: int, cfg, params, init_s: float,
                seed: int | None = None) -> tuple[dict, list]:
     """The full-width traffic mix (8 requests of 32-256 tokens, every
@@ -1547,24 +1778,48 @@ def full_width(phase: int, cfg, params, init_s: float,
     return row, tokens
 
 
-@contextlib.contextmanager
-def count_matmul_routes(into: collections.Counter):
-    """Count the route of every ``sidebar_matmul`` launch in the block
-    (its wrapper asks ``operand_route`` once a launch)."""
-    from repro_torch.kernels import sidebar_matmul as smm
+def eager_then_captured(phase: int, cfg, params, seed: int) -> dict:
+    """A fresh paged server (``FULL_SERVER``) on the full-width traffic
+    of ``seed``: a warm-up drain (captured: its graphs captured, its
+    prompts published), then an eager drain (``disable_capture()``) and
+    a captured one, greedy: the same tokens bit for bit, and each drain
+    with exact launch counts for the forward calls it made."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import graphs
+    from repro_torch.launch.scheduler import PagedContinuousBatchingServer
 
-    orig = smm.operand_route
-
-    def counted(a, b):
-        r = orig(a, b)
-        into[r] += 1
-        return r
-
-    smm.operand_route = counted
-    try:
-        yield into
-    finally:
-        smm.operand_route = orig
+    prompts = traffic(seed, 8, cfg.vocab_size, shared=128, lo=32, hi=256)
+    greedy = [None] * len(prompts)
+    srv = PagedContinuousBatchingServer(cfg, params, **WARM_SERVER)
+    _drain(srv, prompts, greedy)
+    out = {}
+    for mode in ("eager", "captured"):
+        ctx = (graphs.disable_capture() if mode == "eager"
+               else contextlib.nullcontext())
+        kops.reset_launch_counts()
+        with ctx, counted_calls(srv) as calls:
+            wall, toks, ttft = _drain(srv, prompts, greedy)
+        counts = kops.launch_counts()
+        want = expected_launches(srv.plan, cfg, calls["decode"],
+                                 calls["prefill"])
+        check(counts == want, f"phase {phase} {mode}: launches {counts} "
+                              f"!= expected {want}")
+        out[mode] = {"tokens": toks, "tokens_per_s": 32 * len(prompts)
+                     / wall, "ttft_s_median": float(np.median(ttft)),
+                     "launches": counts, **calls}
+    same = all(np.array_equal(a, b) for a, b in zip(
+        out["eager"].pop("tokens"), out["captured"].pop("tokens")))
+    row = {"phase": phase, "part": "eager_then_captured",
+           "arch": cfg.arch_id, "layers": cfg.num_layers,
+           "order": "warm-up, E C", "captured_equals_eager": same,
+           "eager_drain": out["eager"], "captured_drain": out["captured"],
+           **_programs(srv), **stage_programs(srv)}
+    emit(row)
+    check(same, f"phase {phase}: captured tokens != eager tokens")
+    check(row["captured"] and row["replays"] > 0
+          and row["stage_replays"] > 0,
+          f"phase {phase}: capture {_programs(srv)} {stage_programs(srv)}")
+    return row
 
 
 def plan_modes(cfg, params, sidebar_tokens: list) -> dict:
@@ -1595,14 +1850,12 @@ def plan_modes(cfg, params, sidebar_tokens: list) -> dict:
     n = sum(t.size for t in sidebar_tokens)
     runs = {mode: [] for mode in plans}
     for mode in [*plans, *reversed(plans)]:
-        routes = collections.Counter()
-        with count_matmul_routes(routes):
-            row, tokens = serve(cfg, params, prompts, 32, phase=5,
-                                mode=mode, plan=plans[mode], **FULL_SERVER)
+        row, tokens = serve(cfg, params, prompts, 32, phase=5,
+                            mode=mode, plan=plans[mode], **FULL_SERVER)
+        routes = row["sidebar_matmul_routes"]
         check(sum(routes.values()) == row["launches"]["sidebar_matmul"]
-              and routes["fma"] == 0,
-              f"phase 5 {mode}: sidebar_matmul routes {dict(routes)}")
-        row["sidebar_matmul_routes"] = dict(routes)
+              and "fma" not in routes,
+              f"phase 5 {mode}: sidebar_matmul routes {routes}")
         same = sum(int((a == b).sum())
                    for a, b in zip(tokens, sidebar_tokens))
         runs[mode].append((row, same))
@@ -1631,9 +1884,12 @@ def plan_modes(cfg, params, sidebar_tokens: list) -> dict:
     return {mode: rr[0][0] for mode, rr in runs.items() if mode != "sidebar"}
 
 
-def _capture(cfg, params, prompts, gen: int, **kw) -> tuple[list, list]:
-    """Serve ``prompts`` eagerly, recording every decode step's logits;
-    returns (logits per step, tokens per request)."""
+def _capture(cfg, params, prompts, gen: int, drains: int = 1, **kw
+             ) -> list[tuple[list, list, int]]:
+    """Serve ``prompts`` eagerly ``drains`` times on one server (the
+    later drains warm: the prompts published by the first), recording
+    every decode step's logits; returns (logits per step, tokens per
+    request, prefix blocks spliced) of each drain."""
     from repro_torch.launch import graphs
     from repro_torch.launch import scheduler
     from repro_torch.models import layers as L
@@ -1653,12 +1909,19 @@ def _capture(cfg, params, prompts, gen: int, **kw) -> tuple[list, list]:
     scheduler.make_serve_step = make_step
     try:
         srv = scheduler.PagedContinuousBatchingServer(
-            cfg, params, device="cuda", num_slots=3, max_len=64,
-            block_size=8, segment=4, **kw)
+            cfg, params, device="cuda", **{
+                "num_slots": 3, "max_len": 64, "block_size": 8,
+                "segment": 4, **kw})
+        out = []
         with graphs.disable_capture():
-            for p in prompts:
-                srv.submit(p, gen)
-            return seen, [r.tokens for r in srv.run()]
+            for _ in range(drains):
+                seen = []
+                hits = srv.stats.prefix_block_hits
+                for p in prompts:
+                    srv.submit(p, gen)
+                toks = [r.tokens for r in srv.run()]
+                out.append((seen, toks, srv.stats.prefix_block_hits - hits))
+        return out
     finally:
         scheduler.make_serve_step = orig
 
@@ -1685,7 +1948,7 @@ def smoke_routes(arch: str) -> None:
                                   capacity_factor=float(cfg.num_experts))
     params = transformer.init(cfg, seed=0, device="cuda")
     prompts = traffic(4, 6, cfg.vocab_size, shared=16, lo=4, hi=30)
-    la, ta = _capture(cfg, params, prompts, 12, kernel="paged")
+    ((la, ta, _),) = _capture(cfg, params, prompts, 12, kernel="paged")
     mixed = ExecutionPlan(
         default=LayerPlan(ExecutionMode.SIDEBAR, 1),
         layers={0: LayerPlan(ExecutionMode.FLEXIBLE_DMA, 1),
@@ -1696,7 +1959,7 @@ def smoke_routes(arch: str) -> None:
                      ("flexible_dma", dict(plan=ExecutionMode.FLEXIBLE_DMA)),
                      ("mixed_dma_pipelined_d3", dict(plan=mixed))):
         kops.reset_launch_counts()
-        lb, tb = _capture(cfg, params, prompts, 12, **kw)
+        ((lb, tb, _),) = _capture(cfg, params, prompts, 12, **kw)
         counts = kops.launch_counts()
         same = all(np.array_equal(a, b) for a, b in zip(ta, tb))
         err = max((a - b).abs().max().item() for a, b in zip(la, lb)) \
@@ -1709,7 +1972,11 @@ def smoke_routes(arch: str) -> None:
               "SIDEBAR route")
         attn = "paged_mla" if cfg.use_mla else "paged_gqa"
         if cfg.gated_mlp:
-            check(counts["sidebar_gated_mlp"] > 0
+            # the gated kernel on dense layers, the grouped expert
+            # product on MoE layers (llama4-scout has no dense layer)
+            mlp = counts["sidebar_gated_mlp"] + counts["moe_grouped_mm"]
+            check(mlp > 0 and (counts["moe_grouped_mm"] > 0)
+                  == bool(cfg.num_experts)
                   and (counts[attn] > 0) == (
                       name in ("sidebar_pipelined_d2",
                                "mixed_dma_pipelined_d3")),
@@ -1718,6 +1985,27 @@ def smoke_routes(arch: str) -> None:
             mlp = ["sidebar_mlp_pipelined", "sidebar_matmul", "activation"]
             check(any(counts[k] for k in mlp),
                   f"phase 4: {name} launched none of {mlp}")
+    warm_vs_cold(cfg, params, prompts)
+
+
+def warm_vs_cold(cfg, params, prompts) -> None:
+    """Phase 4, ROADMAP Queue 3 item 4: a cold drain, then a warm drain
+    on the same server (its prompts' prefix blocks spliced from the
+    first), one slot a request so both drains decode in one schedule:
+    equal greedy tokens, and every decode step's logits within 1e-4 (the
+    warm drain prefills other row counts, and on the card a product
+    rounds by its shape)."""
+    (lc, tc, hc), (lw, tw, hw) = _capture(cfg, params, prompts, 12,
+                                          drains=2, num_slots=len(prompts))
+    same = all(np.array_equal(a, b) for a, b in zip(tc, tw))
+    err = max((a - b).abs().max().item() for a, b in zip(lc, lw)) \
+        if same and len(lc) == len(lw) else float("nan")
+    emit({"phase": 4, "arch": cfg.arch_id, "against": "cold drain",
+          "route": "warm drain", "tokens_equal": same, "steps": len(lw),
+          "prefix_blocks_spliced": {"cold": hc, "warm": hw},
+          "max_abs_logit_err": err, "tol": 1e-4})
+    check(hw > hc and same and len(lc) == len(lw) and err <= 1e-4,
+          f"phase 4: {cfg.arch_id} warm drain disagrees with the cold one")
 
 
 # ---------------------------------------------------------------------------
@@ -1905,10 +2193,12 @@ def phase9_paged(cfg, params) -> dict:
     greedy and half sampled: per traffic, one server's warm-up drain
     (captured: its programs captured, its prompts published to the
     prefix index), then eager and captured drains in the order E C C E,
-    all bit for bit equal. (Not to the warm-up: its staging prefilled
-    whole prompts, the later drains splice the published prefix blocks
-    and prefill the rest in other row counts, and on the card a product
-    rounds by its shape.)"""
+    all bit for bit equal, staging rounds included (eager in E, replayed
+    graphs in C). (Not to the warm-up: its staging prefilled whole
+    prompts, the later drains splice the published prefix blocks and
+    prefill the rest in other row counts, and on the card a product
+    rounds by its shape; the row counts the tokens that differ from the
+    warm-up's, ROADMAP Queue 3 item 4.)"""
     from repro_torch.launch import graphs
     from repro_torch.launch.scheduler import PagedContinuousBatchingServer
 
@@ -1917,8 +2207,8 @@ def phase9_paged(cfg, params) -> dict:
     for name, samples in (("greedy", [None] * len(prompts)),
                           ("half_sampled", _sampled_every_other(
                               len(prompts)))):
-        srv = PagedContinuousBatchingServer(cfg, params, **FULL_SERVER)
-        _drain(srv, prompts, samples)
+        srv = PagedContinuousBatchingServer(cfg, params, **WARM_SERVER)
+        _, cold, _ = _drain(srv, prompts, samples)
         runs = {"eager": [], "captured": []}
         want, same = None, True
         for mode in ("eager", "captured", "captured", "eager"):
@@ -1931,12 +2221,20 @@ def phase9_paged(cfg, params) -> dict:
             same &= all(np.array_equal(a, b) for a, b in zip(got, want))
         out[name] = {
             "captured_equals_eager": same,
+            # ROADMAP Queue 3 item 4: the warm drains' tokens against the
+            # cold warm-up's (recorded, not gated)
+            "tokens_unequal_to_cold_drain": int(sum(
+                (a != b).sum() for a, b in zip(cold, want))),
+            "tokens": 32 * len(prompts),
             "tokens_per_s_eager": runs["eager"],
             "tokens_per_s_captured": runs["captured"],
             "tokens_per_s_eager_mean": float(np.mean(runs["eager"])),
             "tokens_per_s_captured_mean": float(np.mean(runs["captured"])),
-            **_programs(srv)}
+            **_programs(srv), **stage_programs(srv)}
         check(same, f"phase 9c {name}: captured tokens != eager tokens")
+        check(out[name]["stage_replays"] > 0,
+              f"phase 9c {name}: no staging round replayed "
+              f"{stage_programs(srv)}")
         del srv
     row = {"phase": 9, "part": "9c", "server": "paged", "arch": cfg.arch_id,
            "layers": cfg.num_layers, "order": "warm-up, E C C E", **out}
@@ -2148,12 +2446,17 @@ def trainer_resume() -> dict:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9",
+    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,10,11,12",
                     help="comma-separated subset of phases to run")
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the depth of the full-width phases 2, 5 "
                          "and 9")
+    ap.add_argument("--stage-capture-after", type=int, default=None,
+                    help="the paged servers' stage_capture_after (default: "
+                         "the server's own)")
     args = ap.parse_args()
+    if args.stage_capture_after is not None:
+        FULL_SERVER["stage_capture_after"] = args.stage_capture_after
     phases = {int(p) for p in args.phases.split(",")}
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2192,6 +2495,8 @@ def main() -> None:
         rows["sidebar_gated_mlp"] = gated_ops()
         rows["paged_mla"] = mla_ops()
         rows["flash_attention"] = flash_ops()
+        rows["moe_grouped_mm"] = moe_ops()
+        moe_pass_ops()
         user_activation_ops()
         autograd_refusals()
     served = {}
@@ -2224,9 +2529,9 @@ def main() -> None:
         del params
         torch.cuda.empty_cache()
     if 4 in phases:
-        smoke_routes("nemotron-4-15b")
-        smoke_routes("deepseek-7b")
-        smoke_routes("deepseek-v3-671b")
+        for arch in ("nemotron-4-15b", "deepseek-7b", "deepseek-v3-671b",
+                     "qwen3-14b", "llama3-405b", "llama4-scout-17b-a16e"):
+            smoke_routes(arch)
     if 6 in phases:
         torch.cuda.reset_peak_memory_stats()
         cfg, params, init_s = full_width_params(None, arch="deepseek-7b")
@@ -2240,18 +2545,37 @@ def main() -> None:
         cfg, params, init_s = full_width_params(5, arch="deepseek-v3-671b")
         served["deepseek_v3"], _ = full_width(7, cfg, params, init_s,
                                               seed=6)
+        eager_then_captured(7, cfg, params, seed=6)
         del params
         torch.cuda.empty_cache()
-    if len(served) == 7 and len(rows) == len(KERNELS):
-        # launches: the drain of the main path (phase 2), of the mode
-        # (phase 5) or of the model (phase 6) that runs the kernel
-        run_of = {"sidebar_mlp": "sidebar", "paged_gqa": "sidebar",
-                  "sidebar_mlp_pipelined": "sidebar_pipelined_d2",
-                  "sidebar_matmul": "flexible_dma",
-                  "activation": "flexible_dma",
-                  "sidebar_gated_mlp": "deepseek_7b",
-                  "paged_mla": "deepseek_v3",
-                  "flash_attention": "train_8a"}
+    # the three configs of this slice at full width: qwen3-14b at full
+    # depth (40 layers, ~28 GB), llama3-405b with its int8 KV pool cut to
+    # 8 of 126 layers (~55 GB: one layer is ~6.4 GB, the table 4.2 GB),
+    # llama4-scout cut to 8 of 48 layers (~37 GB), on phase 2's traffic
+    # mix drawn from the phase's own seed
+    for phase, arch, layers in ((10, "qwen3-14b", None),
+                                (11, "llama3-405b", 8),
+                                (12, "llama4-scout-17b-a16e", 8)):
+        if phase not in phases:
+            continue
+        torch.cuda.reset_peak_memory_stats()
+        cfg, params, init_s = full_width_params(layers, arch=arch)
+        served[arch], _ = full_width(phase, cfg, params, init_s)
+        if cfg.num_experts:
+            eager_then_captured(phase, cfg, params, seed=phase)
+        del params
+        torch.cuda.empty_cache()
+    # launches: the drain of the main path (phase 2), of the mode (phase
+    # 5) or of the model (phases 6, 7 and 12) that runs the kernel
+    run_of = {"sidebar_mlp": "sidebar", "paged_gqa": "sidebar",
+              "sidebar_mlp_pipelined": "sidebar_pipelined_d2",
+              "sidebar_matmul": "flexible_dma",
+              "activation": "flexible_dma",
+              "sidebar_gated_mlp": "deepseek_7b",
+              "paged_mla": "deepseek_v3",
+              "flash_attention": "train_8a",
+              "moe_grouped_mm": "llama4-scout-17b-a16e"}
+    if set(run_of.values()) <= set(served) and len(rows) == len(KERNELS):
         sources = {
             "sidebar_mlp": ("sidebar_mlp.cu",
                             "src/repro/kernels/sidebar_mlp.py:171"),
@@ -2271,6 +2595,8 @@ def main() -> None:
                           "src/repro/kernels/paged_attention.py:336"),
             "flash_attention": ("flash_attention.cu",
                                 "src/repro/kernels/flash_attention.py:97"),
+            "moe_grouped_mm": ("moe_experts.cu",
+                               "src/repro/models/moe.py:65"),
         }
         kernels = []
         for name in KERNELS:

@@ -2,13 +2,18 @@
 
 from __future__ import annotations
 
-from repro_torch.configs import deepseek_7b, deepseek_v3_671b, nemotron_4_15b
+from repro_torch.configs import (deepseek_7b, deepseek_v3_671b,
+                                 llama3_405b, llama4_scout_17b,
+                                 nemotron_4_15b, qwen3_14b)
 from repro_torch.configs.base import ModelConfig
 
 _MODULES = {
     "nemotron-4-15b": nemotron_4_15b,
     "deepseek-7b": deepseek_7b,
     "deepseek-v3-671b": deepseek_v3_671b,
+    "qwen3-14b": qwen3_14b,
+    "llama3-405b": llama3_405b,
+    "llama4-scout-17b-a16e": llama4_scout_17b,
 }
 
 ARCH_IDS = tuple(_MODULES)

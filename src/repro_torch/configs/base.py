@@ -1,9 +1,10 @@
 """Model, shape-cell and training configuration with torch dtypes
 (mirror of ``repro.configs.base``).
 
-Only the fields the ported paths read are kept: the dense GQA family and
-deepseek-v3's MoE + MLA family, served and trained. The JAX config's
-SSM, audio and VLM fields come with the slices that port those families.
+Only the fields the ported paths read are kept: the dense GQA family
+(qk-norm included) and the MoE family (GQA or MLA attention), served
+and trained. The JAX config's SSM, audio and VLM fields come with the
+slices that port those families.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ class ModelConfig:
     # flexible functions (function-table keys)
     activation: str = "silu"
     gated_mlp: bool = True
+    qk_norm: bool = False          # qwen3: RMSNorm on q and k heads
 
     # MoE
     num_experts: int = 0

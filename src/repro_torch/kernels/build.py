@@ -52,6 +52,7 @@ SOURCES = {
     "sidebar_gated_mlp": "sidebar_gated_mlp.cu",
     "paged_mla": "paged_mla.cu",
     "flash_attention": "flash_attention.cu",
+    "moe_grouped_mm": "moe_experts.cu",
 }
 # the kernels that apply a function-table entry (csrc/activation.cuh)
 ACTIVATION_KERNELS = ("sidebar_mlp", "sidebar_mlp_pipelined",

@@ -60,7 +60,7 @@ from repro_torch.kernels.paged_attention import (
 from repro_torch.kernels.sidebar_gated_mlp import (
     sidebar_gated_mlp as _gated_kernel,
 )
-from repro_torch.kernels.sidebar_matmul import sidebar_matmul
+from repro_torch.kernels.sidebar_matmul import operand_route, sidebar_matmul
 from repro_torch.kernels.sidebar_mlp import sidebar_mlp as _mlp_kernel
 from repro_torch.kernels.sidebar_mlp import (
     sidebar_mlp_pipelined as _mlp_kernel_pipelined,
@@ -140,6 +140,8 @@ class PlanDispatch:
     variant: str                  # "serial" | "pipelined" | "paged" |
                                   # "dma" | "flash" | "ref"
     used_kernel: bool             # the CUDA kernel was launched
+    routes: tuple = ()            # the DMA route's ``sidebar_matmul``
+                                  # launches: "tc" | "fma" each
 
 
 @contextlib.contextmanager
@@ -154,11 +156,11 @@ def record_dispatches(into: list):
 
 
 def _record(op: str, mode: ExecutionMode, depth: int, variant: str,
-            used_kernel: bool) -> None:
+            used_kernel: bool, routes: tuple = ()) -> None:
     rec = getattr(_PLAN_STATE, "recorder", None)
     if rec is not None:
         rec.append(PlanDispatch(op, current_layer(), mode, depth, variant,
-                                used_kernel))
+                                used_kernel, routes))
 
 
 def extend_dispatches(records: list) -> None:
@@ -207,11 +209,16 @@ def sidebar_mlp(
     version ran); the DMA route records "dma" on every device."""
     plan = current_plan()
     if plan.mode is ExecutionMode.FLEXIBLE_DMA:
-        _record("sidebar_mlp", plan.mode, 1, "dma", x.is_cuda)
         # rounding points of the JAX route: h and f(h) in x's type
         h = sidebar_matmul(x, w1, "identity", table=table)
         h = host_activation(h.to(x.dtype), activation, table=table)
-        return sidebar_matmul(h.to(x.dtype), w2, "identity", table=table)
+        h = h.to(x.dtype)
+        # the two products' routes (what their wrapper launched), kept
+        # in the record so a captured graph's replays carry them
+        routes = ((operand_route(x, w1), operand_route(h, w2))
+                  if x.is_cuda else ())
+        _record("sidebar_mlp", plan.mode, 1, "dma", x.is_cuda, routes)
+        return sidebar_matmul(h, w2, "identity", table=table)
     if plan.mode is ExecutionMode.SIDEBAR_PIPELINED:
         _record("sidebar_mlp", plan.mode, plan.depth,
                 "pipelined" if x.is_cuda else "ref", x.is_cuda)

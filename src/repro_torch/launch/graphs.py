@@ -15,6 +15,12 @@ work, a Python loop of eager steps, into a CUDA graph and replays it:
   * ``fixed`` (parameters, caches) is held by address: a graph is keyed
     by the identity of its fixed objects and the shapes of its inputs,
     so a server whose params object changes recaptures;
+  * ``capture_after=N`` keeps a signature eager for its first N - 1
+    calls and captures it at the N-th (the warm-up): a capture costs
+    host time (entering it, running the step under it, instantiating
+    the graph) that only replays pay back, so a program whose keys may
+    recur only a few times captures the ones that do. ``capture_s``
+    counts the host seconds spent capturing;
   * one graph memory pool is shared by a server's programs (``pool``):
     their outputs stay alive in the programs, and replays run in order
     on one stream, so intermediates may share memory;
@@ -26,24 +32,26 @@ work, a Python loop of eager steps, into a CUDA graph and replays it:
 
 ``disable_capture()`` runs the same step functions eagerly (the
 counterpart of ``jax.disable_jit``): tests and ``chip_smoke.py`` hold
-captured against eager with it. A model whose step syncs with the host
-cannot be captured: the MoE layer asks which experts its tokens chose
-(``models/moe.py``), so such a model's programs run eagerly and its
-server reports ``captured: false``. A capture that fails raises;
-nothing falls back to eager.
+captured against eager with it. Every step of every ported model keeps
+its work on the card (the MoE layer's routing included,
+``models/moe.py``), so every server captures on the card. A step that
+read a tensor on the host would make its capture raise; nothing falls
+back to eager.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import gc
 import threading
+import time
+import warnings
 from typing import Any, Callable
 
 import torch
 
 from repro_torch import tree
-from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import build
 from repro_torch.kernels import ops as kops
 
@@ -65,18 +73,10 @@ def capture_enabled() -> bool:
     return getattr(_STATE, "enabled", True)
 
 
-def syncs_with_host(cfg: ModelConfig) -> bool:
-    """True when a step of ``cfg`` waits on the host mid-step: the MoE
-    layer copies its routing to the host (``models/moe.py``), which a
-    graph cannot hold."""
-    return bool(cfg.num_experts)
-
-
-def captures(device: torch.device, cfg: ModelConfig) -> bool:
-    """Whether a server of ``cfg`` on ``device`` replays graphs: on the
-    card, capture enabled, and a step that never syncs with the host."""
-    return (device.type == "cuda" and capture_enabled()
-            and not syncs_with_host(cfg))
+def captures(device: torch.device) -> bool:
+    """Whether a server on ``device`` replays graphs: on the card, with
+    capture enabled."""
+    return device.type == "cuda" and capture_enabled()
 
 
 def new_pool(device: torch.device):
@@ -124,11 +124,25 @@ def _capturing(graph, pool, device: torch.device):
                 # one to report
                 with contextlib.suppress(RuntimeError):
                     graph.capture_end()
+                _end_generator_capture()
                 raise
             graph.capture_end()
     finally:
         if collecting:
             gc.enable()
+
+
+def _end_generator_capture() -> None:
+    """A capture that broke leaves the card's default generator in its
+    capture state (``capture_end`` raised before restoring it), and every
+    later draw from it raises. An empty capture on the capturing side
+    stream runs the generator's capture prologue and epilogue, which
+    restore it."""
+    empty = torch.cuda.CUDAGraph()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")     # "the CUDA graph is empty"
+        empty.capture_begin()
+        empty.capture_end()
 
 
 class _Graph:
@@ -161,25 +175,28 @@ class _Graph:
 
 class Program:
     """A step function run eagerly, or captured and replayed on the card
-    (see the module docstring). ``capturable=False`` keeps it eager on
-    every device (a step that syncs with the host)."""
+    (see the module docstring)."""
 
-    def __init__(self, fn: Callable, *, device: torch.device, pool=None,
-                 capturable: bool = True) -> None:
+    def __init__(self, fn: Callable, *, device: torch.device,
+                 pool=None, capture_after: int = 1) -> None:
+        if capture_after < 1:
+            raise ValueError(f"capture_after must be >= 1, got "
+                             f"{capture_after}")
         self.fn = fn
         self.device = torch.device(device)
         self.pool = pool
-        self.capturable = capturable
+        self.capture_after = capture_after
         self._graphs: dict[tuple, _Graph] = {}
+        self._calls: collections.Counter = collections.Counter()
         self.captures = 0
         self.replays = 0
         self.eager_calls = 0
+        self.capture_s = 0.0
 
     @property
     def captured(self) -> bool:
         """Whether a call here replays a graph."""
-        return (self.device.type == "cuda" and self.capturable
-                and capture_enabled())
+        return captures(self.device)
 
     def __call__(self, fixed: tuple, **inputs) -> Any:
         if not self.captured:
@@ -190,13 +207,18 @@ class Program:
         if graph is not None:
             self.replays += 1
             return graph.replay(inputs)
-        # warm-up: the real call, eager; then the capture
+        # eager below the threshold; at it, the warm-up, then the capture
         self.eager_calls += 1
+        self._calls[sig] += 1
         out = self.fn(fixed, **inputs)
+        if self._calls[sig] < self.capture_after:
+            return out
         if any(g.fixed[0] is not fixed[0] for g in self._graphs.values()):
             # new parameters: graphs on the old ones hold stale addresses
             self._graphs.clear()
+        t0 = time.perf_counter()
         self._graphs[sig] = _Graph(self.fn, fixed, inputs, self.pool,
                                    self.device)
+        self.capture_s += time.perf_counter() - t0
         self.captures += 1
         return out

@@ -37,15 +37,17 @@ length and a restart mid-stream (resubmit prompt + tokens so far, same
 seed) never change the stream. Greedy and sampled rows share one
 program: greedy rows carry temperature 0.
 
-**Programs** — admission rounds and segments are ``graphs.Program``s
-under the JAX package's executable-cache keys: captured CUDA graphs on
-the card (per-row positions, tables and sampling state copied into
-static buffers), eager on the CPU or under ``graphs.disable_capture()``
-or for a model whose step syncs with the host (MoE). ``stats.compiles``
-counts keys built, ``stats.hits`` lookups of built ones; each program
-counts its own ``captures`` and ``replays``. The "aligned"/"ragged"
-distinction of the keys is the JAX package's; the port's programs take
-per-row positions in both, since a graph cannot take a host scalar.
+**Programs** — admission rounds, staging rounds and segments are
+``graphs.Program``s under the JAX package's executable-cache keys:
+captured CUDA graphs on the card (per-row positions, tokens, tables and
+sampling state copied into static buffers), eager on the CPU or under
+``graphs.disable_capture()``. Segments and admission rounds capture at
+a key's first call, staging rounds at its ``stage_capture_after``-th
+(``STAGE_CAPTURE_AFTER``). ``stats.compiles`` counts keys built,
+``stats.hits`` lookups of built ones; each program counts its own
+``captures`` and ``replays``. The "aligned"/"ragged" distinction of the
+keys is the JAX package's; the port's programs take per-row positions
+in both, since a graph cannot take a host scalar.
 
 Differences from the JAX servers: the paged server reserves a request's
 whole KV span when its staging starts (lazy growth exists to feed
@@ -321,12 +323,12 @@ class ContinuousBatchingServer:
     @property
     def captured(self) -> bool:
         """Whether this server's programs replay graphs."""
-        return graphs.captures(self.device, self.cfg)
+        return graphs.captures(self.device)
 
-    def _program(self, fn: Callable) -> graphs.Program:
-        return graphs.Program(
-            fn, device=self.device, pool=self._pool,
-            capturable=not graphs.syncs_with_host(self.cfg))
+    def _program(self, fn: Callable, capture_after: int = 1
+                 ) -> graphs.Program:
+        return graphs.Program(fn, device=self.device, pool=self._pool,
+                              capture_after=capture_after)
 
     def _compiled(self, key: tuple, builder: Callable[[], Callable]):
         """(kind, shape-key..., plan) + (mesh,) -> program: a new key is
@@ -733,6 +735,19 @@ class _Staging:
         return not self.todo
 
 
+# A staging key is captured at its 16th round (``graphs.Program``'s
+# ``capture_after``); the rounds before run eagerly. A staging round is
+# one prefill call whose time is mostly the card's: at nemotron-4-15b's
+# widths on an H100 (chip_smoke.py phase 2, every key captured at its
+# first round against none), a replayed round saves ~0.03 s of host
+# time against an eager one and a key's capture costs 0.24-0.37 s, so a
+# key pays its capture back after some 8-12 replays. A cold drain runs
+# each key a few times (8 requests of 32-256 tokens in chunks of 16: at
+# most 13 rounds a key), so it stages eagerly; a server that keeps
+# seeing a key captures it.
+STAGE_CAPTURE_AFTER = 16
+
+
 class PagedContinuousBatchingServer(ContinuousBatchingServer):
     """Continuous batching over a block-granular paged KV pool (see the
     module docstring).
@@ -750,6 +765,7 @@ class PagedContinuousBatchingServer(ContinuousBatchingServer):
                  num_blocks: int | None = None,
                  prefill_chunk: int | None = None,
                  stage_ahead: int | None = None, kernel: str = "paged",
+                 stage_capture_after: int = STAGE_CAPTURE_AFTER,
                  **kw) -> None:
         if kernel not in ("paged", "slab"):
             raise ValueError(f"kernel must be 'paged' or 'slab', got "
@@ -759,6 +775,7 @@ class PagedContinuousBatchingServer(ContinuousBatchingServer):
         self._num_blocks_arg = num_blocks
         self.prefill_chunk = int(prefill_chunk or block_size)
         self._stage_ahead_arg = stage_ahead
+        self.stage_capture_after = int(stage_capture_after)
         super().__init__(cfg, params, **kw)
         self._prefill_step = make_prefill_step(self.cfg, self.api)
 
@@ -831,13 +848,29 @@ class PagedContinuousBatchingServer(ContinuousBatchingServer):
         return super().cancel(rid)
 
     # -- chunked prefill-ahead (staging) -----------------------------------
+    def _stage_fn(self) -> Callable:
+        """One staging round as a program: the (k, c) chunk prefilled at
+        per-row positions ``pos`` through the rows' ``tables``, in place
+        on the pool. Every row count, position and table entry is an
+        input, so one graph serves every round of its key."""
+        prefill_step = self._prefill_step
+
+        def stage(fixed, tokens, pos, tables):
+            params, pool = fixed
+            prefill_step(params, {"tokens": tokens}, pool, cache_pos=pos,
+                         block_tables=tables)
+            return ()
+
+        return stage
+
     def _stage_round(self, entries: list[_Staging]) -> None:
         """ONE staging step advances every incomplete entry by up to
         ``prefill_chunk`` tokens, each row at its own frontier through
-        its own block table. The zero-padded tail of a final chunk writes
-        junk past the prompt; blocks past the last validly written one
-        are diverted to the scratch row, so the junk never lands in a
-        spliced (shared) block."""
+        its own block table, one program under the JAX package's
+        ``stage`` key. The zero-padded tail of a final chunk writes junk
+        past the prompt; the tables the round is given divert blocks past
+        the last validly written one to the scratch row, so the junk never
+        lands in a spliced (shared) block."""
         k, c = len(entries), self.prefill_chunk
         bs = self.block_size
         toks = np.zeros((k, c), np.int64)
@@ -851,16 +884,15 @@ class PagedContinuousBatchingServer(ContinuousBatchingServer):
             row = st.rb.table_row(self.blocks_per_table)
             row[(s + valid - 1) // bs + 1:] = kvp.SCRATCH_BLOCK
             bt[j] = row
-        bt_dev = self._validated(bt)
-        # eager: counted under the JAX package's key, never captured
         stage = self._compiled(
             ("stage", k, c, self.blocks_per_table, self._plan_key),
-            lambda: self._prefill_step)
+            lambda: self._program(self._stage_fn(),
+                                  self.stage_capture_after))
         with kops.execution_plan(self.plan):
-            stage(self.params, {"tokens": torch.as_tensor(
-                toks, device=self.device)}, self.mgr.pool.cache,
-                cache_pos=torch.as_tensor(pos, device=self.device),
-                block_tables=bt_dev)
+            stage((self.params, self.mgr.pool.cache),
+                  tokens=torch.as_tensor(toks, device=self.device),
+                  pos=torch.as_tensor(pos, device=self.device),
+                  tables=self._validated(bt))
         for st in entries:
             s, e = st.todo[0]
             if s + c >= e:

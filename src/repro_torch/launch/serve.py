@@ -195,7 +195,7 @@ class Server:
     @property
     def captured(self) -> bool:
         """Whether ``decode="scan"`` replays a graph here."""
-        return graphs.captures(self.device, self.cfg)
+        return graphs.captures(self.device)
 
     # -- KV-cache pooling --------------------------------------------------
     def _take_cache(self, b: int):
@@ -223,8 +223,7 @@ class Server:
                 return scan(params, tok, cache, pos, sample)[0]
 
             prog = self._decode_scans[key] = graphs.Program(
-                run, device=self.device, pool=self._pool,
-                capturable=not graphs.syncs_with_host(self.cfg))
+                run, device=self.device, pool=self._pool)
         return prog
 
     @torch.no_grad()

@@ -64,12 +64,16 @@ UNROLL_CHUNKS = 64    # chunk counts up to this take causal prefixes
 
 def gqa_param_shapes(cfg: ModelConfig) -> dict:
     d, h, hkv, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    return {
+    shapes = {
         "wq": ((d, h * dh), "normal"),
         "wk": ((d, hkv * dh), "normal"),
         "wv": ((d, hkv * dh), "normal"),
         "wo": ((h * dh, d), "normal"),
     }
+    if cfg.qk_norm:
+        shapes["q_norm"] = ((dh,), "ones")
+        shapes["k_norm"] = ((dh,), "ones")
+    return shapes
 
 
 def mla_param_shapes(cfg: ModelConfig) -> dict:
@@ -246,6 +250,10 @@ def gqa_attention(
     q = linear(x, params["wq"]).reshape(b, s, h, dh)
     k = linear(x, params["wk"]).reshape(b, s, hkv, dh)
     v = linear(x, params["wv"]).reshape(b, s, hkv, dh)
+
+    if cfg.qk_norm:  # qk-RMSNorm over the head dim (qwen3), before rope
+        q = rms_norm(q, params["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, params["k_norm"], cfg.norm_eps)
 
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, _key_positions(positions, cache, cache_pos, s,

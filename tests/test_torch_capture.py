@@ -8,8 +8,8 @@ taken back out of the ambient ones and added again at each replay, so
 a captured run counts what an eager one counts; a graph is keyed by its
 input shapes and fixed objects, and new parameters recapture; a failed
 capture raises and leaves the counts as they were; ``disable_capture()``
-runs eagerly; a model whose step syncs with the host (MoE) is never
-captured. This file imports no JAX (the card's machine has none).
+runs eagerly; every config's servers capture (no model syncs with the
+host). This file imports no JAX (the card's machine has none).
 
 On the card (``gpu``): for ``Server``, the slot-cache server and the
 paged server at nemotron-4-15b's and deepseek-7b's published widths cut
@@ -22,6 +22,7 @@ host sync raises.
 
 import contextlib
 import dataclasses
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -61,7 +62,7 @@ def stand_in(monkeypatch):
     monkeypatch.setattr(graphs.torch.cuda, "CUDAGraph", _StandInGraph)
     monkeypatch.setattr(graphs, "_capturing", _stand_in_capture)
     monkeypatch.setattr(graphs.Program, "captured", property(
-        lambda self: self.capturable and graphs.capture_enabled()))
+        lambda self: graphs.capture_enabled()))
     build.launches.clear()
     yield
     build.launches.clear()
@@ -142,8 +143,6 @@ def test_disable_capture_runs_eagerly_and_nests(stand_in):
         prog((params,), x=torch.ones(3))
     assert graphs.capture_enabled() and prog.captured
     assert (prog.eager_calls, prog.captures) == (2, 0)
-    assert not graphs.Program(_step, device="cpu",
-                              capturable=False).captured
 
 
 def test_off_the_card_programs_run_eagerly():
@@ -154,21 +153,32 @@ def test_off_the_card_programs_run_eagerly():
 
 
 def test_servers_capture_only_models_without_a_host_sync():
-    assert graphs.syncs_with_host(configs.get_config("deepseek-v3-671b"))
-    for arch in ("nemotron-4-15b", "deepseek-7b"):
-        assert not graphs.syncs_with_host(configs.get_config(arch))
+    """No ported model syncs with the host any more (the MoE layer keeps
+    its routing on the card), so every config's servers capture on the
+    card and run eagerly on the CPU or under ``disable_capture()``."""
+    assert not hasattr(graphs, "syncs_with_host")
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    assert graphs.captures(cuda) and not graphs.captures(cpu)
+    with graphs.disable_capture():
+        assert not graphs.captures(cuda)
+    assert len(configs.ARCH_IDS) == 6
     for arch in configs.ARCH_IDS:
         cfg = configs.get_smoke_config(arch)
         params = T.init(cfg, device="cpu")
-        for srv in (Server(cfg, params, max_len=32, device="cpu"),
-                    ContinuousBatchingServer(cfg, params, device="cpu",
-                                             num_slots=1, max_len=32),
-                    PagedContinuousBatchingServer(cfg, params, device="cpu",
-                                                  num_slots=1, max_len=32,
-                                                  block_size=8)):
+        solo = Server(cfg, params, max_len=32, device="cpu")
+        slots = (ContinuousBatchingServer(cfg, params, device="cpu",
+                                          num_slots=1, max_len=32),
+                 PagedContinuousBatchingServer(cfg, params, device="cpu",
+                                               num_slots=1, max_len=32,
+                                               block_size=8))
+        for srv in (solo, *slots):
             assert srv.captured is False    # the CPU runs eagerly
-        prog = Server(cfg, params, max_len=32, device="cpu")._decode_scan(3)
-        assert prog.capturable == (not cfg.num_experts)
+        for prog in (solo._decode_scan(3),
+                     *(srv._program(_step) for srv in slots)):
+            assert prog.captured is False
+            with mock.patch.object(graphs, "captures",
+                                   lambda device: True):
+                assert prog.captured        # as on the card
 
 
 # ---------------------------------------------------------------------------
@@ -309,3 +319,5 @@ def test_capture_with_a_host_sync_raises(cuda):
     assert not prog._graphs and kops.launch_counts() == before
     torch.cuda.synchronize()                   # the card still works
     assert float(torch.ones(2, device=cuda).sum()) == 2.0
+    # and so does its default generator (the broken capture held it)
+    assert torch.randn(2, device=cuda).isfinite().all()

@@ -12,7 +12,8 @@
     kernel against its plain version (the gated MLP at deepseek-7b's
     widths, paged decode at group 1, MLA absorbed decode at deepseek-
     v3's widths with fp32 and bf16 pools, flash attention in fp32 and
-    bf16), a run-time activation with a ``device_expr`` through every
+    bf16, the MoE grouped expert product on both routes), a run-time
+    activation with a ``device_expr`` through every
     kernel that takes an activation, and the wrappers' refusals —
     among them every wrapper's refusal under autograd. They
     live here because this file imports no JAX, which the card's
@@ -62,7 +63,9 @@ def test_scan_sees_the_whole_port():
             "data/pipeline.py", "checkpoint/manager.py", "ft/watchdog.py",
             "tree.py", "launch/prng.py", "launch/sampling.py",
             "launch/graphs.py", "launch/serve.py",
-            "launch/serve_batch.py"} <= names
+            "launch/serve_batch.py", "kernels/moe_experts.py",
+            "configs/qwen3_14b.py", "configs/llama3_405b.py",
+            "configs/llama4_scout_17b.py"} <= names
 
 
 def test_import_needs_no_nvcc_no_triton_and_builds_nothing(tmp_path):
@@ -101,17 +104,24 @@ def test_entry_points_default_to_cuda():
     assert resolve_device("cpu") == torch.device("cpu")
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device exists")
-    cfg = configs.get_smoke_config("nemotron-4-15b")
-    params = T.init(cfg, device="cpu")
-    for make in (lambda: resolve_device(),
-                 lambda: T.init(cfg),
-                 lambda: T.init_cache(cfg, 1, 8),
-                 lambda: PagedContinuousBatchingServer(
-                     cfg, params, num_slots=1, max_len=16, block_size=8),
-                 lambda: ContinuousBatchingServer(cfg, params, num_slots=1,
-                                                  max_len=16),
-                 lambda: Server(cfg, params, max_len=16),
-                 lambda: bridge.params_from_jax({"blocks": {}}),
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device()
+    for arch in ("nemotron-4-15b", "qwen3-14b", "llama3-405b",
+                 "llama4-scout-17b-a16e"):
+        cfg = configs.get_smoke_config(arch)
+        params = T.init(cfg, device="cpu")
+        for make in (lambda: T.init(cfg),
+                     lambda: T.init_cache(cfg, 1, 8),
+                     lambda: PagedContinuousBatchingServer(
+                         cfg, params, num_slots=1, max_len=16,
+                         block_size=8),
+                     lambda: ContinuousBatchingServer(cfg, params,
+                                                      num_slots=1,
+                                                      max_len=16),
+                     lambda: Server(cfg, params, max_len=16)):
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                make()
+    for make in (lambda: bridge.params_from_jax({"blocks": {}}),
                  lambda: bridge.cache_from_jax({})):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
@@ -1011,6 +1021,71 @@ def test_paged_mla_rejects_what_it_does_not_take(cuda):
                      kr[..., :4].contiguous(), t, ln, scale=1.0)
 
 
+# MoE grouped expert product: (rows, K, N, experts, rows in groups);
+# smoke widths, ragged widths (fma for bf16), llama4-scout's decode gate
+# (K 5120, N 8192) and deepseek-v3's down product (K 2048, N 7168) over
+# a cut expert stack
+GROUPED_CASES = [(12, 64, 128, 4, 9), (40, 60, 36, 5, 31),
+                 (8, 5120, 8192, 4, 8), (64, 2048, 7168, 16, 50)]
+
+
+def _grouped_problem(cuda, rows, k, n, e, grouped, dtype, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    a = torch.randn(rows, k, generator=g, device=cuda).to(dtype)
+    w = (torch.randn(e, k, n, generator=g, device=cuda) / k ** 0.5).to(dtype)
+    # uneven groups, one expert empty, rows past the groups
+    cuts = torch.linspace(0, grouped, e + 1).round().int().tolist()
+    cuts[1] = cuts[0]
+    return a, w, torch.tensor(cuts, dtype=torch.int32, device=cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=str)
+@pytest.mark.parametrize("case", GROUPED_CASES, ids=str)
+def test_moe_grouped_mm_kernel_matches_plain(cuda, case, dtype):
+    """Each row's expert product against the plain version (the same
+    fp32 products of the same values, summed in another order: 1e-4 of
+    the row's largest), zero past the groups, bit for bit equal to a
+    second run and to each row computed alone; the route as the rule
+    says."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import moe_experts as me
+
+    rows, k, n, e, grouped = case
+    a, w, off = _grouped_problem(cuda, rows, k, n, e, grouped, dtype)
+    before = build.launches["moe_grouped_mm"]
+    out = me.grouped_mm(a, w, off)
+    assert build.launches["moe_grouped_mm"] == before + 1
+    want = me.grouped_mm_plain(a, w, off)
+    assert _row_rel_err(out[:grouped], want[:grouped]) <= 1e-4
+    assert not out[grouped:].any()
+    assert torch.equal(out, me.grouped_mm(a, w, off))
+    assert me.route(a, w) == ("tc" if dtype == torch.bfloat16
+                              and k % 8 == 0 and n % 8 == 0 else "fma")
+    for r in (0, grouped - 1):
+        e_r = int(me.group_of_rows(off, rows)[r])
+        one = torch.tensor([0] * (e_r + 1) + [1] * (e - e_r),
+                           dtype=torch.int32, device=cuda)
+        alone = me.grouped_mm(a[r:r + 1].contiguous(), w, one)
+        assert torch.equal(alone[0], out[r])
+
+
+@pytest.mark.gpu
+def test_moe_grouped_mm_rejects_what_it_does_not_take(cuda):
+    from repro_torch.kernels import moe_experts as me
+
+    a, w, off = _grouped_problem(cuda, 8, 64, 32, 2, 8, torch.float32)
+    with pytest.raises(TypeError):
+        me.grouped_mm(a.half(), w.half(), off)
+    with pytest.raises(ValueError, match="int32"):
+        me.grouped_mm(a, w, off.long())
+    with pytest.raises(ValueError, match="offsets"):
+        me.grouped_mm(a, w, off.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        me.grouped_mm(a.t().contiguous().t(), w, off)
+
+
 # (B, Hq, Hkv, S, T, Dh, causal): the JAX package's FLASH_CASES, nemotron's
 # smoke head_dim 8, a ragged S and T, head_dim 96 and 256
 FLASH_CASES = [(2, 4, 4, 128, 128, 64, True), (1, 8, 2, 128, 128, 64, True),
@@ -1124,6 +1199,7 @@ def _autograd_calls(cuda):
     that is to require grad."""
     from repro_torch.kernels import activations as ak
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_experts as me
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import sidebar_gated_mlp as sg
     from repro_torch.kernels import sidebar_matmul as smm
@@ -1156,12 +1232,16 @@ def _autograd_calls(cuda):
             scale=0.2)),
         "flash_attention": (torch.randn(1, 4, 128, 16), lambda x:
                             fa.flash_attention(x, fk, fk)),
+        "moe_grouped_mm": (torch.randn(4, 64), lambda x: me.grouped_mm(
+            x, torch.randn(2, 64, 32, device=cuda), torch.tensor(
+                [0, 1, 4], dtype=torch.int32, device=cuda))),
     }
 
 
 AUTOGRAD_WRAPPERS = ["sidebar_mlp", "sidebar_mlp_pipelined",
                      "sidebar_gated_mlp", "sidebar_matmul", "activation",
-                     "paged_gqa", "paged_mla", "flash_attention"]
+                     "paged_gqa", "paged_mla", "flash_attention",
+                     "moe_grouped_mm"]
 
 
 @pytest.mark.gpu

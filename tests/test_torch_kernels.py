@@ -243,7 +243,7 @@ def test_ops_record_plain_route_on_cpu():
     assert kops.launch_counts() == {
         "sidebar_mlp": 0, "paged_gqa": 0, "sidebar_mlp_pipelined": 0,
         "sidebar_matmul": 0, "activation": 0, "sidebar_gated_mlp": 0,
-        "paged_mla": 0, "flash_attention": 0}
+        "paged_mla": 0, "flash_attention": 0, "moe_grouped_mm": 0}
 
 
 @pytest.mark.parametrize("mode", [ExecutionMode.SIDEBAR_PIPELINED,

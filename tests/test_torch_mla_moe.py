@@ -10,8 +10,9 @@ loaded through ``repro_torch.bridge`` (fp32):
     tail), to 1e-5;
   * ``moe`` against the JAX ``moe`` (host path, no mesh), with a
     dropping capacity factor (1.25) and without drops, to 1e-5;
-  * the config mirror, the weight and cache bridge over dense + moe
-    stacks, the pool's per-leaf length axes;
+  * the config mirror of all six transformer configs, the weight and
+    cache bridge over dense + moe stacks, the pool's per-leaf length
+    axes;
   * the smoke model's prefill and decode logits, on a slab and on the
     paged pool, to 1e-4, with identical greedy tokens;
   * the port's paged server against the JAX server on the same traffic
@@ -249,7 +250,7 @@ def test_init_leaf_draws_expert_stacks_slice_by_slice():
 
 FIELDS = ("arch_id", "family", "num_layers", "d_model", "num_heads",
           "num_kv_heads", "d_ff", "vocab_size", "head_dim", "activation",
-          "gated_mlp", "rope_theta", "norm_eps", "num_experts",
+          "gated_mlp", "qk_norm", "rope_theta", "norm_eps", "num_experts",
           "experts_per_token", "num_shared_experts", "moe_d_ff",
           "capacity_factor", "first_dense_layers", "use_mla", "q_lora_rank",
           "kv_lora_rank", "rope_head_dim", "nope_head_dim", "v_head_dim")
@@ -257,14 +258,23 @@ FIELDS = ("arch_id", "family", "num_layers", "d_model", "num_heads",
 
 @pytest.mark.parametrize("get", ["get_config", "get_smoke_config"])
 def test_config_mirrors_jax(get):
-    cj = getattr(jcfg, get)(ARCH)
-    ct = getattr(tcfg, get)(ARCH)
-    for f in FIELDS:
-        assert getattr(ct, f) == getattr(cj, f), (get, f)
-    assert str(ct.dtype).split(".")[-1] == jnp.dtype(cj.dtype).name
-    assert T.layer_kinds(ct) == (["dense"] * ct.first_dense_layers
-                                 + ["moe"] * (ct.num_layers
-                                              - ct.first_dense_layers))
+    """Every transformer config of the JAX package, field for field (the
+    dtypes by name), with its layer plan."""
+    assert set(tcfg.ARCH_IDS) == {
+        "nemotron-4-15b", "deepseek-7b", "deepseek-v3-671b", "qwen3-14b",
+        "llama3-405b", "llama4-scout-17b-a16e"}
+    for arch in tcfg.ARCH_IDS:
+        cj = getattr(jcfg, get)(arch)
+        ct = getattr(tcfg, get)(arch)
+        for f in FIELDS:
+            assert getattr(ct, f) == getattr(cj, f), (arch, get, f)
+        for f in ("dtype", "kv_cache_dtype"):
+            assert str(getattr(ct, f)).split(".")[-1] == jnp.dtype(
+                getattr(cj, f)).name, (arch, get, f)
+        assert T.layer_kinds(ct) == (
+            ["dense"] * ct.first_dense_layers
+            + ["moe"] * (ct.num_layers - ct.first_dense_layers)
+            if ct.num_experts else ["dense"] * ct.num_layers)
 
 
 @pytest.fixture(scope="module")
