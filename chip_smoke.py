@@ -134,7 +134,35 @@ exits non-zero):
  12. llama4-scout-17b-a16e at full width (16 experts top-1 and one
      shared expert in every layer), depth cut from 48 to 8 layers (~37
      GB), served like phase 6 and then eager against captured like
-     phase 7.
+     phase 7;
+ 13. overload on phase 2's weights (its depth follows ``--layers``):
+     (13a) the paged server with 4 slots, block 16, max_len 512 and 48
+     allocatable blocks, 2x oversubscribed: 8 lows of 96-160 tokens
+     (priority 0, 128 greedy tokens), then, after 3 scheduler steps, 2
+     highs of 200-240 tokens (priority 1, 64 tokens, the second
+     sampled) with a TTFT target of twice their unloaded p95 (measured
+     on the ample pool, the second of two runs), under EDF and then
+     FIFO on one server (its cached blocks evicted between), and on an
+     ample pool. Gates: every request finishes; the pool ends with
+     nothing in use and free + evictable == capacity, the spill region
+     empty; the tight arms preempt and restore, the ample one does not;
+     the first spill's payload equals the blocks its restore leaves in
+     the pool on every leaf (``torch.equal``), and no pool leaf moves;
+     under EDF each high is admitted before every low still pending when
+     it arrived, under FIFO in arrival order; exact launch counts.
+     Printed: tokens/s, TTFT p50 / p95 per class, goodput (tokens of
+     requests that met their target, a second), the overload counters,
+     the spill region's peak bytes, host seconds in spill and restore,
+     captures and replays, and the tokens that differ from the ample
+     drain (bf16: rows counts differ; not gated). (13b) the three cache
+     families at fp32 smoke size (nemotron-4-15b, its int8 KV, deepseek-
+     v3 at no-drop capacity): the tight server of
+     ``tests/test_preemption.py`` against an ample pool, greedy and
+     sampled, equal tokens. (13c) a ``ReplicaRouter`` of two tight
+     replicas sharing phase 2's params, with a seeded ``FaultInjector``
+     at every site, on 13a's traffic, eagerly: every request finishes,
+     every pool and spill region quiescent; stolen requests, quarantines
+     and the faults injected are printed.
 
 The line before the last holds the kernel table, the last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or of the JAX
@@ -1693,6 +1721,8 @@ def serve(cfg, params, prompts, gen: int, *, phase: int, mode: str,
         "prefix_prompt_blocks": st.prefix_prompt_blocks,
         "decode_calls": calls["decode"], "prefill_calls": calls["prefill"],
         "stage_round_host_s": calls["stage_s"],
+        "preemptions": st.preemptions, "restores": st.restores,
+        "executable_keys": len(srv.executable_cache_keys()),
         "launches": counts, "expected_launches": want,
         "gather_blocks": sum(r.op == "gather_blocks" for r in recs),
         "scatter_blocks": sum(r.op == "scatter_blocks" for r in recs),
@@ -1708,6 +1738,9 @@ def serve(cfg, params, prompts, gen: int, *, phase: int, mode: str,
     check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
           f"phase {phase} {mode}: token out of vocab")
     check(st.prefix_block_hits > 0, f"phase {phase} {mode}: no prefix hits")
+    # an ample pool (the default) never preempts
+    check(st.preemptions == 0 and st.restores == 0,
+          f"phase {phase} {mode}: preempted on an ample pool")
     check(counts == want, f"phase {phase} {mode}: launches {counts} != "
                           f"expected {want}")
     # every model runs its segments as graphs (captured once a key,
@@ -2243,6 +2276,392 @@ def phase9_paged(cfg, params) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 13: overload — lazy growth, preemption with spill / restore,
+# EDF / FIFO priorities, seeded faults and the replica router
+# ---------------------------------------------------------------------------
+
+# one server of phase 13: 4 slots, 48 allocatable blocks of 16 positions;
+# eight lows of 96-160 + 128 tokens need up to 18 blocks each grown, so
+# four grown lows (72 blocks) cannot coexist: 2x oversubscribed
+OVERLOAD_SERVER = dict(num_slots=4, block_size=16, max_len=512, segment=8,
+                       kernel="paged")
+OVERLOAD_BLOCKS = 49
+LOW_GEN, HIGH_GEN = 128, 64
+# scheduler iterations before the highs arrive: the lows staged,
+# admitted and grown (``benchmarks/serving_bench.py``'s head steps)
+OVERLOAD_HEAD_STEPS = 3
+OVERLOAD_FAULTS = dict(rates={"alloc": 0.05, "evict_storm": 0.05,
+                              "stage_stall": 0.05, "dispatch": 0.1},
+                       max_per_site=8)
+# the injector's seed: on 13a's traffic every site fires (the draws
+# follow the order of consultation, which the schedule fixes)
+OVERLOAD_FAULT_SEED = 1
+# phase 13(b): the tight server of tests/test_preemption.py (two grown
+# spans of 3 blocks do not fit in 5) against an ample pool
+TIGHT_SMOKE = dict(num_slots=2, max_len=48, block_size=8, segment=4)
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def overload_traffic(seed: int, vocab: int) -> tuple[list, list, list]:
+    """Phase 13's traffic: 8 lows of 96-160 tokens (priority 0, greedy)
+    and 2 highs of 200-240 tokens (priority 1, the second sampled)."""
+    from repro_torch.launch.sampling import SamplingParams
+
+    # lengths first, from a generator of their own: the schedule (a
+    # function of lengths only) is then the same at every vocabulary,
+    # so a CPU run at the smoke size predicts the card's counts
+    lens = np.random.RandomState(seed)
+    n = [int(lens.randint(96, 161)) for _ in range(8)] + [
+        int(lens.randint(200, 241)) for _ in range(2)]
+    rng = np.random.RandomState(seed + 1)
+    prompts = [rng.randint(0, vocab, k).astype(np.int32) for k in n]
+    lows, highs = prompts[:8], prompts[8:]
+    samples = [None, SamplingParams(**{**SP_KW, "seed": 200})]
+    return lows, highs, samples
+
+
+def _leaf_ptrs(srv) -> list:
+    return [leaf.data_ptr() for layer in srv.mgr.pool.cache
+            for leaf in layer.values()]
+
+
+@contextlib.contextmanager
+def overload_probe(srv):
+    """Record, on ``srv``: the order of fresh admissions (slot order
+    within one ``_admit_ready`` call is score order), host seconds in
+    spill and restore, and the first spill's payload against the blocks
+    its restore leaves in the pool, every leaf (``torch.equal``)."""
+    rec = {"admitted": [], "spill_s": 0.0, "restore_s": 0.0,
+           "round_trip": None}
+    admit, spill_payload = srv._admit_ready, srv._spill_payload
+    spill_req, restore_req = srv.mgr.spill_request, srv.mgr.restore_request
+    first, last = {}, {}
+
+    def admit_ready():
+        fresh = {st.req.rid for st in srv._staging if st.resume is None}
+        before = {s.rid for s in srv.slots}
+        admit()
+        rec["admitted"] += [s.rid for s in srv.slots
+                            if s.rid in fresh and s.rid not in before]
+
+    def spill_request(rb, valid_end):
+        t0 = time.perf_counter()
+        last["payload"] = spill_req(rb, valid_end)
+        rec["spill_s"] += time.perf_counter() - t0
+        return last["payload"]
+
+    def spill_payload_(rid, rb, valid_end):
+        n = spill_payload(rid, rb, valid_end)
+        first.setdefault("payload", last["payload"])
+        return n
+
+    def restore_request(prompt, payload):
+        t0 = time.perf_counter()
+        rb = restore_req(prompt, payload)
+        rec["restore_s"] += time.perf_counter() - t0
+        if (rb is not None and rec["round_trip"] is None
+                and payload is first.get("payload")):
+            pool = srv.mgr.pool.cache
+            rec["round_trip"] = {
+                "blocks": len(rb.bids), "bytes": payload["nbytes"],
+                "equal": all(
+                    torch.equal(pool[li][name][bid].cpu(), host)
+                    for j, bid in enumerate(rb.bids)
+                    for li, layer in enumerate(payload["blocks"][j])
+                    for name, host in layer.items())}
+        return rb
+
+    srv._admit_ready, srv._spill_payload = admit_ready, spill_payload_
+    srv.mgr.spill_request = spill_request
+    srv.mgr.restore_request = restore_request
+    try:
+        yield rec
+    finally:
+        del srv._admit_ready, srv._spill_payload
+        del srv.mgr.spill_request, srv.mgr.restore_request
+
+
+_OVERLOAD_COUNTS = ("preemptions", "restores", "unstaged", "spilled_blocks",
+                    "restored_blocks", "stage_stalls", "evictions")
+
+
+def unloaded_ttfts(srv, highs) -> list:
+    """TTFTs of the high prompts alone on ``srv`` (one segment's worth
+    of tokens, as ``benchmarks/serving_bench.py``'s ``_high_only_ttfts``
+    measures them), then every cached block evicted."""
+    for p in highs:
+        srv.submit(p, 4, priority=1)
+    done = srv.run()
+    srv.mgr.alloc.evict_cached()
+    return [r.ttft for r in done]
+
+
+def overload_drain(drive, lows, highs, samples, target: float, device
+                   ) -> tuple[list, list, list, float, list]:
+    """Submit the lows through ``drive`` (a server or a router), take
+    ``OVERLOAD_HEAD_STEPS`` steps, submit the highs (TTFT target
+    ``target``), drain. Returns (finished by rid, low rids, high rids,
+    wall s, the rids a server still held pending when the highs
+    arrived)."""
+    _sync(device)
+    t0 = time.perf_counter()
+    low_ids = [drive.submit(p, LOW_GEN, priority=0) for p in lows]
+    for _ in range(OVERLOAD_HEAD_STEPS):
+        drive.step()
+    pending = ([r.rid for r in drive.pending]
+               if hasattr(drive, "pending") else [])
+    high_ids = [drive.submit(p, HIGH_GEN, sp, priority=1,
+                             ttft_target=target)
+                for p, sp in zip(highs, samples)]
+    done = drive.run()
+    _sync(device)
+    return done, low_ids, high_ids, time.perf_counter() - t0, pending
+
+
+def _class_tails(done, high_ids) -> dict:
+    out = {}
+    for cls, keep in (("low", lambda r: r.rid not in high_ids),
+                      ("high", lambda r: r.rid in high_ids)):
+        xs = [r.ttft for r in done if keep(r)]
+        out[cls] = {"p50": float(np.percentile(xs, 50)),
+                    "p95": float(np.percentile(xs, 95))}
+    return out
+
+
+def overload_arm(srv, name: str, cfg, traffic, target: float,
+                 ample: list | None, smi: str) -> tuple[dict, list]:
+    """One arm of phase 13(a) on ``srv``: the drain with its launch
+    counts, counters (this drain's), admission order, spill / restore
+    host seconds, round trip and the leaves' addresses; gated as the
+    module docstring says. Returns its row and its tokens in arrival
+    order; ``ample`` is the ample drain's (None for that drain)."""
+    from repro_torch.kernels import ops as kops
+
+    lows, highs, samples = traffic
+    device = srv.device
+    before = {k: srv.stats[k] for k in _OVERLOAD_COUNTS}
+    spills0, peak0 = srv.spill.spills, srv.spill.peak_bytes
+    graphs0 = _programs(srv)
+    ptrs = _leaf_ptrs(srv)
+    kops.reset_launch_counts()
+    with counted_calls(srv) as calls, overload_probe(srv) as rec:
+        done, low_ids, high_ids, wall, pending = overload_drain(
+            srv, lows, highs, samples, target, device)
+    counts = kops.launch_counts()
+    want = expected_launches(srv.plan, cfg, calls["decode"],
+                             calls["prefill"])
+    gens = {**{r: LOW_GEN for r in low_ids}, **{r: HIGH_GEN for r in high_ids}}
+    by_rid = {r.rid: r.tokens for r in done}
+    # by arrival (lows, then highs): rids differ between servers
+    tokens = [by_rid.get(r) for r in low_ids + high_ids]
+    n_tok = sum(r.generated for r in done)
+    met = sum(r.generated for r in done
+              if r.rid not in high_ids or r.ttft <= target)
+    st = {k: srv.stats[k] - before[k] for k in _OVERLOAD_COUNTS}
+    adm = rec["admitted"]
+    if srv.scheduling == "edf":
+        ordered = all(adm.index(h) < adm.index(lo) for h in high_ids
+                      for lo in pending)
+    else:
+        ordered = adm == sorted(adm)
+    graphs = _programs(srv)
+    alloc = srv.mgr.alloc
+    row = {"phase": 13, "part": "13a", "arm": name, "arch": cfg.arch_id,
+           "layers": cfg.num_layers, "scheduling": srv.scheduling,
+           "num_blocks": alloc.num_blocks, "requests": len(done),
+           "generated": n_tok, "wall_s": wall, "tokens_per_s": n_tok / wall,
+           "ttft_s": _class_tails(done, high_ids), "ttft_target_s": target,
+           "high_ttft_s": [r.ttft for r in done if r.rid in high_ids],
+           "goodput_tokens_per_s": met / wall, **st,
+           "spill_region": {"spills": srv.spill.spills - spills0,
+                            "peak_bytes": max(srv.spill.peak_bytes, peak0)},
+           "spill_host_s": rec["spill_s"], "restore_host_s": rec["restore_s"],
+           "kv_round_trip": rec["round_trip"],
+           "admission_order": adm, "pending_at_high_arrival": pending,
+           "high_rids": high_ids, "priority_order_kept": ordered,
+           "decode_calls": calls["decode"], "prefill_calls": calls["prefill"],
+           "launches": {k: v for k, v in counts.items() if v},
+           "expected_launches": {k: v for k, v in want.items() if v},
+           "captures": graphs["captures"] - graphs0["captures"],
+           "replays": graphs["replays"] - graphs0["replays"],
+           "capture_s": graphs["capture_s"] - graphs0["capture_s"],
+           "nvidia_smi": smi}
+    if ample is not None:
+        row["tokens_unequal_to_ample"] = int(sum(
+            (a != b).sum() for a, b in zip(tokens, ample)))
+    emit(row)
+    check(len(done) == len(gens) and all(r.generated == gens[r.rid]
+                                         for r in done),
+          f"phase 13a {name}: not every request finished")
+    check(alloc.in_use == 0
+          and alloc.num_free + alloc.num_evictable == alloc.capacity
+          and len(srv.spill) == 0 and srv.spill.in_use_bytes == 0,
+          f"phase 13a {name}: pool or spill region not quiescent")
+    check(_leaf_ptrs(srv) == ptrs,
+          f"phase 13a {name}: a pool leaf moved")
+    if ample is None:
+        check(st["preemptions"] == 0 and st["restores"] == 0,
+              f"phase 13a {name}: the ample pool preempted {st}")
+    else:
+        check(st["preemptions"] > 0 and st["restores"] > 0,
+              f"phase 13a {name}: no preemption and restore {st}")
+        check(rec["round_trip"] is not None and rec["round_trip"]["equal"],
+              f"phase 13a {name}: KV round trip {rec['round_trip']}")
+        check(ordered, f"phase 13a {name}: admission order {adm} (highs "
+                       f"{high_ids}, pending at arrival {pending})")
+    if device.type == "cuda":
+        check(counts == want, f"phase 13a {name}: launches {counts} != "
+                              f"expected {want}")
+    return row, tokens
+
+
+def phase13_server(cfg, params, smi: str, device="cuda") -> dict:
+    """13(a): phase 2's model on one tight server (EDF, then FIFO after
+    its cached blocks are evicted) and on an ample pool (first the
+    highs alone, twice: the second gives the unloaded p95 TTFT; the
+    highs' target is twice that)."""
+    from repro_torch.launch.scheduler import PagedContinuousBatchingServer
+
+    traffic = overload_traffic(13, cfg.vocab_size)
+    ample = PagedContinuousBatchingServer(cfg, params, device=device,
+                                          **OVERLOAD_SERVER)
+    unloaded_ttfts(ample, traffic[1])
+    p95 = float(np.percentile(unloaded_ttfts(ample, traffic[1]), 95))
+    target = 2.0 * p95
+    _, ample_tokens = overload_arm(ample, "ample", cfg, traffic, target,
+                                   None, smi)
+    del ample
+    tight = PagedContinuousBatchingServer(
+        cfg, params, device=device, num_blocks=OVERLOAD_BLOCKS,
+        **OVERLOAD_SERVER)
+    rows = {}
+    for mode in ("edf", "fifo"):
+        tight.scheduling = mode
+        rows[mode], _ = overload_arm(tight, mode, cfg, traffic, target,
+                                     ample_tokens, smi)
+        tight.mgr.alloc.evict_cached()
+    emit({"phase": 13, "part": "13a", "summary": "EDF against FIFO",
+          "unloaded_high_ttft_p95_s": p95, "ttft_target_s": target,
+          **{f"{k}_{m}": rows[m][k] for m in rows
+             for k in ("tokens_per_s", "goodput_tokens_per_s",
+                       "preemptions", "restores")},
+          "nvidia_smi": smi})
+    return {"target": target, "traffic": traffic, "ample": ample_tokens}
+
+
+def overload_families(device="cuda") -> None:
+    """13(b): the three cache families at fp32 smoke size (the kernels
+    on), each on the tight server of ``tests/test_preemption.py`` against
+    an ample pool, greedy and sampled: equal tokens, preemption only on
+    the tight pool, both quiescent."""
+    from repro_torch import configs
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch.sampling import SamplingParams
+    from repro_torch.launch.scheduler import PagedContinuousBatchingServer
+    from repro_torch.models import transformer
+
+    for arch, kv in (("nemotron-4-15b", None), ("nemotron-4-15b", "int8"),
+                     ("deepseek-v3-671b", None)):
+        cfg = dataclasses.replace(configs.get_smoke_config(arch),
+                                  use_pallas=True)
+        if kv:
+            cfg = dataclasses.replace(cfg, kv_cache_dtype=torch.int8)
+        if cfg.num_experts:
+            cfg = dataclasses.replace(
+                cfg, capacity_factor=float(cfg.num_experts))
+        params = transformer.init(cfg, seed=0, device=device)
+        rng = np.random.RandomState(3)
+        reqs = [rng.randint(0, cfg.vocab_size, 6).astype(np.int32)
+                for _ in range(2)]
+        samples = [None, SamplingParams(temperature=0.8, top_k=40, seed=13)]
+        out = {}
+        for pool, nb in (("tight", 6), ("ample", None)):
+            srv = PagedContinuousBatchingServer(
+                cfg, params, device=device, num_blocks=nb, **TIGHT_SMOKE)
+            kops.reset_launch_counts()
+            for p, sp in zip(reqs, samples):
+                srv.submit(p, 18, sp)
+            done = srv.run()
+            alloc = srv.mgr.alloc
+            out[pool] = {
+                "tokens": [r.tokens for r in done],
+                # the kernels this family's drain ran
+                "launches": {k: v for k, v in kops.launch_counts().items()
+                             if v},
+                "preemptions": srv.stats.preemptions,
+                "restores": srv.stats.restores,
+                "quiescent": (alloc.in_use == 0 and len(srv.spill) == 0
+                              and srv.spill.in_use_bytes == 0)}
+        same = all(np.array_equal(a, b) for a, b in zip(
+            out["tight"].pop("tokens"), out["ample"].pop("tokens")))
+        emit({"phase": 13, "part": "13b", "arch": cfg.arch_id,
+              "kv_cache_dtype": str(cfg.kv_cache_dtype).replace(
+                  "torch.", ""), "tokens_equal": same, **out})
+        check(same and out["tight"]["quiescent"]
+              and out["ample"]["quiescent"],
+              f"phase 13b {cfg.arch_id}: tight != ample or not quiescent")
+        check(out["tight"]["preemptions"] > 0
+              and out["tight"]["restores"] > 0
+              and out["ample"]["preemptions"] == 0,
+              f"phase 13b {cfg.arch_id}: preemption {out}")
+
+
+def overload_fleet(cfg, params, ctx: dict, smi: str, device="cuda") -> None:
+    """13(c): a ``ReplicaRouter`` of two tight replicas sharing phase 2's
+    params, a seeded ``FaultInjector`` at every site, on 13(a)'s
+    traffic, eagerly (``disable_capture``: each replica would capture
+    its own keys, long segments among them, for one drain): every
+    request finishes, every pool and spill region ends empty."""
+    from repro_torch.launch import graphs
+    from repro_torch.launch.faults import FaultInjector
+    from repro_torch.launch.router import ReplicaRouter
+    from repro_torch.launch.scheduler import PagedContinuousBatchingServer
+
+    faults = FaultInjector(OVERLOAD_FAULT_SEED, **OVERLOAD_FAULTS)
+    reps = [PagedContinuousBatchingServer(
+        cfg, params, device=device, num_blocks=OVERLOAD_BLOCKS,
+        faults=faults, **OVERLOAD_SERVER) for _ in range(2)]
+    fleet = ReplicaRouter(reps, faults=faults, seed=13)
+    lows, highs, samples = ctx["traffic"]
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(graphs.disable_capture())
+        calls = [stack.enter_context(counted_calls(r)) for r in reps]
+        done, low_ids, high_ids, wall, _ = overload_drain(
+            fleet, lows, highs, samples, ctx["target"], device)
+    gens = {**{r: LOW_GEN for r in low_ids}, **{r: HIGH_GEN for r in high_ids}}
+    n_tok = sum(r.generated for r in done)
+    tot = fleet.stats.totals
+    row = {"phase": 13, "part": "13c", "arch": cfg.arch_id,
+           "layers": cfg.num_layers, "replicas": len(reps),
+           "requests": len(done), "generated": n_tok, "wall_s": wall,
+           "tokens_per_s": n_tok / wall,
+           "ttft_s": _class_tails(done, high_ids),
+           "stolen": fleet.stats.stolen,
+           "dispatch_errors": fleet.stats.dispatch_errors,
+           "quarantine_events": fleet.stats.quarantine_events,
+           "faults_injected": dict(faults.injected),
+           "decode_calls": [c["decode"] for c in calls],
+           "prefill_calls": [c["prefill"] for c in calls],
+           **{k: tot[k] for k in _OVERLOAD_COUNTS},
+           "captured": False, "nvidia_smi": smi}
+    emit(row)
+    check(len(done) == len(gens) and all(r.generated == gens[r.rid]
+                                         for r in done),
+          "phase 13c: not every request finished")
+    check(all(r.mgr.alloc.in_use == 0 and len(r.spill) == 0
+              and r.spill.in_use_bytes == 0 and r.mgr.alloc.num_free
+              + r.mgr.alloc.num_evictable == r.mgr.alloc.capacity
+              for r in reps), "phase 13c: a replica is not quiescent")
+    check({s.split(":")[0] for s in faults.injected}
+          == set(OVERLOAD_FAULTS["rates"]),
+          f"phase 13c: a fault site never fired {dict(faults.injected)}")
+
+
+# ---------------------------------------------------------------------------
 # Phase 8: the training path
 # ---------------------------------------------------------------------------
 
@@ -2446,11 +2865,11 @@ def trainer_resume() -> dict:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,10,11,12",
+    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,10,11,12,13",
                     help="comma-separated subset of phases to run")
     ap.add_argument("--layers", type=int, default=None,
-                    help="cut the depth of the full-width phases 2, 5 "
-                         "and 9")
+                    help="cut the depth of the full-width phases 2, 5, "
+                         "9 and 13")
     ap.add_argument("--stage-capture-after", type=int, default=None,
                     help="the paged servers' stage_capture_after (default: "
                          "the server's own)")
@@ -2501,7 +2920,7 @@ def main() -> None:
         autograd_refusals()
     served = {}
     params = None
-    if phases & {2, 5, 9}:
+    if phases & {2, 5, 9, 13}:
         cfg, params, init_s = full_width_params(args.layers)
         row, tokens = full_width(2, cfg, params, init_s)
         served["sidebar"] = row
@@ -2511,6 +2930,17 @@ def main() -> None:
             phase9_server(cfg, params)
             phase9_slots(cfg, params)
             phase9_paged(cfg, params)
+        if 13 in phases:
+            t13 = time.perf_counter()
+            ctx = phase13_server(cfg, params, smi)
+            t13a = time.perf_counter()
+            overload_fleet(cfg, params, ctx, smi)
+            t13c = time.perf_counter()
+            overload_families()
+            emit({"phase": 13, "host_s": {
+                "13a": t13a - t13, "13c": t13c - t13a,
+                "13b": time.perf_counter() - t13c}})
+            torch.cuda.empty_cache()
         if 8 not in phases or cfg.num_layers != D_LAYERS:
             params = None
             torch.cuda.empty_cache()

@@ -4,10 +4,10 @@ pool as torch tensors (mirror of ``repro.launch.kvpool``).
 The host side — ``BlockAllocator`` (free list, refcounts, explicit
 ``free -> staged -> active (+ cached)`` lifecycle, hash-consed prefix
 index with LRU eviction), the prefix/chunk keys, ``validate_tables``,
-``RequestBlocks`` and ``PagedKVManager`` — is ported close to verbatim.
-Left out with the features that use them: spill/restore (preemption),
-spare scratch rows (speculative decoding), affinity probes (the router)
-and the fault hook.
+``RequestBlocks`` and ``PagedKVManager`` with lazy growth
+(``ensure_span``), spill / restore (preemption), the router's affinity
+probes and the fault hook — is ported close to verbatim. Spare scratch
+rows stay with speculative decoding (ROADMAP Queue 1 item 5).
 
 Device side, ``KVPool`` holds the model's own per-layer cache at
 ``batch = num_blocks + 1`` and ``max_len = block_size``: every leaf has
@@ -18,6 +18,10 @@ leaf's position axis from the model's cache shapes, as the JAX package's
 ``probe_length_axes`` does, so ``gather_blocks``, ``scatter_blocks`` and
 ``copy_blocks`` serve every family. The extra row P is the drop sink of
 out-of-table writes (``models.attention``); no table names it.
+``read_blocks`` / ``write_blocks`` move whole blocks of every leaf
+between the pool and host memory (the spill payload, CPU tensors of the
+pool's own dtypes: numpy has no bf16); ``write_blocks`` assigns into the
+existing leaves, whose addresses the captured segment graphs hold.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import collections
 import dataclasses
 import enum
 import hashlib
+from typing import Callable
 
 import numpy as np
 import torch
@@ -107,6 +112,10 @@ class BlockAllocator:
         self._index: dict[bytes, int] = {}
         self._keys_of: dict[int, list[bytes]] = {}
         self.counters = PoolCounters()
+        # fault injection (launch.faults): consulted at every alloc();
+        # True makes the alloc raise KVPoolError, and every caller rolls
+        # back atomically
+        self.fault_hook: Callable[[], bool] | None = None
 
     @property
     def capacity(self) -> int:
@@ -124,6 +133,10 @@ class BlockAllocator:
     def in_use(self) -> int:
         return self.capacity - self.num_free - self.num_evictable
 
+    @property
+    def occupancy(self) -> float:
+        return self.in_use / self.capacity
+
     def state(self, bid: int) -> BlockState:
         return self._state[bid]
 
@@ -140,7 +153,10 @@ class BlockAllocator:
 
     def alloc(self) -> int:
         """free -> staged; evicts the LRU cached block when the free list
-        is dry; raises ``KVPoolError`` when nothing is left."""
+        is dry; raises ``KVPoolError`` when nothing is left, or when the
+        fault hook fires."""
+        if self.fault_hook is not None and self.fault_hook():
+            raise KVPoolError("injected allocation failure (fault harness)")
         if self._free:
             bid = self._free.popleft()
         elif self._evictable:
@@ -203,9 +219,37 @@ class BlockAllocator:
             self._state[bid] = BlockState.FREE
             self._free.append(bid)
 
+    def evict_cached(self, n: int | None = None) -> int:
+        """Force-evict up to ``n`` cached blocks LRU-first (all when
+        ``n`` is None): their index entries drop and they go back to the
+        free list. Only refcount-0 blocks are cached, so no live owner
+        (nor a spilled request, which owns nothing) loses a block. The
+        eviction-storm site."""
+        count = 0
+        while self._evictable and (n is None or count < n):
+            bid, _ = self._evictable.popitem(last=False)
+            self._drop_keys(bid)
+            self._state[bid] = BlockState.FREE
+            self._free.append(bid)
+            self.counters.evictions += 1
+            count += 1
+        return count
+
     def _drop_keys(self, bid: int) -> None:
         for key in self._keys_of.pop(bid, []):
             del self._index[key]
+
+    def lookup(self, key: bytes) -> int | None:
+        self.counters.prefix_block_lookups += 1
+        bid = self._index.get(key)
+        if bid is not None:
+            self.counters.prefix_block_hits += 1
+        return bid
+
+    def peek(self, key: bytes) -> int | None:
+        """Index probe without side effects: no counters, no LRU touch
+        (the router probes every replica a request)."""
+        return self._index.get(key)
 
     def lookup_any(self, keys) -> int | None:
         """One counted lookup across alias keys naming the same content."""
@@ -299,6 +343,50 @@ class KVPool:
             for leaf in layer.values():
                 leaf[d] = leaf[s]
 
+    def read_blocks(self, bids: list[int]) -> list:
+        """Device -> host copy of whole blocks, one per-layer list of
+        ``{leaf: tensor}`` per block, each leaf in the pool's dtype (a
+        later ``write_blocks`` round-trips bit for bit). On the card the
+        copies land in pinned memory, with one synchronize for them
+        all."""
+        if not bids:
+            return []
+        dev = _device(self.cache)
+        idx = torch.as_tensor(bids, device=dev)
+        cuda = dev.type == "cuda"
+        host = []
+        for layer in self.cache:
+            out = {}
+            for name, leaf in layer.items():
+                rows = leaf.index_select(0, idx)
+                dst = torch.empty(rows.shape, dtype=rows.dtype,
+                                  pin_memory=cuda)
+                dst.copy_(rows, non_blocking=cuda)
+                out[name] = dst
+            host.append(out)
+        if cuda:
+            torch.cuda.synchronize(dev)
+        return [[{name: t[j] for name, t in layer.items()}
+                 for layer in host] for j in range(len(bids))]
+
+    def write_blocks(self, bids: list[int], payloads: list) -> None:
+        """Host -> device: block payloads (as ``read_blocks`` gives
+        them) written into pool blocks ``bids`` of every leaf, in place —
+        the leaves keep their addresses, which the captured programs
+        hold. From pinned memory the copies are asynchronous, ordered
+        before the next segment on the stream."""
+        for bid, payload in zip(bids, payloads):
+            for layer, host in zip(self.cache, payload):
+                for name, leaf in layer.items():
+                    leaf[bid].copy_(host[name], non_blocking=True)
+
+
+def payload_nbytes(blocks: list) -> int:
+    """Bytes of a spill payload's blocks: every leaf of every block."""
+    return sum(t.numel() * t.element_size()
+               for block in blocks for layer in block
+               for t in layer.values())
+
 
 def gather_blocks(cache: list, tables, pos_axes: list) -> list:
     """Pool -> dense slab view per layer: each leaf's block axis moves
@@ -376,8 +464,11 @@ class RequestBlocks:
 class PagedKVManager:
     """Allocator + device pool + prefix index, with request-granular ops:
     ``begin_request`` (prefix splice + atomic span allocation),
-    ``publish_prompt`` (activate + hash-cons), ``ensure_exclusive``
-    (copy-on-write), ``release_request``."""
+    ``ensure_span`` (lazy growth), ``publish_prompt`` (activate +
+    hash-cons), ``ensure_exclusive`` (copy-on-write),
+    ``spill_request`` / ``restore_request`` (preemption),
+    ``release_request``, and the router's side-effect-free probes
+    ``prefix_affinity`` / ``chunk_affinity``."""
 
     def __init__(self, api, cfg, *, num_blocks: int, block_size: int,
                  device) -> None:
@@ -398,6 +489,34 @@ class PagedKVManager:
         cks = chunk_keys(prompt, n_blocks, self.block_size)
         return [(cks[j], prefix_key(prompt, (j + 1) * self.block_size))
                 for j in range(n_blocks)]
+
+    def _peek_block(self, keys: tuple[bytes, bytes]) -> int | None:
+        for key in keys:
+            bid = self.alloc.peek(key)
+            if bid is not None:
+                return bid
+        return None
+
+    def prefix_affinity(self, prompt: np.ndarray) -> int:
+        """Leading full ``prompt[:-1]`` blocks this pool holds (``peek``
+        only: no counter or LRU side effects)."""
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        n_full = (int(prompt.size) - 1) // self.block_size
+        hits = 0
+        for keys in self._prompt_keys(prompt, n_full):
+            if self._peek_block(keys) is None:
+                break
+            hits += 1
+        return hits
+
+    def chunk_affinity(self, prompt: np.ndarray) -> int:
+        """Full ``prompt[:-1]`` blocks this pool holds, interior chunk
+        boundaries included (>= ``prefix_affinity``; ``peek`` only) —
+        the router's steering signal."""
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        n_full = (int(prompt.size) - 1) // self.block_size
+        return sum(1 for keys in self._prompt_keys(prompt, n_full)
+                   if self._peek_block(keys) is not None)
 
     def check_span(self, rb: RequestBlocks, end: int) -> None:
         """A segment about to write positions up to ``end - 1`` must stay
@@ -437,16 +556,108 @@ class PagedKVManager:
         for _, bid in hits:
             self.alloc.retain(bid)
         fresh_needed = need - len(hits)
-        if not self.alloc.can_alloc(fresh_needed):
+        fresh: list[int] = []
+        try:
+            if not self.alloc.can_alloc(fresh_needed):
+                raise KVPoolError("pool cannot cover the span")
+            for _ in range(fresh_needed):
+                fresh.append(self.alloc.alloc())
+        except KVPoolError:
+            # an alloc can raise past the check (an injected failure):
+            # unwind the partial allocation and the splice's retains
+            for bid in fresh:
+                self.alloc.release(bid)
             for _, bid in hits:
                 self.alloc.release(bid)
             return None
-        fresh = [self.alloc.alloc() for _ in range(fresh_needed)]
         by_idx = dict(hits)
         it = iter(fresh)
         bids = [by_idx[j] if j in by_idx else next(it) for j in range(need)]
         return RequestBlocks(bids=bids, prefix_hit_blocks=leading,
                              span=need * bs, hit_idx=tuple(sorted(by_idx)))
+
+    def ensure_span(self, rb: RequestBlocks, n_positions: int) -> bool:
+        """Lazy growth: extend ``rb`` with fresh exclusive (active)
+        blocks until it covers ``n_positions`` write positions. Atomic:
+        on exhaustion or an injected failure the partial growth unwinds
+        and ``rb`` keeps its span — False is the preemption cue."""
+        need = self.blocks_needed(n_positions)
+        if need <= len(rb.bids):
+            return True
+        got: list[int] = []
+        try:
+            for _ in range(need - len(rb.bids)):
+                bid = self.alloc.alloc()
+                self.alloc.activate(bid)
+                got.append(bid)
+        except KVPoolError:
+            for bid in got:
+                self.alloc.release(bid)
+            return False
+        rb.bids.extend(got)
+        rb.span = len(rb.bids) * self.block_size
+        return True
+
+    def spill_request(self, rb: RequestBlocks, valid_end: int) -> dict:
+        """Preemption: copy the blocks holding the request's first
+        ``valid_end`` positions to the host, then release every block it
+        owns (shared prefix blocks drop to cached). Returns the payload
+        of a spill-region entry: ``blocks`` (``KVPool.read_blocks``),
+        ``n_blocks`` and ``nbytes``."""
+        n = min(self.blocks_needed(valid_end), len(rb.bids))
+        blocks = self.pool.read_blocks(rb.bids[:n])
+        self.release_request(rb)
+        return {"blocks": blocks, "n_blocks": n,
+                "nbytes": payload_nbytes(blocks)}
+
+    def restore_request(self, prompt: np.ndarray, payload: dict
+                        ) -> RequestBlocks | None:
+        """Resume a spilled request: one pool block per spilled block —
+        a full ``prompt[:-1]`` block still in the prefix index is
+        spliced (the same content by hash-consing), any other gets a
+        fresh block and the host copy — then the full prompt blocks are
+        published again. Atomic: on failure every acquired block unwinds
+        and the payload stays with the caller."""
+        bs = self.block_size
+        n = payload["n_blocks"]
+        n_full = (int(prompt.size) - 1) // bs
+        n_walk = min(n_full, n)
+        keys = self._prompt_keys(prompt, n_walk)
+        acquired: list[tuple[int, bool]] = []   # (bid, spliced?)
+        try:
+            for j in range(n):
+                bid = self.alloc.lookup_any(keys[j]) if j < n_walk else None
+                if bid is not None:
+                    self.alloc.retain(bid)
+                    acquired.append((bid, True))
+                else:
+                    acquired.append((self.alloc.alloc(), False))
+        except KVPoolError:
+            for bid, _ in acquired:
+                self.alloc.release(bid)
+            return None
+        fresh = [bid for bid, spliced in acquired if not spliced]
+        self.pool.write_blocks(
+            fresh, [payload["blocks"][j] for j, (_, spliced)
+                    in enumerate(acquired) if not spliced])
+        for bid in fresh:
+            self.alloc.activate(bid)
+        spliced_js = tuple(j for j, (_, spliced) in enumerate(acquired)
+                           if spliced)
+        leading = 0
+        for j in spliced_js:
+            if j != leading:
+                break
+            leading += 1
+        rb = RequestBlocks(bids=[bid for bid, _ in acquired],
+                           prefix_hit_blocks=leading, span=n * bs,
+                           hit_idx=spliced_js)
+        for j in range(n_walk):
+            bid = rb.bids[j]
+            if not self.alloc.is_registered(bid):
+                for key in keys[j]:
+                    self.alloc.register(key, bid)
+        return rb
 
     def publish_prompt(self, prompt: np.ndarray, rb: RequestBlocks) -> None:
         """At admission: staged blocks go active and every full

@@ -49,11 +49,26 @@ a key's first call, staging rounds at its ``stage_capture_after``-th
 keys is the JAX package's; the port's programs take per-row positions
 in both, since a graph cannot take a host scalar.
 
-Differences from the JAX servers: the paged server reserves a request's
-whole KV span when its staging starts (lazy growth exists to feed
-preemption, which is not ported). Preemption/spill, EDF scores,
-priorities, faults, speculative decoding, RAG and tensor parallelism are
-not ported: their arguments raise (``serve.UNPORTED``).
+**Overload** — as in the JAX servers: requests carry a priority class
+and SLO targets (``submit(..., priority=, ttft_target=, itl_target=)``),
+and ``scheduling="edf"`` (the default) orders staging, admission and
+preemption by (priority, TTFT deadline, arrival), ``"fifo"`` by arrival.
+The paged server allocates lazily: staging takes the prompt's blocks
+only, and ``_grow_active`` grows each active span block by block before
+a segment. When the pool cannot cover a better-scored request, the
+scheduler reclaims from strictly worse holders: a staging entry is
+unstaged, an active row is spilled (its tokens synced, its KV blocks
+copied to host memory and parked in a ``core.sidebar.SidebarSpillRegion``,
+every pool block released) and restored later, position-exact. Spill
+and restore run at segment boundaries, never inside a capture, and a
+restore writes into the pool's leaves in place. ``faults=`` (a
+``launch.faults.FaultInjector``) fires at the ``alloc``,
+``evict_storm`` and ``stage_stall`` sites; ``take_spilled`` /
+``submit_spilled`` hand spilled requests to the replica router
+(``launch.router``).
+
+Differences from the JAX servers: speculative decoding, RAG and tensor
+parallelism are not ported: their arguments raise (``serve.UNPORTED``).
 
 On the CPU the plain paths accumulate in a fixed order (see
 ``kernels.ref``), so slot == paged == slab == solo ``serve.generate``
@@ -64,6 +79,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import math
 import time
 from typing import Any, Callable, Sequence
 
@@ -77,12 +93,14 @@ from repro_torch.core.modes import (
     LayerPlan,
     coerce_layer_plan,
 )
+from repro_torch.core.sidebar import SidebarSpillRegion
 from repro_torch.device import resolve_device
 from repro_torch.ft.watchdog import SegmentWatchdog
 from repro_torch.kernels import ops as kops
 from repro_torch.launch import graphs
 from repro_torch.launch import kvpool as kvp
 from repro_torch.launch import sampling
+from repro_torch.launch.faults import FaultInjector
 from repro_torch.launch.sampling import SamplingParams
 from repro_torch.launch.serve import (
     PER_LAYER_PLAN_FAMILIES,
@@ -124,13 +142,26 @@ class FinishedRequest:
 
 @dataclasses.dataclass(eq=False)
 class _Request:
+    """A submitted request while it waits (pending, staging, spilled).
+    ``priority`` is its class (higher wins); ``ttft_target`` makes the
+    EDF deadline (no target: deadline inf, best-effort);
+    ``itl_target`` is recorded; ``seq`` (arrival) breaks every tie, so
+    scores are a strict total order."""
+
     rid: int
     prompt: np.ndarray
     max_new: int
     sample: SamplingParams | None = None
+    priority: int = 0
+    ttft_target: float | None = None
+    itl_target: float | None = None
     submit_t: float = 0.0
-    seq: int = 0              # arrival index: the scheduling order
-    priority: int = 0         # one class until EDF is ported
+    seq: int = 0
+
+    @property
+    def deadline(self) -> float:
+        return (math.inf if self.ttft_target is None
+                else self.submit_t + self.ttft_target)
 
 
 @dataclasses.dataclass
@@ -182,15 +213,24 @@ class SchedulerStats:
     pool_blocks: int = 0
     pool_in_use: int = 0
     pool_in_use_peak: int = 0
+    # overload (preemption / cancel / watchdog)
+    preemptions: int = 0       # active slots spilled to the host region
+    restores: int = 0          # spilled requests spliced back
+    unstaged: int = 0          # staging entries reclaimed back to pending
+    spilled_blocks: int = 0
+    restored_blocks: int = 0
     cancelled: int = 0
     watchdog_events: int = 0   # segments past k * median segment wall
-    # latency samples (seconds) per priority class (one class, 0, until
-    # EDF priorities are ported)
+    # latency samples (seconds) per priority class; ``router.sum_stats``
+    # concatenates them
     ttft_s: dict = dataclasses.field(default_factory=dict)
     itl_s: dict = dataclasses.field(default_factory=dict)
 
     def __getitem__(self, key: str) -> int:
         return getattr(self, key)
+
+    def __setitem__(self, key: str, value: int) -> None:
+        setattr(self, key, value)
 
     def record_ttft(self, priority: int, seconds: float) -> None:
         self.ttft_s.setdefault(priority, []).append(float(seconds))
@@ -221,6 +261,10 @@ class SchedulerStats:
         return self.prefix_block_hits / max(self.prefix_prompt_blocks, 1)
 
     @property
+    def pool_occupancy(self) -> float:
+        return self.pool_in_use / max(self.pool_blocks, 1)
+
+    @property
     def wasted_step_frac(self) -> float:
         return self.wasted_steps / max(self.decode_steps, 1)
 
@@ -244,9 +288,14 @@ class SchedulerStats:
                 f"{self.stage_chunks} staged chunks, "
                 f"{self.stage_stalls} stalls, {self.cow_copies} COW, "
                 f"{self.evictions} evictions")
-        if self.cancelled or self.watchdog_events:
-            lines.append(f"robustness: {self.cancelled} cancelled, "
-                         f"{self.watchdog_events} watchdog events")
+        if (self.preemptions or self.restores or self.cancelled
+                or self.watchdog_events):
+            lines.append(
+                f"robustness: {self.preemptions} preemptions "
+                f"({self.spilled_blocks} blocks spilled), "
+                f"{self.restores} restores, {self.unstaged} unstaged, "
+                f"{self.cancelled} cancelled, "
+                f"{self.watchdog_events} watchdog events")
         return "\n".join(lines)
 
 
@@ -264,9 +313,14 @@ class ContinuousBatchingServer:
                  num_slots: int = 4, max_len: int = 256,
                  buckets: Sequence[int] = DEFAULT_BUCKETS,
                  segment: int = 8, admit_batch: int = 2,
+                 scheduling: str = "edf",
+                 faults: FaultInjector | None = None,
                  plan: LayerPlan | ExecutionPlan | ExecutionMode | str |
                  None = None, **kw) -> None:
         _reject_unported(kw)
+        if scheduling not in ("edf", "fifo"):
+            raise ValueError(
+                f"scheduling must be 'edf' or 'fifo', got {scheduling!r}")
         if cfg.family not in _SUPPORTED_FAMILIES:
             raise ValueError(
                 f"continuous batching supports families {_SUPPORTED_FAMILIES}"
@@ -307,8 +361,11 @@ class ContinuousBatchingServer:
         self._done_raw: list[tuple] = []
         self._deferred = False             # admission hysteresis armed
         self.stats = SchedulerStats()
+        # "edf": (priority, deadline, arrival); "fifo": arrival only
+        self.scheduling = scheduling
+        self.faults = faults
         self._seq = 0
-        self._clock = time.monotonic
+        self._clock = time.monotonic       # injectable (deterministic tests)
         self._timer = time.perf_counter
         self.watchdog = SegmentWatchdog()
         self._init_kv()
@@ -358,13 +415,15 @@ class ContinuousBatchingServer:
         return n
 
     def submit(self, prompt, max_new_tokens: int,
-               sample: SamplingParams | None = None, **kw) -> int:
+               sample: SamplingParams | None = None, *,
+               priority: int = 0, ttft_target: float | None = None,
+               itl_target: float | None = None) -> int:
         """Enqueue a request; returns its rid. ``sample=None`` decodes
         greedy; a ``SamplingParams`` gives the request its own
-        temperature / truncation / seed."""
-        if kw:
-            raise NotImplementedError(
-                f"not ported yet: {sorted(kw)} ({UNPORTED['priority']})")
+        temperature / truncation / seed. ``priority`` ranks it under
+        EDF (higher first); ``ttft_target`` (seconds) sets its deadline
+        (submit time + target), ``itl_target`` is recorded. Without a
+        target a request is best-effort behind every deadline."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size < 1:
             raise ValueError("empty prompt")
@@ -376,15 +435,20 @@ class ContinuousBatchingServer:
                 f"max_len {self.max_len}")
         rid = self._next_rid
         self._next_rid += 1
-        self.pending.append(_Request(rid, prompt, int(max_new_tokens),
-                                     sample, submit_t=self._clock(),
-                                     seq=self._seq))
+        self.pending.append(_Request(
+            rid, prompt, int(max_new_tokens), sample,
+            priority=int(priority), ttft_target=ttft_target,
+            itl_target=itl_target, submit_t=self._clock(), seq=self._seq))
         self._seq += 1
         return rid
 
     def _score(self, req: _Request) -> tuple:
-        """Scheduling order, smaller = sooner: arrival."""
-        return (req.seq,)
+        """Scheduling order, smaller = sooner. EDF: priority class first
+        (higher wins), the earliest deadline inside a class, arrival as
+        the strict tie-break. FIFO: arrival only."""
+        if self.scheduling == "fifo":
+            return (req.seq,)
+        return (-req.priority, req.deadline, req.seq)
 
     def cancel(self, rid: int) -> bool:
         for req in self.pending:
@@ -722,13 +786,29 @@ def _hole_spans(hit_idx: Sequence[int], target: int,
 
 
 @dataclasses.dataclass(eq=False)
+class _Spilled:
+    """A preempted request waiting to resume: its generated tokens on
+    the host, its KV payload in the spill region (keyed by rid). It
+    holds no pool block."""
+
+    req: _Request
+    generated: int
+    tokens: np.ndarray        # (generated,) int32
+    valid_end: int            # KV valid on [0, valid_end) at restore
+    n_blocks: int
+    first_t: float | None     # the first token's time (TTFT keeps it)
+
+
+@dataclasses.dataclass(eq=False)
 class _Staging:
-    """A request whose prompt KV is being staged into the pool;
-    ``todo`` holds the position spans still to prefill, in order."""
+    """A request whose prompt KV is being staged into the pool, or a
+    restored spill (``resume``) whose KV is already in place; ``todo``
+    holds the position spans still to prefill, in order."""
 
     req: _Request
     rb: kvp.RequestBlocks
     todo: list[list[int]]
+    resume: _Spilled | None = None
 
     @property
     def done(self) -> bool:
@@ -764,7 +844,9 @@ class PagedContinuousBatchingServer(ContinuousBatchingServer):
     def __init__(self, cfg: ModelConfig, params, *, block_size: int = 16,
                  num_blocks: int | None = None,
                  prefill_chunk: int | None = None,
-                 stage_ahead: int | None = None, kernel: str = "paged",
+                 stage_ahead: int | None = None,
+                 spill_region: SidebarSpillRegion | None = None,
+                 kernel: str = "paged",
                  stage_capture_after: int = STAGE_CAPTURE_AFTER,
                  **kw) -> None:
         if kernel not in ("paged", "slab"):
@@ -776,8 +858,12 @@ class PagedContinuousBatchingServer(ContinuousBatchingServer):
         self.prefill_chunk = int(prefill_chunk or block_size)
         self._stage_ahead_arg = stage_ahead
         self.stage_capture_after = int(stage_capture_after)
+        self._spill_region_arg = spill_region
         super().__init__(cfg, params, **kw)
         self._prefill_step = make_prefill_step(self.cfg, self.api)
+        if self.faults is not None:
+            # the allocation-failure site: every alloc consults it
+            self.mgr.alloc.fault_hook = lambda: self.faults.fire("alloc")
 
     def _init_kv(self) -> None:
         if self.max_len % self.block_size:
@@ -801,7 +887,14 @@ class PagedContinuousBatchingServer(ContinuousBatchingServer):
         self._slot_rb: list[kvp.RequestBlocks | None] = (
             [None] * self.num_slots)
         self._staging: collections.deque[_Staging] = collections.deque()
-        # slot -> correction token of rows admitted this boundary
+        # preempted requests; their payloads live in the spill region,
+        # keyed by rid (an empty region is falsy: test against None)
+        self.spill = (self._spill_region_arg
+                      if self._spill_region_arg is not None
+                      else SidebarSpillRegion())
+        self._spilled: list[_Spilled] = []
+        # slot -> correction token of rows admitted this boundary (a
+        # row spilled before the dispatch drops its entry)
         self._admit_pending: dict[int, int] = {}
         self.stats.pool_blocks = self.mgr.alloc.capacity
 
@@ -823,12 +916,22 @@ class PagedContinuousBatchingServer(ContinuousBatchingServer):
         self.stats.pool_in_use_peak = c.in_use_peak
 
     def _has_work(self) -> bool:
-        return super()._has_work() or bool(self._staging)
+        return (super()._has_work() or bool(self._staging)
+                or bool(self._spilled))
+
+    @property
+    def load(self) -> int:
+        return super().load + len(self._staging) + len(self._spilled)
 
     def submit(self, prompt, max_new_tokens: int,
-               sample: SamplingParams | None = None, **kw) -> int:
+               sample: SamplingParams | None = None, *,
+               priority: int = 0, ttft_target: float | None = None,
+               itl_target: float | None = None) -> int:
         prompt_arr = np.asarray(prompt, np.int32).reshape(-1)
         if prompt_arr.size >= 1 and max_new_tokens >= 1:
+            # allocation is lazy, but the worst-case span must fit the
+            # pool alone, or the request could preempt everything and
+            # still wedge
             need = self.mgr.blocks_needed(
                 prompt_arr.size + max_new_tokens - 1)
             if need > self.mgr.alloc.capacity:
@@ -836,13 +939,21 @@ class PagedContinuousBatchingServer(ContinuousBatchingServer):
                     f"request needs {need} blocks, pool holds "
                     f"{self.mgr.alloc.capacity} — raise num_blocks or "
                     "shrink the request")
-        return super().submit(prompt, max_new_tokens, sample, **kw)
+        return super().submit(prompt, max_new_tokens, sample,
+                              priority=priority, ttft_target=ttft_target,
+                              itl_target=itl_target)
 
     def cancel(self, rid: int) -> bool:
         for st in self._staging:
             if st.req.rid == rid:
                 self._staging.remove(st)
                 self.mgr.release_request(st.rb)
+                self.stats.cancelled += 1
+                return True
+        for sp in self._spilled:
+            if sp.req.rid == rid:
+                self._spilled.remove(sp)
+                self.spill.release(rid)
                 self.stats.cancelled += 1
                 return True
         return super().cancel(rid)
@@ -902,14 +1013,27 @@ class PagedContinuousBatchingServer(ContinuousBatchingServer):
         self.stats.stage_chunks += k
 
     def _stage(self, *, catch_up: bool) -> None:
-        """Start staging the best-scored pending requests (prefix splice
-        + whole-span allocation), then advance every incomplete entry by
-        one chunk round — or to completion when nothing decodes
-        (``catch_up``)."""
-        while self.pending and len(self._staging) < self.stage_ahead:
+        """Restore spilled requests (they are furthest along), start
+        staging the best-scored pending requests (prefix splice + the
+        prompt's blocks: the span grows lazily, ``_grow_active``), then
+        advance every incomplete entry by one chunk round — or to
+        completion when nothing decodes (``catch_up``). Under pool
+        pressure a better-scored request reclaims from strictly worse
+        holders (``_reclaim_for``); a full staging queue yields its
+        worst entry to a strictly better one (the EDF jump)."""
+        self._try_restore()
+        while self.pending:
             req = min(self.pending, key=self._score)
-            rb = self.mgr.begin_request(
-                req.prompt, int(req.prompt.size) + req.max_new - 1)
+            if len(self._staging) >= self.stage_ahead:
+                worst = max(self._staging,
+                            key=lambda st: self._score(st.req))
+                if not self._score(req) < self._score(worst.req):
+                    break
+                self._unstage(worst)
+            n_stage = max(int(req.prompt.size) - 1, 1)
+            rb = self.mgr.begin_request(req.prompt, n_stage)
+            while rb is None and self._reclaim_for(self._score(req)):
+                rb = self.mgr.begin_request(req.prompt, n_stage)
             if rb is None:
                 self.stats.stage_stalls += 1
                 break
@@ -918,6 +1042,10 @@ class PagedContinuousBatchingServer(ContinuousBatchingServer):
                 req=req, rb=rb,
                 todo=_hole_spans(rb.hit_idx, int(req.prompt.size) - 1,
                                  self.block_size)))
+        if self.faults is not None and self.faults.fire("stage_stall"):
+            # an injected wedged round: no prefill this boundary
+            self.stats.stage_stalls += 1
+            return
         while True:
             work = [st for st in self._staging if not st.done]
             if not work:
@@ -926,11 +1054,130 @@ class PagedContinuousBatchingServer(ContinuousBatchingServer):
             if not catch_up:
                 return
 
+    # -- preemption: spill / restore / reclaim -----------------------------
+    def _spill_payload(self, rid: int, rb: kvp.RequestBlocks,
+                       valid_end: int) -> int:
+        """Copy ``rb``'s first ``valid_end`` positions of KV to the
+        spill region under ``rid`` and release its blocks; returns the
+        blocks spilled."""
+        payload = self.mgr.spill_request(rb, valid_end)
+        self.spill.stage(rid)
+        self.spill.commit(rid, payload, payload["nbytes"])
+        self.stats.preemptions += 1
+        self.stats.spilled_blocks += payload["n_blocks"]
+        return payload["n_blocks"]
+
+    def _spill_slot(self, i: int) -> None:
+        """Preempt the request in slot ``i`` at a segment boundary: sync
+        its generated tokens, spill its KV, free the slot. Restore
+        resumes it position-exact (the PRNG is keyed by position)."""
+        slot = self.slots[i]
+        tokens = self.slot_tokens(i)
+        n = self._spill_payload(slot.rid, self._slot_rb[i], slot.pos)
+        self._spilled.append(_Spilled(
+            req=slot.req, generated=slot.generated, tokens=tokens,
+            valid_end=slot.pos, n_blocks=n, first_t=slot.first_t))
+        self._slot_rb[i] = None
+        self._tables[i] = kvp.SCRATCH_BLOCK
+        self._admit_pending.pop(i, None)   # dies with the slot
+        self.slots[i] = _Slot()
+
+    def _unstage(self, st: _Staging) -> None:
+        """Reclaim a staging entry's blocks: a fresh entry goes back to
+        pending (its prompt KV is recomputable), a restored spill is
+        spilled again (its generated KV is not)."""
+        self._staging.remove(st)
+        if st.resume is None:
+            self.mgr.release_request(st.rb)
+            self.pending.append(st.req)
+            self.stats.unstaged += 1
+        else:
+            sp = st.resume
+            self._spill_payload(sp.req.rid, st.rb, sp.valid_end)
+            self._spilled.append(sp)
+
+    def _reclaim_for(self, score: tuple,
+                     exclude_slot: int | None = None) -> bool:
+        """Free pool blocks for a request scoring ``score`` from the
+        worst strictly worse holder: a staging entry is unstaged, an
+        active slot spilled. False when none is worse (scores are a
+        strict total order, so A can preempt B and never B A)."""
+        victims: list[tuple[tuple, int, object]] = []
+        for st in self._staging:
+            victims.append((self._score(st.req), 0, st))
+        for i, slot in enumerate(self.slots):
+            if i != exclude_slot and not slot.free:
+                victims.append((self._score(slot.req), 1, i))
+        victims = [v for v in victims if v[0] > score]
+        if not victims:
+            return False
+        _, kind, victim = max(victims, key=lambda v: v[0])
+        if kind == 0:
+            self._unstage(victim)
+        else:
+            self._spill_slot(victim)
+        return True
+
+    def _try_restore(self) -> None:
+        """Splice spilled requests back, best score first, one per free
+        slot: blocks re-acquired (index hits spliced, the rest written
+        from the host copy), then the staged-done queue — admission
+        treats a restore like a fully staged arrival. On failure the
+        request stays spilled, its payload untouched."""
+        if not self._spilled:
+            return
+        reserved = 0   # restores this call, each owed a free slot
+        for sp in sorted(self._spilled, key=lambda s: self._score(s.req)):
+            if sum(s.free for s in self.slots) - reserved <= 0:
+                return
+            payload = self.spill.fetch(sp.req.rid)
+            rb = self.mgr.restore_request(sp.req.prompt, payload)
+            while rb is None and self._reclaim_for(self._score(sp.req)):
+                rb = self.mgr.restore_request(sp.req.prompt, payload)
+            if rb is None:
+                return
+            self._spilled.remove(sp)
+            self.spill.release(sp.req.rid)
+            self._staging.append(_Staging(req=sp.req, rb=rb, todo=[],
+                                          resume=sp))
+            self.stats.restores += 1
+            self.stats.restored_blocks += sp.n_blocks
+
+    # -- work-stealing handoff (the replica router) -------------------------
+    def take_spilled(self, rid: int) -> tuple[_Spilled, dict] | None:
+        """Detach a spilled request for a sibling replica: its resume
+        state and host payload (CPU tensors), its region entry
+        released."""
+        for sp in self._spilled:
+            if sp.req.rid == rid:
+                self._spilled.remove(sp)
+                payload = self.spill.fetch(rid)
+                self.spill.release(rid)
+                return sp, payload
+        return None
+
+    def submit_spilled(self, sp: _Spilled, payload: dict) -> int:
+        """Adopt a request stolen from a sibling under a new local rid
+        and arrival index (priority, deadline and first-token time
+        travel with it) and park it in the local spill region; the
+        restore path does the rest."""
+        rid = self._next_rid
+        self._next_rid += 1
+        sp.req.rid = rid
+        sp.req.seq = self._seq
+        self._seq += 1
+        self.spill.stage(rid)
+        self.spill.commit(rid, payload, payload["nbytes"])
+        self._spilled.append(sp)
+        return rid
+
     # -- admission: a block-table splice, zero dispatches ------------------
     def _admit_ready(self) -> None:
         """Move fully staged requests into free slots, best score first.
         The correction token parks in ``_admit_pending`` until the next
-        segment feeds it."""
+        segment feeds it. A restored spill re-enters at ``valid_end``
+        with its synced tokens as a host chunk and its first-token
+        time."""
         ready = sorted((st for st in self._staging if st.done),
                        key=lambda st: self._score(st.req))
         free = [i for i, s in enumerate(self.slots) if s.free]
@@ -939,23 +1186,38 @@ class PagedContinuousBatchingServer(ContinuousBatchingServer):
                 return
             i = free.pop(0)
             self._staging.remove(st)
-            r = st.req
-            self.mgr.publish_prompt(r.prompt, st.rb)
-            # the first write position S-1 must be exclusively owned;
-            # structurally it always is — enforced, not assumed
-            wb = (int(r.prompt.size) - 1) // self.block_size
-            if wb < len(st.rb.bids):
-                self.mgr.ensure_exclusive(st.rb, wb)
-            self.slots[i] = _Slot(
-                rid=r.rid, pos=int(r.prompt.size) - 1, remaining=r.max_new,
-                prompt=r.prompt, sample=r.sample,
-                key=(None if r.sample is None
-                     else sampling.request_key(r.sample.seed)),
-                req=r)
+            r, sp = st.req, st.resume
+            key = (None if r.sample is None
+                   else sampling.request_key(r.sample.seed))
+            if sp is None:
+                self.mgr.publish_prompt(r.prompt, st.rb)
+                # the first write position S-1 must be exclusively
+                # owned; structurally it always is — enforced, not
+                # assumed
+                wb = (int(r.prompt.size) - 1) // self.block_size
+                if wb < len(st.rb.bids):
+                    self.mgr.ensure_exclusive(st.rb, wb)
+                self.slots[i] = _Slot(
+                    rid=r.rid, pos=int(r.prompt.size) - 1,
+                    remaining=r.max_new, prompt=r.prompt, sample=r.sample,
+                    key=key, req=r)
+                tok = int(r.prompt[-1])
+                self.stats.admitted += 1
+            else:
+                # resume where the stream left off: the next input is
+                # the last generated token (prompt[-1] if none)
+                chunks = ([(torch.from_numpy(sp.tokens.reshape(1, -1)), 0,
+                            sp.generated)] if sp.generated else [])
+                self.slots[i] = _Slot(
+                    rid=r.rid, pos=sp.valid_end,
+                    remaining=r.max_new - sp.generated,
+                    generated=sp.generated, chunks=chunks, prompt=r.prompt,
+                    sample=r.sample, key=key, req=r, first_t=sp.first_t)
+                tok = (int(sp.tokens[-1]) if sp.generated
+                       else int(r.prompt[-1]))
             self._tables[i] = st.rb.table_row(self.blocks_per_table)
             self._slot_rb[i] = st.rb
-            self._admit_pending[i] = int(r.prompt[-1])
-            self.stats.admitted += 1
+            self._admit_pending[i] = tok
 
     def _free_slot(self, slot_idx: int) -> None:
         rb = self._slot_rb[slot_idx]
@@ -982,7 +1244,10 @@ class PagedContinuousBatchingServer(ContinuousBatchingServer):
         submit could enter a free slot; above ``segment`` the length
         rounds down to a power of two."""
         min_rem = min(self.slots[i].remaining for i in active)
-        entry_possible = any(not st.done for st in self._staging) or (
+        staging_wants_boundaries = (
+            any(not st.done for st in self._staging)
+            or bool(self._spilled))   # spills restore only at boundaries
+        entry_possible = staging_wants_boundaries or (
             not draining and any(s.free for s in self.slots))
         if entry_possible:
             return min(min_rem, self.segment)
@@ -1078,16 +1343,56 @@ class PagedContinuousBatchingServer(ContinuousBatchingServer):
                    tables=self._validated(tables), admit_slots=a_slots,
                    admit_toks=a_toks, sample=state)
 
+    def _grow_active(self, draining: bool) -> tuple[list[int], int]:
+        """Grow every active row's span to cover the coming segment
+        (``pos + steps``), best-scored rows first. A row that cannot
+        grow reclaims from strictly worse holders, and when none exists
+        spills itself. Any change of membership restarts the pass, so
+        the returned (active, steps) is a fixpoint: every listed row
+        owns its segment's span."""
+        while True:
+            active = [i for i, s in enumerate(self.slots)
+                      if not s.free and s.remaining > 0]
+            if not active:
+                return [], 0
+            steps = self._segment_steps(active, draining=draining)
+            changed = False
+            for i in sorted(active,
+                            key=lambda j: self._score(self.slots[j].req)):
+                slot = self.slots[i]
+                if slot.free:       # spilled by an earlier row's growth
+                    changed = True
+                    continue
+                rb = self._slot_rb[i]
+                need = slot.pos + steps
+                ok = self.mgr.ensure_span(rb, need)
+                while not ok and self._reclaim_for(
+                        self._score(slot.req), exclude_slot=i):
+                    changed = True
+                    ok = self.mgr.ensure_span(rb, need)
+                if not ok:
+                    self._spill_slot(i)
+                    changed = True
+            if not changed:
+                return active, steps
+
     def _advance(self, *, draining: bool = False) -> None:
+        if self.faults is not None and self.faults.fire("evict_storm"):
+            # an injected eviction storm: every cached block evicted,
+            # the prefix index flushed
+            self.mgr.alloc.evict_cached()
         active_now = any(not s.free and s.remaining > 0 for s in self.slots)
         self._stage(catch_up=not active_now)
         self._admit_ready()
         self._sync_pool_stats()
-        active = [i for i, s in enumerate(self.slots)
-                  if not s.free and s.remaining > 0]
+        active, steps = self._grow_active(draining)
         if not active:
             return
-        steps = self._segment_steps(active, draining=draining)
+        for i in active:
+            # growth may have extended a span: refresh its table row
+            # (entries past the span stay on the scratch block)
+            self._tables[i] = self._slot_rb[i].table_row(
+                self.blocks_per_table)
         for i in active:
             self.mgr.check_span(self._slot_rb[i], self.slots[i].pos + steps)
         pos, aligned = self._positions(active)

@@ -57,11 +57,6 @@ PER_LAYER_PLAN_FAMILIES = ("dense", "moe")
 # features of the JAX servers that are not ported, by ROADMAP item
 UNPORTED = {
     "mesh": "tensor parallelism (ROADMAP Queue 1 item 6)",
-    "faults": "fault injection (ROADMAP Queue 1 item 4)",
-    "scheduling": "EDF/FIFO scheduling (ROADMAP Queue 1 item 4)",
-    "spill_region": "preemption and spill (ROADMAP Queue 1 item 4)",
-    "priority": "priorities and SLO targets, with EDF scheduling "
-                "(ROADMAP Queue 1 item 4)",
     "spec": "speculative decoding (ROADMAP Queue 1 item 5)",
     "rag": "RAG serving (ROADMAP Queue 1 item 5)",
     "rag_overlap": "RAG serving (ROADMAP Queue 1 item 5)",

@@ -11,14 +11,26 @@ slot-cache scheduler (bucketed admission into freed slots between
 segments, one persistent slot cache); with ``--paged`` through the
 paged KV pool (block tables, prefix caching, chunked prefill-ahead).
 ``--temperature``/``--top-k``/``--top-p`` sample (every other request in
-continuous mode). Weights are random, from seed 0, at the smoke size of
-``--arch``.
+continuous mode). ``--faults site=rate,...`` gives the paged server a
+seeded ``FaultInjector`` (``--fault-seed``, ``--max-faults-per-site``).
+
+Overload mode (``--overload``): 2x-oversubscribed two-class traffic on
+the paged server under EDF — a low-priority backlog of 2 x ``--slots``
+requests, then ``--slots // 2`` high-priority requests with a TTFT
+target after the first step; with a small ``--num-blocks`` the highs
+stage by preempting lows (spilled to the Sidebar spill region and
+restored later). It asserts that every request finishes, the pool ends
+empty and the spill region holds nothing, and with ``--num-blocks``
+that preemption and restore happened. Weights are random, from seed 0,
+at the smoke size of ``--arch``.
 
 Run: python -m repro_torch.launch.serve_batch --arch nemotron-4-15b \\
          --batch 4 --prompt-len 32 --gen 16 \\
          --execution-mode sidebar_pipelined --pipeline-depth 4
      python -m repro_torch.launch.serve_batch --continuous --paged \\
          --requests 8 --slots 4 --segment 8 --temperature 0.8
+     python -m repro_torch.launch.serve_batch --continuous --paged \\
+         --overload --num-blocks 10 --faults alloc=0.1,evict_storm=0.1
 """
 
 from __future__ import annotations
@@ -33,6 +45,7 @@ import torch
 from repro_torch import configs as cfglib
 from repro_torch.core.modes import ExecutionMode, ExecutionPlan, LayerPlan
 from repro_torch.device import resolve_device
+from repro_torch.launch.faults import FaultInjector
 from repro_torch.launch.sampling import SamplingParams
 from repro_torch.launch.scheduler import (
     ContinuousBatchingServer,
@@ -43,7 +56,6 @@ from repro_torch.models.registry import get_model
 
 # flags of the JAX driver whose features are not ported
 _UNPORTED_FLAGS = {
-    "overload": UNPORTED["priority"], "faults": UNPORTED["faults"],
     "rag": UNPORTED["rag"], "spec_k": UNPORTED["spec"],
     "mesh": UNPORTED["mesh"],
 }
@@ -57,6 +69,26 @@ def build_sampling(args) -> SamplingParams | None:
         temperature = 1.0               # top-k/top-p imply sampling
     return SamplingParams(temperature=temperature, top_k=args.top_k,
                           top_p=args.top_p, seed=args.seed)
+
+
+def build_faults(args) -> FaultInjector | None:
+    """``--faults site=rate,...`` -> a seeded ``FaultInjector`` (sites:
+    alloc, evict_storm, stage_stall)."""
+    if not args.faults:
+        return None
+    rates = {}
+    for part in args.faults.split(","):
+        site, rate = part.split("=")
+        rates[site.strip()] = float(rate)
+    return FaultInjector(seed=args.fault_seed, rates=rates,
+                         max_per_site=args.max_faults_per_site)
+
+
+def _paged_block_size(args, max_len: int) -> int:
+    bs = args.block_size                # must divide max_len: snap down
+    while max_len % bs:
+        bs -= 1
+    return bs
 
 
 def build_plan(args, cfg):
@@ -100,15 +132,14 @@ def run_static(args, cfg, params, plan, device) -> None:
 def run_continuous(args, cfg, params, plan, device) -> None:
     sample = build_sampling(args)
     max_len = args.prompt_len + args.gen
+    faults = build_faults(args)
     if args.paged:
-        bs = args.block_size            # must divide max_len: snap down
-        while max_len % bs:
-            bs -= 1
+        bs = _paged_block_size(args, max_len)
         sched = PagedContinuousBatchingServer(
             cfg, params, device=device, num_slots=args.slots,
             max_len=max_len, block_size=bs, num_blocks=args.num_blocks,
             prefill_chunk=args.prefill_chunk, segment=args.segment,
-            plan=plan, kernel=args.kernel)
+            plan=plan, kernel=args.kernel, faults=faults)
         kind = f"paged (block_size={bs}, kernel={args.kernel})"
     else:
         sched = ContinuousBatchingServer(
@@ -144,6 +175,9 @@ def run_continuous(args, cfg, params, plan, device) -> None:
     print(f"drained {len(done)} requests / {useful} tokens in {dt:.2f}s "
           f"({useful / dt:.1f} tokens/s on {device}, cold)")
     print(sched.stats.summary())
+    if faults is not None:
+        print(f"faults injected: {faults.total_injected} "
+              f"({dict(faults.injected)})")
     print("executables:", [k[:3] for k in sched.executable_cache_keys()])
     if len(done) != args.requests:
         raise RuntimeError(f"drain lost requests: {len(done)} != "
@@ -152,6 +186,67 @@ def run_continuous(args, cfg, params, plan, device) -> None:
             and sched.stats.prefix_block_hits == 0:
         raise RuntimeError("shared-prefix traffic produced zero prefix "
                            "hits")
+
+
+def run_overload(args, cfg, params, plan, device) -> None:
+    """2x-oversubscribed two-class traffic on the paged server (see the
+    module docstring); raises unless every request finished, the pool is
+    quiescent and the spill region empty, and — with ``--num-blocks`` —
+    unless preemption and restore happened."""
+    faults = build_faults(args)
+    max_len = args.prompt_len + args.gen
+    bs = _paged_block_size(args, max_len)
+    sched = PagedContinuousBatchingServer(
+        cfg, params, device=device, num_slots=args.slots, max_len=max_len,
+        block_size=bs, prefill_chunk=args.prefill_chunk,
+        num_blocks=args.num_blocks, segment=args.segment, plan=plan,
+        kernel=args.kernel, faults=faults, scheduling="edf")
+    pool = (f"{args.num_blocks} blocks" if args.num_blocks
+            else "default pool")
+    print(f"arch={cfg.arch_id} overload [paged, {pool}, block_size={bs}]: "
+          f"slots={args.slots}, faults={args.faults or 'none'} "
+          f"(seed={args.fault_seed}), device={device}, captured="
+          f"{sched.captured}")
+    rng = np.random.RandomState(args.seed)
+    n_low = 2 * args.slots              # 2x oversubscription
+    n_high = max(1, args.slots // 2)
+    for _ in range(n_low):
+        p = rng.randint(0, cfg.vocab_size, size=max(2, args.prompt_len // 4))
+        sched.submit(p, args.gen, priority=0)
+    t0 = time.perf_counter()
+    sched.step()                        # the backlog mid-flight ...
+    for _ in range(n_high):             # ... then the highs land
+        p = rng.randint(0, cfg.vocab_size, size=max(2, args.prompt_len - 1))
+        sched.submit(p, max(2, args.gen // 2), priority=1,
+                     ttft_target=60.0)
+    done = sched.run()                  # every request, the first step's too
+    dt = time.perf_counter() - t0
+    n_tok = sum(r.generated for r in done)
+    print(f"drained {len(done)} requests / {n_tok} tokens in {dt:.2f}s "
+          f"({n_tok / dt:.1f} tokens/s on {device}, cold)")
+    print(sched.stats.summary())
+    print(f"spill region: peak {sched.spill.peak_bytes} bytes, "
+          f"{sched.spill.spills} spills, {sched.spill.restores} restores")
+    if faults is not None:
+        print(f"faults injected: {faults.total_injected} "
+              f"({dict(faults.injected)})")
+    alloc = sched.mgr.alloc
+    checks = [
+        (len(done) == n_low + n_high,
+         f"drain lost requests: {len(done)} != {n_low + n_high}"),
+        (alloc.in_use == 0, "pool leaked blocks"),
+        (alloc.num_free + alloc.num_evictable == alloc.capacity,
+         "pool accounting drifted"),
+        (len(sched.spill) == 0 and sched.spill.in_use_bytes == 0,
+         "spill region holds payloads after a full drain"),
+    ]
+    if args.num_blocks:                 # tiny pool: overload must preempt
+        checks.append((sched.stats.preemptions > 0
+                       and sched.stats.restores > 0,
+                       "tiny-pool overload never preempted and restored"))
+    for ok, what in checks:
+        if not ok:
+            raise RuntimeError(what)
 
 
 def main(argv=None) -> None:
@@ -194,9 +289,17 @@ def main(argv=None) -> None:
     ap.add_argument("--top-p", type=float, default=None)
     ap.add_argument("--seed", type=int, default=0,
                     help="sampling seed (same seed => same tokens)")
+    ap.add_argument("--overload", action="store_true",
+                    help="2x-oversubscribed priority traffic on the paged "
+                         "server: EDF admission, preemption, spill and "
+                         "restore; asserts completion and no leaks")
+    ap.add_argument("--faults", default=None,
+                    help="seeded fault injection, 'site=rate,...' (sites: "
+                         "alloc, evict_storm, stage_stall)")
+    ap.add_argument("--fault-seed", type=int, default=0)
+    ap.add_argument("--max-faults-per-site", type=int, default=8,
+                    help="bound the Bernoulli firings per site")
     # the JAX driver's flags of features that are not ported: they raise
-    ap.add_argument("--overload", action="store_true")
-    ap.add_argument("--faults", default=None)
     ap.add_argument("--rag", action="store_true")
     ap.add_argument("--spec-k", type=int, default=0)
     ap.add_argument("--mesh", default=None)
@@ -213,7 +316,9 @@ def main(argv=None) -> None:
         cfg = dataclasses.replace(cfg, use_pallas=True)
     plan = build_plan(args, cfg)
     params = get_model(cfg).init(cfg, seed=0, device=device)
-    if args.continuous:
+    if args.overload:
+        run_overload(args, cfg, params, plan, device)
+    elif args.continuous:
         run_continuous(args, cfg, params, plan, device)
     else:
         run_static(args, cfg, params, plan, device)

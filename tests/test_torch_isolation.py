@@ -12,8 +12,10 @@
     kernel against its plain version (the gated MLP at deepseek-7b's
     widths, paged decode at group 1, MLA absorbed decode at deepseek-
     v3's widths with fp32 and bf16 pools, flash attention in fp32 and
-    bf16, the MoE grouped expert product on both routes), a run-time
-    activation with a ``device_expr`` through every
+    bf16, the MoE grouped expert product on both routes), the paged
+    pool's host round trip (bf16, int8 with scales, MLA) in place and a
+    preempted drain whose replayed segments read restored blocks, a
+    run-time activation with a ``device_expr`` through every
     kernel that takes an activation, and the wrappers' refusals —
     among them every wrapper's refusal under autograd. They
     live here because this file imports no JAX, which the card's
@@ -65,7 +67,8 @@ def test_scan_sees_the_whole_port():
             "launch/graphs.py", "launch/serve.py",
             "launch/serve_batch.py", "kernels/moe_experts.py",
             "configs/qwen3_14b.py", "configs/llama3_405b.py",
-            "configs/llama4_scout_17b.py"} <= names
+            "configs/llama4_scout_17b.py", "launch/router.py",
+            "launch/faults.py", "core/sidebar.py"} <= names
 
 
 def test_import_needs_no_nvcc_no_triton_and_builds_nothing(tmp_path):
@@ -1323,3 +1326,112 @@ def test_remat_gradients_on_the_card(cuda, remat):
         assert a.dtype == b.dtype == torch.bfloat16
         scale = b.float().abs().max().item()
         assert (a.float() - b.float()).abs().max().item() <= 1e-2 * scale
+
+
+# ---------------------------------------------------------------------------
+# Preemption on the card: the pool's host round trip, in place
+# ---------------------------------------------------------------------------
+
+
+def _pool_cfg(family):
+    import dataclasses
+
+    from repro_torch import configs
+
+    arch = "deepseek-v3-671b" if family == "mla" else "nemotron-4-15b"
+    cfg = configs.get_smoke_config(arch)
+    if cfg.num_experts:
+        cfg = dataclasses.replace(cfg,
+                                  capacity_factor=float(cfg.num_experts))
+    kv = {"bf16": torch.bfloat16, "int8": torch.int8,
+          "mla": torch.bfloat16}[family]
+    return dataclasses.replace(cfg, dtype=torch.bfloat16, kv_cache_dtype=kv)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", ["bf16", "int8", "mla"])
+def test_pool_round_trip_on_the_card(cuda, family):
+    """Blocks read to pinned host memory and written back into other
+    blocks: bit for bit on every leaf (the int8 pool's scales, MLA's
+    latent and rope leaves), every leaf at its address."""
+    from repro_torch.launch import kvpool as kvp
+    from repro_torch.models.registry import get_model
+
+    cfg = _pool_cfg(family)
+    mgr = kvp.PagedKVManager(get_model(cfg), cfg, num_blocks=9,
+                             block_size=16, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    for layer in mgr.pool.cache:
+        for leaf in layer.values():
+            if leaf.dtype.is_floating_point:
+                leaf.copy_(torch.randn(leaf.shape, generator=g,
+                                       device=cuda))
+            else:
+                leaf.copy_(torch.randint(-128, 127, leaf.shape, generator=g,
+                                         device=cuda))
+    names = {n for layer in mgr.pool.cache for n in layer}
+    if family == "int8":
+        assert any("scale" in n for n in names), names
+    ptrs = [leaf.data_ptr() for layer in mgr.pool.cache
+            for leaf in layer.values()]
+    before = [{k: v.clone() for k, v in layer.items()}
+              for layer in mgr.pool.cache]
+    blocks = mgr.pool.read_blocks([3, 1, 7])
+    assert all(t.is_pinned() for b in blocks for layer in b
+               for t in layer.values())
+    mgr.pool.write_blocks([2, 8, 4], blocks)
+    torch.cuda.synchronize()
+    assert ptrs == [leaf.data_ptr() for layer in mgr.pool.cache
+                    for leaf in layer.values()]
+    for layer, old in zip(mgr.pool.cache, before):
+        for name, leaf in layer.items():
+            for dst, src in ((2, 3), (8, 1), (4, 7)):
+                assert torch.equal(leaf[dst], old[name][src]), name
+            for j in (0, 1, 3, 5, 6, 7, 9):
+                assert torch.equal(leaf[j], old[name][j]), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", ["bf16", "int8", "mla"])
+def test_replayed_segments_read_restored_blocks(cuda, family):
+    """A tight pool (two grown spans do not fit) on the card: a warm-up
+    drain captures the programs, then the same traffic again: its
+    spills and restores write the pool in place between replayed
+    segments, and its tokens equal an eager drain's on the same server
+    (``disable_capture``), greedy and sampled, with the pool's leaves at
+    their addresses."""
+    from repro_torch.launch import graphs
+    from repro_torch.launch.sampling import SamplingParams
+    from repro_torch.launch.scheduler import PagedContinuousBatchingServer
+    from repro_torch.models import transformer as T
+
+    cfg = _pool_cfg(family)
+    params = T.init(cfg, seed=0, device=cuda)
+    srv = PagedContinuousBatchingServer(
+        cfg, params, device=cuda, num_slots=2, max_len=48, block_size=8,
+        num_blocks=6, segment=4)
+    rng = np.random.RandomState(3)
+    reqs = [(rng.randint(0, cfg.vocab_size, size=6).astype(np.int32), 18)
+            for _ in range(2)]
+    samples = [None, SamplingParams(temperature=0.8, top_k=40, seed=13)]
+    ptrs = [leaf.data_ptr() for layer in srv.mgr.pool.cache
+            for leaf in layer.values()]
+
+    def drain():
+        pre = srv.stats.preemptions
+        for (p, gen), sp in zip(reqs, samples):
+            srv.submit(p, gen, sample=sp)
+        done = srv.run()
+        assert srv.stats.preemptions > pre and srv.mgr.alloc.in_use == 0
+        return [r.tokens for r in done]
+
+    drain()                             # warm-up: every key captured
+    replays = sum(p.replays for p in srv.programs())
+    captured = drain()
+    assert sum(p.replays for p in srv.programs()) > replays
+    with graphs.disable_capture():
+        eager = drain()
+    assert all(np.array_equal(a, b) for a, b in zip(captured, eager))
+    assert ptrs == [leaf.data_ptr() for layer in srv.mgr.pool.cache
+                    for leaf in layer.values()]
+    assert len(srv.spill) == 0 and srv.spill.in_use_bytes == 0

@@ -293,7 +293,22 @@ def test_serve_batch_driver(capsys):
     out = capsys.readouterr().out
     assert "generated 10 tokens" in out and out.count("drained 3") == 2
     assert "captured=False" in out
-    for flag, item in ((["--rag"], "item 5"), (["--mesh", "1x2"], "item 6"),
-                       (["--faults", "alloc=0.1"], "item 4")):
+    # the overload machinery is ported (ROADMAP Queue 1 item 4): a
+    # faulted paged drain, and the overload smoke on a tiny pool
+    serve_batch.main(common + ["--continuous", "--paged", "--requests", "3",
+                               "--slots", "2", "--block-size", "4",
+                               "--faults", "alloc=0.1,evict_storm=0.2"])
+    for faults in ([], ["--fault-seed", "5", "--faults",
+                        "alloc=0.15,evict_storm=0.15,stage_stall=0.15"]):
+        serve_batch.main(["--device", "cpu", "--arch", "nemotron-4-15b",
+                          "--overload", "--slots", "2", "--prompt-len", "16",
+                          "--gen", "12", "--segment", "4", "--num-blocks",
+                          "6"] + faults)
+    out = capsys.readouterr().out
+    assert "drained 3" in out and "faults injected" in out
+    assert out.count("overload [paged, 6 blocks") == 2
+    assert out.count("drained 5 requests") == 2
+    assert out.count("preemptions") >= 2
+    for flag, item in ((["--rag"], "item 5"), (["--mesh", "1x2"], "item 6")):
         with pytest.raises(NotImplementedError, match=item):
             serve_batch.main(common + flag)

@@ -28,6 +28,7 @@ from repro_torch import configs as tcfg
 from repro_torch.core.modes import ExecutionMode, LayerPlan
 from repro_torch.kernels import ops as kops
 from repro_torch.launch import kvpool as kvp
+from repro_torch.launch.faults import FaultInjector
 from repro_torch.launch.sampling import SamplingParams
 from repro_torch.launch.scheduler import PagedContinuousBatchingServer
 from repro_torch.launch.serve import generate
@@ -186,13 +187,27 @@ def test_cancel_releases_blocks(models):
 
 @pytest.mark.parametrize("kw", [
     dict(kernel="dense"), dict(mesh=object()), dict(spec=object()),
-    dict(rag=object()), dict(faults=object()), dict(plan="sidebar_pipelined"),
+    dict(rag=object()),
+    dict(faults=FaultInjector(0, rates={"alloc": 0.2, "evict_storm": 0.3,
+                                        "stage_stall": 0.3}, max_per_site=4)),
+    dict(plan="sidebar_pipelined"),
 ])
 def test_unsupported_server_arguments_raise(kw, models):
-    """Arguments of features not ported raise. ``plan=`` no longer does:
-    every mode is served, and a pipelined plan drains with the tokens of
-    the default SIDEBAR plan, its MLP dispatches recorded as planned."""
+    """Arguments of features not ported raise. ``plan=`` and
+    ``faults=`` no longer do: every mode is served, and a pipelined plan
+    drains with the tokens of the default SIDEBAR plan, its MLP
+    dispatches recorded as planned; a faulted drain gives the unfaulted
+    tokens and leaves the pool empty."""
     _, ct, _, pt = models["fp32"]
+    if "faults" in kw:
+        reqs = _traffic(11, n=4)
+        srv, got, _ = _serve(ct, pt, reqs, num_blocks=12, **kw)
+        _, want, _ = _serve(ct, pt, reqs)
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a.tokens, b.tokens)
+        assert kw["faults"].total_injected > 0
+        assert srv.mgr.alloc.in_use == 0 and len(srv.spill) == 0
+        return
     if "plan" in kw:
         ct = dataclasses.replace(ct, use_pallas=True)
         reqs = _traffic(11, n=3)
@@ -212,8 +227,6 @@ def test_unsupported_server_arguments_raise(kw, models):
 def test_submit_rejects_what_is_not_ported(models):
     _, ct, _, pt = models["fp32"]
     srv = PagedContinuousBatchingServer(ct, pt, **SERVER)
-    with pytest.raises(NotImplementedError, match="priorit"):
-        srv.submit([1, 2], 3, priority=1)
     with pytest.raises(ValueError, match="max_len"):
         srv.submit(np.arange(40), 10)
     rid = srv.submit([1, 2], 3, SamplingParams(temperature=0.0))
@@ -222,10 +235,15 @@ def test_submit_rejects_what_is_not_ported(models):
     hot = SamplingParams(temperature=0.7, seed=4)
     s1 = srv.submit([1, 2], 3, hot)
     s2 = srv.submit([1, 2], 3, hot)
-    a, b, c, d = srv.run()
-    assert (a.rid, b.rid, c.rid, d.rid) == (rid, greedy, s1, s2)
+    # priorities and SLO targets are ported (ROADMAP Queue 1 item 4)
+    high = srv.submit([1, 2], 3, priority=1, ttft_target=10.0)
+    a, b, c, d, e = srv.run()
+    assert (a.rid, b.rid, c.rid, d.rid, e.rid) == (rid, greedy, s1, s2,
+                                                   high)
     np.testing.assert_array_equal(a.tokens, b.tokens)
     np.testing.assert_array_equal(c.tokens, d.tokens)
+    np.testing.assert_array_equal(e.tokens, b.tokens)
+    assert sorted(srv.stats.ttft_s) == [0, 1]
 
 
 # ---------------------------------------------------------------------------

@@ -307,15 +307,19 @@ def test_scheduler_rejects_unsupported_family_and_bad_requests(served):
         sched.submit(np.arange(4, dtype=np.int32), 0)
     with pytest.raises(ValueError, match="empty"):
         sched.submit(np.zeros((0,), np.int32), 4)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        sched.submit(np.arange(4, dtype=np.int32), 2, priority=1)
+    # priorities and SLO targets are ported (ROADMAP Queue 1 item 4)
+    rid = sched.submit(np.arange(4, dtype=np.int32), 2, priority=1,
+                       ttft_target=5.0, itl_target=1.0)
+    (done,) = sched.run()
+    assert done.rid == rid and done.generated == 2
+    assert list(sched.stats.ttft_s) == [1]
     with pytest.raises(ValueError, match="families"):
         _slots(dataclasses.replace(ct, family="audio"), pt)
-    for kw, item in ((dict(scheduling="edf"), "item 4"),
-                     (dict(faults=object()), "item 4"),
-                     (dict(mesh=object()), "item 6")):
-        with pytest.raises(NotImplementedError, match=item):
-            _slots(ct, pt, **kw)
+    with pytest.raises(ValueError, match="scheduling"):
+        _slots(ct, pt, scheduling="bogus")
+    assert _slots(ct, pt, scheduling="fifo").scheduling == "fifo"
+    with pytest.raises(NotImplementedError, match="item 6"):
+        _slots(ct, pt, mesh=object())
 
 
 # ---------------------------------------------------------------------------
