@@ -162,7 +162,33 @@ exits non-zero):
      replicas sharing phase 2's params, with a seeded ``FaultInjector``
      at every site, on 13a's traffic, eagerly: every request finishes,
      every pool and spill region quiescent; stolen requests, quarantines
-     and the faults injected are printed.
+     and the faults injected are printed;
+ 14. speculative decoding and RAG on phase 2's weights (its depth
+     follows ``--layers``): (14a) phase 2's server and greedy traffic on
+     three servers — plain, the oracle draft (the model itself) and a
+     shallow draft (the model's first 2 layers with its embedding and
+     final norm, sharing the weights), k = 4 — each draining cold, then
+     warm: tokens/s, TTFT, acceptance, verify calls, draft rounds,
+     commit copies, host syncs (two a speculative step) and host
+     seconds and device ms a step, captures and replays, and the tokens
+     that differ from the plain drain (bf16: printed, not gated); the
+     draft and verify programs captured == eager on one warm server at 2
+     layers of full width; (14b) the three cache families at fp32 smoke
+     size: the oracle draft at k = 3, greedy and half sampled, equal to
+     the plain server and solo ``generate``, greedy acceptance exactly
+     1.0, and the tight-pool speculative drain preempting with solo
+     decode's tokens; (14c) the RAG drive of
+     ``benchmarks/serving_bench.py`` (a 2048-document toy corpus in
+     32-token chunks, a 20 ms modeled fetch a search, top-2, 4 leads and
+     8 waves of 2 queries) on an overlapped and a serial server, cold,
+     then warm overlap / serial / overlap, and at fp32 smoke size RAG
+     drains equal to plain ``submit`` of their prompts, overlap on and
+     off. Gates: completion, quiescence, exact launches (a verify call
+     and a staging round are multi-token chunks, no paged kernel; a
+     draft round is k forward calls on the draft's slab), each
+     speculative drain's allocator traffic equal to the plain drain's,
+     every query retrieved, chunk hits, overlap only in the overlap
+     arms, the same prompts in every arm.
 
 The line before the last holds the kernel table, the last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or of the JAX
@@ -2553,27 +2579,33 @@ def phase13_server(cfg, params, smi: str, device="cuda") -> dict:
     return {"target": target, "traffic": traffic, "ample": ample_tokens}
 
 
+def smoke_model(arch: str, *, int8: bool = False, device="cuda"):
+    """The fp32 smoke config of ``arch`` with the kernels on (MoE at
+    no-drop capacity) and its weights from seed 0."""
+    from repro_torch import configs
+    from repro_torch.models import transformer
+
+    cfg = dataclasses.replace(configs.get_smoke_config(arch),
+                              use_pallas=True)
+    if int8:
+        cfg = dataclasses.replace(cfg, kv_cache_dtype=torch.int8)
+    if cfg.num_experts:
+        cfg = dataclasses.replace(cfg, capacity_factor=float(cfg.num_experts))
+    return cfg, transformer.init(cfg, seed=0, device=device)
+
+
 def overload_families(device="cuda") -> None:
     """13(b): the three cache families at fp32 smoke size (the kernels
     on), each on the tight server of ``tests/test_preemption.py`` against
     an ample pool, greedy and sampled: equal tokens, preemption only on
     the tight pool, both quiescent."""
-    from repro_torch import configs
     from repro_torch.kernels import ops as kops
     from repro_torch.launch.sampling import SamplingParams
     from repro_torch.launch.scheduler import PagedContinuousBatchingServer
-    from repro_torch.models import transformer
 
     for arch, kv in (("nemotron-4-15b", None), ("nemotron-4-15b", "int8"),
                      ("deepseek-v3-671b", None)):
-        cfg = dataclasses.replace(configs.get_smoke_config(arch),
-                                  use_pallas=True)
-        if kv:
-            cfg = dataclasses.replace(cfg, kv_cache_dtype=torch.int8)
-        if cfg.num_experts:
-            cfg = dataclasses.replace(
-                cfg, capacity_factor=float(cfg.num_experts))
-        params = transformer.init(cfg, seed=0, device=device)
+        cfg, params = smoke_model(arch, int8=bool(kv), device=device)
         rng = np.random.RandomState(3)
         reqs = [rng.randint(0, cfg.vocab_size, 6).astype(np.int32)
                 for _ in range(2)]
@@ -2659,6 +2691,518 @@ def overload_fleet(cfg, params, ctx: dict, smi: str, device="cuda") -> None:
     check({s.split(":")[0] for s in faults.injected}
           == set(OVERLOAD_FAULTS["rates"]),
           f"phase 13c: a fault site never fired {dict(faults.injected)}")
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: speculative decoding and RAG
+# ---------------------------------------------------------------------------
+
+
+SPEC_K = 4
+SPEC_GEN = 32
+# the allocator traffic of a drain (``mgr.counters``; the peak moves
+# with when spans grow, so it is not compared)
+_POOL_COUNTS = ("allocs", "evictions", "cow_copies", "prefix_block_lookups",
+                "prefix_block_hits", "prompt_blocks", "chunk_interior_hits")
+_SPEC_STATS = ("spec_steps", "spec_drafted", "spec_accepted",
+               "spec_commit_copies", "segments", "decode_steps",
+               "preemptions", "restores", "retrievals",
+               "retrieval_overlapped", "retrieval_chunk_blocks",
+               "retrieval_chunk_hits")
+# 14(b): the server of tests/test_spec_decode.py
+SPEC_SMOKE = dict(num_slots=3, max_len=48, block_size=8, prefill_chunk=8,
+                  segment=4)
+# 14(c): the RAG drive of benchmarks/serving_bench.py at block 16: a toy
+# corpus of 2048 documents of 128 tokens in chunks of two blocks, a
+# 20 ms modeled payload fetch a search, a one-block system prefix,
+# top-2; queries from 4 hot documents: 4 leads (one a slot), then 8
+# waves of 2 queries, a scheduler step after each
+RAG_BLOCK, RAG_DOCS, RAG_DOC_LEN, RAG_HOT = 16, 2048, 128, 4
+RAG_IO_LATENCY = 0.020
+RAG_LEAD_GENS = (72, 64, 56, 48)
+RAG_WAVES, RAG_PER_WAVE, RAG_WAVE_GEN = 8, 2, 12
+
+
+@contextlib.contextmanager
+def spec_probe(srv):
+    """Count and time ``srv``'s speculative work in the block: draft
+    rounds and verify calls (device time between CUDA events around each
+    program call), host reads of program results (``_fetch``: two a
+    step by design) and host seconds inside ``_advance_spec``."""
+    rec = {"draft_calls": 0, "verify_calls": 0, "host_syncs": 0,
+           "spec_host_s": 0.0, "device_ms": 0.0}
+    events: list = []
+    cuda = srv.device.type == "cuda"
+    compiled, fetch, advance = srv._compiled, srv._fetch, srv._advance_spec
+
+    def timed_compiled(key, make):
+        prog = compiled(key, make)
+        kind = {"draft": "draft_calls", "specv": "verify_calls"}.get(key[0])
+        if kind is None:
+            return prog
+
+        def call(*a, **k):
+            rec[kind] += 1
+            if not cuda:
+                return prog(*a, **k)
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in "01")
+            e0.record()
+            out = prog(*a, **k)
+            e1.record()
+            events.append((e0, e1))
+            return out
+
+        return call
+
+    def counted_fetch(t):
+        rec["host_syncs"] += 1
+        return fetch(t)
+
+    def timed_advance(*a, **k):
+        t0 = time.perf_counter()
+        try:
+            return advance(*a, **k)
+        finally:
+            rec["spec_host_s"] += time.perf_counter() - t0
+
+    srv._compiled, srv._fetch = timed_compiled, counted_fetch
+    srv._advance_spec = timed_advance
+    try:
+        yield rec
+    finally:
+        del srv._compiled, srv._fetch, srv._advance_spec
+        _sync(srv.device)
+        rec["device_ms"] = sum(a.elapsed_time(b) for a, b in events)
+
+
+def expected_spec_launches(srv, calls: dict, rec: dict) -> dict:
+    """Launches a drain of ``srv`` must count: the target's forward calls
+    (segment steps decode in place on the pool; staging rounds and verify
+    calls are multi-token chunks through the gathered view, no paged
+    kernel) and the draft's (k forward calls a round, its ingest prefill
+    and k - 1 decode steps, on its dense slab: no paged kernel either),
+    the draft under the ambient plan."""
+    from repro_torch.kernels import ops as kops
+
+    want = expected_launches(srv.plan, srv.cfg, calls["decode"],
+                             calls["prefill"] + rec["verify_calls"])
+    if srv._spec_on:
+        draft = expected_launches(kops.current_plan(), srv.spec.draft_cfg,
+                                  0, srv.spec.k * rec["draft_calls"])
+        want = {k: want[k] + draft[k] for k in want}
+    return want
+
+
+def _pool_counts(srv) -> dict:
+    c = dataclasses.asdict(srv.mgr.counters)
+    return {k: c[k] for k in _POOL_COUNTS}
+
+
+def _quiescent(srv) -> bool:
+    alloc = srv.mgr.alloc
+    return (alloc.in_use == 0 and len(srv.spill) == 0
+            and alloc.num_free + alloc.num_evictable == alloc.capacity)
+
+
+def spec_drain(srv, submit, name: str) -> tuple[dict, list]:
+    """One drive of ``srv`` (``submit(srv)`` submits, steps as it likes
+    and returns the rids it submitted with their token counts) to the
+    end of ``run()``, with fresh launch counts: its row (rates, this
+    drive's counters, host syncs and seconds and device ms a speculative
+    step, captures, launches against ``expected_spec_launches``) and the
+    tokens by submitted rid. Gated: completion, quiescence, two host
+    reads a speculative step, exact launches on the card."""
+    from repro_torch.kernels import ops as kops
+
+    dev = srv.device
+    st0 = {k: srv.stats[k] for k in _SPEC_STATS}
+    pool0, g0 = _pool_counts(srv), _programs(srv)
+    _sync(dev)
+    kops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with counted_calls(srv) as calls, spec_probe(srv) as rec:
+        gens = submit(srv)
+        done = {r.rid: r for r in srv.run()}
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    counts = kops.launch_counts()
+    want = expected_spec_launches(srv, calls, rec)
+    st = {k: srv.stats[k] - st0[k] for k in _SPEC_STATS}
+    pool = {k: v - pool0[k] for k, v in _pool_counts(srv).items()}
+    g = _programs(srv)
+    steps = max(st["spec_steps"], 1)
+    n_tok = sum(r.generated for r in done.values())
+    row = {"phase": 14, "name": name, "requests": len(done),
+           "generated": n_tok, "wall_s": wall, "tokens_per_s": n_tok / wall,
+           "ttft_s_median": float(np.median([r.ttft for r in
+                                             done.values()])),
+           **st, "acceptance": st["spec_accepted"] / max(
+               st["spec_drafted"], 1),
+           "verify_calls": rec["verify_calls"],
+           "draft_calls": rec["draft_calls"],
+           "decode_calls": calls["decode"],
+           "prefill_calls": calls["prefill"],
+           "host_syncs": rec["host_syncs"],
+           "host_s_per_spec_step": rec["spec_host_s"] / steps,
+           "device_ms_per_spec_step": rec["device_ms"] / steps,
+           "pool_counts": pool,
+           "captures": g["captures"] - g0["captures"],
+           "capture_s": g["capture_s"] - g0["capture_s"],
+           "replays": g["replays"] - g0["replays"],
+           "launches": {k: v for k, v in counts.items() if v},
+           "expected_launches": {k: v for k, v in want.items() if v}}
+    check(sorted(done) == sorted(gens)
+          and all(done[r].generated == n for r, n in gens.items()),
+          f"phase 14 {name}: not every request finished")
+    check(_quiescent(srv), f"phase 14 {name}: pool not quiescent")
+    if srv._spec_on:
+        check(st["spec_steps"] > 0, f"phase 14 {name}: never speculated")
+        check(rec["host_syncs"] == 2 * st["spec_steps"],
+              f"phase 14 {name}: {rec['host_syncs']} host reads for "
+              f"{st['spec_steps']} steps")
+    if dev.type == "cuda":
+        check(counts == want, f"phase 14 {name}: launches {counts} != "
+                              f"expected {want}")
+    return row, [done[r].tokens for r in gens]
+
+
+def submits(reqs):
+    """A ``spec_drain`` drive that submits ``(prompt, gen, sample)``s."""
+    def submit(srv):
+        return {srv.submit(p, g, sample=sp): g for p, g, sp in reqs}
+    return submit
+
+
+def shallow_draft(cfg, params, layers: int = 2):
+    """The target's first ``layers`` layers with its embedding, final
+    norm and unembedding: a draft that shares the target's weights."""
+    return (dataclasses.replace(cfg, num_layers=layers),
+            {**params, "layers": params["layers"][:layers]})
+
+
+def spec_serving(cfg, params, smi: str, prompts=None, device="cuda",
+                 **server) -> dict:
+    """14(a): phase 2's model and traffic, greedy, on three servers —
+    plain, the oracle draft and the 2-layer shallow draft at k = 4 —
+    each draining cold, then warm. Gated besides ``spec_drain``'s gates:
+    each speculative drain's allocator traffic equals the plain drain's.
+    Printed: acceptance and the tokens unequal to the plain drain (bf16
+    bits follow row counts: not gated)."""
+    from repro_torch.launch.scheduler import PagedContinuousBatchingServer
+    from repro_torch.launch.spec import SpecConfig
+
+    if prompts is None:
+        prompts = traffic(2, 8, cfg.vocab_size, shared=128, lo=32, hi=256)
+    reqs = [(p, SPEC_GEN, None) for p in prompts]
+    specs = {"plain": None,
+             "oracle": SpecConfig(cfg, params, k=SPEC_K),
+             "shallow": SpecConfig(*shallow_draft(cfg, params), k=SPEC_K)}
+    plain: dict = {}
+    oracle: dict = {}
+    rows = {}
+    for arm, spec in specs.items():
+        srv = PagedContinuousBatchingServer(
+            cfg, params, spec=spec, **{**FULL_SERVER, "device": device,
+                                       **server})
+        for drain in ("cold", "warm"):
+            name = f"14a {arm} {drain}"
+            row, toks = spec_drain(srv, submits(reqs), name)
+            row.update(part="14a", arm=arm, drain=drain, arch=cfg.arch_id,
+                       layers=cfg.num_layers, k=SPEC_K, nvidia_smi=smi)
+            if arm == "plain":
+                plain[drain] = (toks, row["pool_counts"])
+            else:
+                row["tokens_unequal_to_plain"] = int(sum(
+                    (a != b).sum() for a, b in zip(toks, plain[drain][0])))
+            if arm == "oracle":
+                oracle[drain] = toks
+            elif arm == "shallow":
+                # the emitted tokens are the verifier's: does the draft
+                # change their bits?
+                row["tokens_unequal_to_oracle"] = int(sum(
+                    (a != b).sum() for a, b in zip(toks, oracle[drain])))
+            emit(row)
+            rows[arm, drain] = row
+            if arm != "plain":
+                check(row["pool_counts"] == plain[drain][1],
+                      f"phase {name}: allocator counters "
+                      f"{row['pool_counts']} != plain {plain[drain][1]}")
+        del srv
+    return rows
+
+
+def _solo_tokens(cfg, params, prompt, gen, sample, device) -> np.ndarray:
+    from repro_torch.launch.serve import generate
+
+    return generate(cfg, params, torch.from_numpy(prompt)[None], gen,
+                    max_len=SPEC_SMOKE["max_len"], device=device,
+                    sample=sample)[0, prompt.size:].cpu().numpy()
+
+
+def spec_families(device="cuda") -> None:
+    """14(b): the three cache families at fp32 smoke size: the oracle
+    draft at k = 3, greedy and half sampled, against the plain server
+    and solo ``generate`` — equal tokens, greedy acceptance exactly 1.0
+    — then ``tests/test_spec_decode.py``'s tight-pool drain (two lows,
+    then a high after one step) on nemotron and deepseek-v3: preemption
+    and solo decode's tokens."""
+    from repro_torch.launch.sampling import SamplingParams
+    from repro_torch.launch.scheduler import PagedContinuousBatchingServer
+    from repro_torch.launch.spec import SpecConfig
+
+    for arch, int8 in (("nemotron-4-15b", False), ("nemotron-4-15b", True),
+                       ("deepseek-v3-671b", False)):
+        cfg, params = smoke_model(arch, int8=int8, device=device)
+        oracle = SpecConfig(cfg, params, k=3)
+        rng = np.random.RandomState(5)
+        base = [(rng.randint(0, cfg.vocab_size, rng.randint(2, 14))
+                 .astype(np.int32), int(rng.randint(1, 9)))
+                for _ in range(6)]
+        kv = "int8" if int8 else str(cfg.kv_cache_dtype).replace(
+            "torch.", "")
+        out = {"phase": 14, "part": "14b", "arch": cfg.arch_id,
+               "kv_cache_dtype": kv}
+        for mix in ("greedy", "half_sampled"):
+            reqs = [(p, g, SamplingParams(temperature=0.9, seed=i)
+                     if mix != "greedy" and i % 2 else None)
+                    for i, (p, g) in enumerate(base)]
+            toks = {}
+            for arm, spec in (("plain", None), ("oracle", oracle)):
+                srv = PagedContinuousBatchingServer(
+                    cfg, params, device=device, spec=spec, **SPEC_SMOKE)
+                row, toks[arm] = spec_drain(
+                    srv, submits(reqs), f"14b {cfg.arch_id} {kv} {mix} {arm}")
+                out[f"{mix}_{arm}"] = {k: row[k] for k in (
+                    "spec_steps", "acceptance", "verify_calls",
+                    "draft_calls", "spec_commit_copies", "launches")}
+            solo = [_solo_tokens(cfg, params, p, g, sp, device)
+                    for p, g, sp in reqs]
+            same = all(np.array_equal(a, b) and np.array_equal(a, c)
+                       for a, b, c in zip(toks["oracle"], toks["plain"],
+                                          solo))
+            out[f"{mix}_tokens_equal"] = same
+            check(same, f"phase 14b {cfg.arch_id} {kv} {mix}: speculative "
+                        "!= plain != solo")
+        check(out["greedy_oracle"]["acceptance"] == 1.0,
+              f"phase 14b {cfg.arch_id} {kv}: greedy oracle acceptance "
+              f"{out['greedy_oracle']['acceptance']}")
+        if arch == "deepseek-v3-671b" or not int8:
+            srv = PagedContinuousBatchingServer(
+                cfg, params, device=device, spec=oracle, scheduling="edf",
+                **{**SPEC_SMOKE, "num_slots": 2, "num_blocks": 6})
+            rng = np.random.RandomState(21)
+            lows = [rng.randint(0, cfg.vocab_size, 6).astype(np.int32)
+                    for _ in range(2)]
+            high = rng.randint(0, cfg.vocab_size, 12).astype(np.int32)
+
+            def tight(s):
+                gens = {s.submit(p, 18, priority=0): 18 for p in lows}
+                s.step()
+                gens[s.submit(high, 6, priority=1, ttft_target=30.0)] = 6
+                return gens
+
+            row, toks = spec_drain(srv, tight, f"14b {cfg.arch_id} tight")
+            solo = [_solo_tokens(cfg, params, p, g, None, device)
+                    for p, g in ((lows[0], 18), (lows[1], 18), (high, 6))]
+            same = all(np.array_equal(a, b) for a, b in zip(toks, solo))
+            out["tight"] = {k: row[k] for k in (
+                "spec_steps", "preemptions", "restores", "acceptance")}
+            out["tight"]["tokens_equal_solo"] = same
+            check(same and row["preemptions"] > 0 and row["restores"] > 0,
+                  f"phase 14b {cfg.arch_id} tight: {out['tight']}")
+        emit(out)
+
+
+def spec_captured_vs_eager(cfg, params, smi: str, device="cuda") -> None:
+    """The draft and verify programs replayed against eager on one warm
+    server, at 2 layers of phase 2's full widths (the oracle draft of
+    that model, k = 4; 4 of phase 2's requests, 16 tokens): a warm-up
+    drain (captures), an eager drain, a captured drain — the same
+    tokens bit for bit and exact launches each."""
+    from repro_torch.launch import graphs
+    from repro_torch.launch.scheduler import PagedContinuousBatchingServer
+    from repro_torch.launch.spec import SpecConfig
+
+    cfg2, params2 = shallow_draft(cfg, params)
+    prompts = traffic(2, 8, cfg.vocab_size, shared=128, lo=32, hi=256)[:4]
+    reqs = [(p, 16, None) for p in prompts]
+    srv = PagedContinuousBatchingServer(
+        cfg2, params2, spec=SpecConfig(cfg2, params2, k=SPEC_K),
+        **{**FULL_SERVER, "device": device})
+    spec_drain(srv, submits(reqs), "14 capture warm-up")
+    out = {}
+    for mode in ("eager", "captured"):
+        ctx = (graphs.disable_capture() if mode == "eager"
+               else contextlib.nullcontext())
+        with ctx:
+            row, toks = spec_drain(srv, submits(reqs), f"14 {mode}")
+        out[mode] = (row, toks)
+    same = all(np.array_equal(a, b) for a, b in zip(out["eager"][1],
+                                                    out["captured"][1]))
+    progs = {k[0]: p for k, p in srv._exec.items()
+             if k[0] in ("draft", "specv")}
+    row = {"phase": 14, "part": "captured_vs_eager", "arch": cfg.arch_id,
+           "layers": cfg2.num_layers, "captured_equals_eager": same,
+           "eager_replays": out["eager"][0]["replays"],
+           "captured_replays": out["captured"][0]["replays"],
+           "draft_captures": progs["draft"].captures,
+           "draft_replays": progs["draft"].replays,
+           "verify_keys": sum(k[0] == "specv" for k in srv._exec),
+           "launches": out["captured"][0]["launches"],
+           "nvidia_smi": smi}
+    emit(row)
+    check(same, "phase 14: captured draft/verify tokens != eager tokens")
+    check(out["eager"][0]["replays"] == 0
+          and out["captured"][0]["replays"] > 0
+          and progs["draft"].replays > 0,
+          f"phase 14: capture {row}")
+
+
+def rag_setup(vocab: int, *, block: int = RAG_BLOCK, n_docs: int = RAG_DOCS,
+              doc_len: int = RAG_DOC_LEN, io_latency_s: float =
+              RAG_IO_LATENCY):
+    """The corpus, index and pipeline of 14(c), and its queries: the
+    leads and the waves (``benchmarks/serving_bench.py``'s drive)."""
+    from repro_torch.retrieval import (
+        ChunkedCorpus,
+        EmbeddingIndex,
+        RagPipeline,
+        make_toy_corpus,
+    )
+
+    docs = make_toy_corpus(vocab, n_docs=n_docs, doc_len=doc_len, seed=0)
+    corpus = ChunkedCorpus(docs, chunk_tokens=2 * block)
+    index = EmbeddingIndex(corpus, vocab_size=vocab, seed=0,
+                           io_latency_s=io_latency_s)
+    pipe = RagPipeline(index, system_prefix=list(range(5, 5 + block)),
+                       block_size=block, top_k=2)
+    rng = np.random.RandomState(7)
+
+    def q(i):
+        d = docs[int(rng.randint(RAG_HOT))]
+        lo = int(rng.randint(0, d.size - 8))
+        return d[lo:lo + 4 + (i % 3)].copy()
+
+    leads = [q(i) for i in range(len(RAG_LEAD_GENS))]
+    waves = [[q(w * RAG_PER_WAVE + j) for j in range(RAG_PER_WAVE)]
+             for w in range(RAG_WAVES)]
+    return pipe, leads, waves
+
+
+def rag_drive(leads, waves, rids: list):
+    """The 14(c) drive for ``spec_drain``: the leads, a step, then each
+    wave and a step; the rids submitted land in ``rids``."""
+    def submit(srv):
+        gens = {srv.submit_query(q, g): g
+                for q, g in zip(leads, RAG_LEAD_GENS)}
+        srv.step()
+        for wave in waves:
+            for q in wave:
+                gens[srv.submit_query(q, RAG_WAVE_GEN)] = RAG_WAVE_GEN
+            srv.step()
+        rids.extend(gens)
+        return gens
+    return submit
+
+
+def rag_serving(cfg, params, smi: str, device="cuda", **setup) -> dict:
+    """14(c): phase 2's model behind the RAG drive on two servers,
+    ``rag_overlap`` on and off: each drains cold (its captures), then
+    warm in the order overlap, serial, overlap — the rate compared. Gated
+    besides ``spec_drain``'s gates: every query retrieved, chunk hits,
+    overlapped retrievals in the overlap arms and none in the serial
+    ones, and the same assembled prompts in every arm."""
+    from repro_torch.launch.scheduler import PagedContinuousBatchingServer
+
+    pipe, leads, waves = rag_setup(cfg.vocab_size, **setup)
+    max_len = pipe.prompt_len_for + 8 + max(RAG_LEAD_GENS)
+    max_len = -(-max_len // pipe.block_size) * pipe.block_size
+    n_q = len(leads) + sum(len(w) for w in waves)
+    servers = {overlap: PagedContinuousBatchingServer(
+        cfg, params, device=device, num_slots=4, max_len=max_len,
+        block_size=pipe.block_size, prefill_chunk=pipe.block_size,
+        segment=8, rag=pipe, rag_overlap=overlap) for overlap in
+        (True, False)}
+    rows, prompts = {}, {}
+    for arm, overlap in (("overlap_cold", True), ("serial_cold", False),
+                         ("overlap", True), ("serial", False),
+                         ("overlap_again", True)):
+        rids: list = []
+        row, _ = spec_drain(servers[overlap], rag_drive(leads, waves, rids),
+                            f"14c {arm}")
+        prompts[arm] = [servers[overlap].rag_results[r].tokens
+                        for r in rids]
+        row.update(part="14c", arm=arm, arch=cfg.arch_id,
+                   layers=cfg.num_layers, queries=n_q, nvidia_smi=smi)
+        emit(row)
+        rows[arm] = row
+        check(row["retrievals"] == n_q,
+              f"phase 14c {arm}: {row['retrievals']} retrievals of {n_q}")
+        check(row["retrieval_chunk_hits"] > 0,
+              f"phase 14c {arm}: no chunk hits")
+        check((row["retrieval_overlapped"] > 0) == overlap,
+              f"phase 14c {arm}: {row['retrieval_overlapped']} overlapped")
+    same = all(len(prompts[a]) == n_q and all(
+        np.array_equal(x, y) for x, y in zip(prompts[a], prompts["overlap"]))
+        for a in prompts)
+    overlap_rate = 0.5 * (rows["overlap"]["tokens_per_s"]
+                          + rows["overlap_again"]["tokens_per_s"])
+    emit({"phase": 14, "part": "14c", "prompts_equal_across_arms": same,
+          "overlap_over_serial": overlap_rate / rows["serial"]["tokens_per_s"],
+          "order": "warm: overlap, serial, overlap", "nvidia_smi": smi})
+    check(same, "phase 14c: the arms assembled different prompts")
+    return rows
+
+
+def rag_families(device="cuda") -> None:
+    """14(c) at fp32 smoke size: ``tests/test_rag.py``'s queries (greedy
+    and sampled) on nemotron-4-15b and deepseek-v3 (no-drop), overlap on
+    and off, against plain ``submit`` of the same assembled prompts:
+    equal tokens."""
+    from repro_torch.launch.sampling import SamplingParams
+    from repro_torch.launch.scheduler import PagedContinuousBatchingServer
+
+    samples = [None, SamplingParams(temperature=0.8, seed=11), None,
+               SamplingParams(temperature=1.1, top_k=20, seed=3), None]
+    server = dict(num_slots=2, max_len=96, block_size=8, prefill_chunk=8,
+                  segment=4)
+    for arch in ("nemotron-4-15b", "deepseek-v3-671b"):
+        cfg, params = smoke_model(arch, device=device)
+        toks, out = {}, {"phase": 14, "part": "14c_smoke",
+                         "arch": cfg.arch_id}
+        for overlap in (True, False):
+            pipe, _, _ = rag_setup(cfg.vocab_size, block=8, n_docs=4,
+                                   doc_len=32, io_latency_s=0.0)
+            srv = PagedContinuousBatchingServer(
+                cfg, params, device=device, rag=pipe, rag_overlap=overlap,
+                **server)
+            rng = np.random.RandomState(7)
+            docs = [c.tokens for c in pipe.index.corpus.chunks]
+            qs = [docs[int(rng.randint(len(docs) // 2))][:3 + i]
+                  for i in range(len(samples))]
+            rids = [srv.submit_query(q, 5, s) for q, s in zip(qs, samples)]
+            done = {r.rid: r.tokens for r in srv.run()}
+            plain = PagedContinuousBatchingServer(cfg, params, device=device,
+                                                  **server)
+            prids = [plain.submit(srv.rag_results[r].tokens, 5, s)
+                     for r, s in zip(rids, samples)]
+            pdone = {r.rid: r.tokens for r in plain.run()}
+            toks[overlap] = [done[r] for r in rids]
+            same = all(np.array_equal(done[r], pdone[p])
+                       for r, p in zip(rids, prids))
+            out[f"overlap_{overlap}"] = {
+                "equal_to_plain_submit": same,
+                "retrievals": srv.stats.retrievals,
+                "overlapped": srv.stats.retrieval_overlapped,
+                "chunk_hits": srv.stats.retrieval_chunk_hits}
+            check(same and _quiescent(srv),
+                  f"phase 14c {cfg.arch_id} overlap={overlap}: RAG drain "
+                  "!= plain submit")
+        out["overlap_on_equals_off"] = all(
+            np.array_equal(a, b) for a, b in zip(toks[True], toks[False]))
+        emit(out)
+        check(out["overlap_on_equals_off"],
+              f"phase 14c {cfg.arch_id}: overlap on != off")
 
 
 # ---------------------------------------------------------------------------
@@ -2865,11 +3409,12 @@ def trainer_resume() -> dict:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,10,11,12,13",
+    ap.add_argument("--phases",
+                    default="0,1,2,3,4,5,6,7,8,9,10,11,12,13,14",
                     help="comma-separated subset of phases to run")
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the depth of the full-width phases 2, 5, "
-                         "9 and 13")
+                         "9, 13 and 14")
     ap.add_argument("--stage-capture-after", type=int, default=None,
                     help="the paged servers' stage_capture_after (default: "
                          "the server's own)")
@@ -2920,7 +3465,7 @@ def main() -> None:
         autograd_refusals()
     served = {}
     params = None
-    if phases & {2, 5, 9, 13}:
+    if phases & {2, 5, 9, 13, 14}:
         cfg, params, init_s = full_width_params(args.layers)
         row, tokens = full_width(2, cfg, params, init_s)
         served["sidebar"] = row
@@ -2940,6 +3485,22 @@ def main() -> None:
             emit({"phase": 13, "host_s": {
                 "13a": t13a - t13, "13c": t13c - t13a,
                 "13b": time.perf_counter() - t13c}})
+            torch.cuda.empty_cache()
+        if 14 in phases:
+            t14 = time.perf_counter()
+            spec_serving(cfg, params, smi)
+            t14a = time.perf_counter()
+            spec_captured_vs_eager(cfg, params, smi)
+            t14e = time.perf_counter()
+            spec_families()
+            t14b = time.perf_counter()
+            rag_serving(cfg, params, smi)
+            t14c = time.perf_counter()
+            rag_families()
+            emit({"phase": 14, "host_s": {
+                "14a": t14a - t14, "captured_vs_eager": t14e - t14a,
+                "14b": t14b - t14e, "14c": t14c - t14b,
+                "14c_smoke": time.perf_counter() - t14c}})
             torch.cuda.empty_cache()
         if 8 not in phases or cfg.num_layers != D_LAYERS:
             params = None

@@ -468,14 +468,31 @@ class PagedKVManager:
     hash-cons), ``ensure_exclusive`` (copy-on-write),
     ``spill_request`` / ``restore_request`` (preemption),
     ``release_request``, and the router's side-effect-free probes
-    ``prefix_affinity`` / ``chunk_affinity``."""
+    ``prefix_affinity`` / ``chunk_affinity``.
+
+    ``spare_blocks`` appends that many physical rows to the device pool
+    that the allocator never sees: ids ``num_blocks .. num_blocks +
+    spare_blocks - 1`` (``spare_ids``), never refcounted, hash-consed or
+    spilled. The speculative decoder writes drafted positions into a
+    slot's spares spliced into its verify table and copies only the
+    accepted ones into allocator-owned blocks, so a rejected draft
+    leaves no trace in ``counters``. Every leaf is allocated once, spares
+    included, so captured programs keep their addresses."""
 
     def __init__(self, api, cfg, *, num_blocks: int, block_size: int,
-                 device) -> None:
+                 device, spare_blocks: int = 0) -> None:
         self.block_size = int(block_size)
+        self.spare_blocks = int(spare_blocks)
         self.alloc = BlockAllocator(num_blocks)
-        self.pool = KVPool(api, cfg, num_blocks=num_blocks,
+        self.pool = KVPool(api, cfg,
+                           num_blocks=num_blocks + self.spare_blocks,
                            block_size=block_size, device=device)
+
+    @property
+    def spare_ids(self) -> range:
+        """Physical ids of the scratch rows past the allocator's reach."""
+        return range(self.alloc.num_blocks,
+                     self.alloc.num_blocks + self.spare_blocks)
 
     @property
     def counters(self) -> PoolCounters:

@@ -67,8 +67,31 @@ restore writes into the pool's leaves in place. ``faults=`` (a
 ``submit_spilled`` hand spilled requests to the replica router
 (``launch.router``).
 
-Differences from the JAX servers: speculative decoding, RAG and tensor
-parallelism are not ported: their arguments raise (``serve.UNPORTED``).
+**Speculative decoding** — ``spec=SpecConfig(...)`` (``launch.spec``)
+makes each iteration draft -> verify -> commit: the draft model
+proposes ``spec.k`` tokens a row from its own dense slot cache, the
+target verifies all k + 1 positions in one rowwise program through the
+block tables, its drafted positions written into per-slot spare rows of
+the pool that the allocator never sees, and the host commits the
+accepted prefix (and the target's token after it) by span growth and a
+scratch -> pool copy of just the blocks the accepted span reaches. Draft
+and verify are programs like the segments (keys ``("draft", n, k)`` and
+``("specv", n, k, width, sampled|greedy, plan)``); the host reads the
+drafts before the verify and the targets after it — the two syncs of a
+speculative step, by design. The stream equals plain decode's for any
+draft, greedy and sampled.
+
+**RAG** — ``rag=RagPipeline(...)`` (``retrieval``): ``submit_query``
+parks a query; with ``rag_overlap`` (the default) its search starts at
+once on a single background worker and is collected right after the
+next segment's (or verify's) dispatch, before the host first reads
+that program's tokens, so retrieval hides behind the card's decode;
+``rag_overlap=False`` quiesces the card and retrieves serially. The
+assembled prompt then takes the plain submit path; its retrieved-chunk
+blocks are counted against the prefix index's hits.
+
+Differences from the JAX servers: tensor parallelism is not ported:
+``mesh=`` raises (``serve.UNPORTED``).
 
 On the CPU the plain paths accumulate in a fixed order (see
 ``kernels.ref``), so slot == paged == slab == solo ``serve.generate``
@@ -78,6 +101,7 @@ bit-exactly, as in the JAX package.
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import dataclasses
 import math
 import time
@@ -107,6 +131,12 @@ from repro_torch.launch.serve import (
     UNPORTED,
     make_prefill_step,
     make_serve_step,
+    make_verify_step,
+)
+from repro_torch.launch.spec import (
+    SpecConfig,
+    accepted_prefix,
+    make_draft_program,
 )
 from repro_torch.models.registry import get_model
 
@@ -221,6 +251,18 @@ class SchedulerStats:
     restored_blocks: int = 0
     cancelled: int = 0
     watchdog_events: int = 0   # segments past k * median segment wall
+    # speculative decoding (the paged server with ``spec=``); under it
+    # ``decode_steps`` counts emitted tokens and ``wasted_steps`` the
+    # rejected remainder
+    spec_steps: int = 0        # draft + verify iterations
+    spec_drafted: int = 0      # draft tokens given to the verifier
+    spec_accepted: int = 0     # of those, equal to the target's
+    spec_commit_copies: int = 0  # scratch -> pool block copies
+    # retrieval (the paged server with ``rag=``)
+    retrievals: int = 0             # queries assembled
+    retrieval_overlapped: int = 0   # of those, behind a dispatch
+    retrieval_chunk_blocks: int = 0  # retrieved-chunk blocks staged
+    retrieval_chunk_hits: int = 0    # of those, spliced from the index
     # latency samples (seconds) per priority class; ``router.sum_stats``
     # concatenates them
     ttft_s: dict = dataclasses.field(default_factory=dict)
@@ -261,12 +303,30 @@ class SchedulerStats:
         return self.prefix_block_hits / max(self.prefix_prompt_blocks, 1)
 
     @property
+    def retrieval_chunk_hit_rate(self) -> float:
+        """Retrieved-chunk blocks spliced from the KV index rather than
+        prefilled, over those staged."""
+        return (self.retrieval_chunk_hits
+                / max(self.retrieval_chunk_blocks, 1))
+
+    @property
+    def retrieval_overlap_frac(self) -> float:
+        """Retrievals collected behind an in-flight dispatch."""
+        return self.retrieval_overlapped / max(self.retrievals, 1)
+
+    @property
     def pool_occupancy(self) -> float:
         return self.pool_in_use / max(self.pool_blocks, 1)
 
     @property
     def wasted_step_frac(self) -> float:
         return self.wasted_steps / max(self.decode_steps, 1)
+
+    @property
+    def spec_acceptance_rate(self) -> float:
+        """Drafted tokens the target accepted (1.0: the oracle draft's
+        ceiling); the tokens never depend on it, throughput does."""
+        return self.spec_accepted / max(self.spec_drafted, 1)
 
     def summary(self) -> str:
         """One printable line per concern (the serving driver's report)."""
@@ -288,6 +348,19 @@ class SchedulerStats:
                 f"{self.stage_chunks} staged chunks, "
                 f"{self.stage_stalls} stalls, {self.cow_copies} COW, "
                 f"{self.evictions} evictions")
+        if self.spec_steps:
+            lines.append(
+                f"speculative: {self.spec_steps} steps, "
+                f"{self.spec_accepted}/{self.spec_drafted} drafts accepted "
+                f"({self.spec_acceptance_rate:.0%}), "
+                f"{self.spec_commit_copies} commit copies")
+        if self.retrievals:
+            lines.append(
+                f"retrieval: {self.retrievals} queries "
+                f"({self.retrieval_overlap_frac:.0%} overlapped), "
+                f"chunk hit rate {self.retrieval_chunk_hit_rate:.0%} "
+                f"({self.retrieval_chunk_hits}/"
+                f"{self.retrieval_chunk_blocks} blocks)")
         if (self.preemptions or self.restores or self.cancelled
                 or self.watchdog_events):
             lines.append(
@@ -785,6 +858,40 @@ def _hole_spans(hit_idx: Sequence[int], target: int,
     return spans
 
 
+_rag_io_pool: concurrent.futures.ThreadPoolExecutor | None = None
+
+
+def _rag_io() -> concurrent.futures.ThreadPoolExecutor:
+    """The shared retrieval worker: ONE thread, so queries retrieve in
+    submission order. ``RagPipeline.retrieve`` is a pure function of the
+    query over a read-only index, so running it here moves only its wall
+    time off the dispatch thread (its modeled fetch sleeps and numpy
+    release the GIL)."""
+    global _rag_io_pool
+    if _rag_io_pool is None:
+        _rag_io_pool = concurrent.futures.ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="rag-io")
+    return _rag_io_pool
+
+
+@dataclasses.dataclass(eq=False)
+class _PendingQuery:
+    """A RAG query waiting for its retrieval: a ``_Request`` without its
+    prompt, which retrieval and assembly make. ``seq`` is taken at
+    submit, so retrieval latency never reorders a query behind later
+    plain submits."""
+
+    rid: int
+    query: np.ndarray
+    max_new: int
+    sample: SamplingParams | None
+    priority: int
+    ttft_target: float | None
+    itl_target: float | None
+    submit_t: float
+    seq: int
+
+
 @dataclasses.dataclass(eq=False)
 class _Spilled:
     """A preempted request waiting to resume: its generated tokens on
@@ -839,6 +946,9 @@ class PagedContinuousBatchingServer(ContinuousBatchingServer):
 
     ``buckets`` and ``admit_batch`` belong to the slot cache's admission
     and are ignored here (staging replaces it), as in the JAX package.
+    ``spec`` (a ``SpecConfig``; ``k == 0`` or None: plain segments) and
+    ``rag`` (a ``RagPipeline`` of this block size) / ``rag_overlap``:
+    see the module docstring.
     """
 
     def __init__(self, cfg: ModelConfig, params, *, block_size: int = 16,
@@ -848,10 +958,27 @@ class PagedContinuousBatchingServer(ContinuousBatchingServer):
                  spill_region: SidebarSpillRegion | None = None,
                  kernel: str = "paged",
                  stage_capture_after: int = STAGE_CAPTURE_AFTER,
-                 **kw) -> None:
+                 spec: SpecConfig | None = None,
+                 rag=None, rag_overlap: bool = True, **kw) -> None:
         if kernel not in ("paged", "slab"):
             raise ValueError(f"kernel must be 'paged' or 'slab', got "
                              f"{kernel!r}")
+        self.spec = spec
+        self._spec_on = spec is not None and spec.k > 0
+        if self._spec_on:
+            spec.validate(cfg)
+        if rag is not None and rag.block_size != int(block_size):
+            raise ValueError(
+                f"RagPipeline block_size {rag.block_size} != scheduler "
+                f"block_size {block_size}: chunk boundaries must land on "
+                "pool block boundaries")
+        self.rag = rag
+        self.rag_overlap = bool(rag_overlap)
+        self._queries: collections.deque[_PendingQuery] = (
+            collections.deque())
+        self._rag_futures: dict[int, concurrent.futures.Future] = {}
+        self._rag_meta: dict[int, list[int]] = {}   # rid -> chunk blocks
+        self.rag_results: dict[int, Any] = {}       # rid -> RagPrompt
         self.kernel = kernel
         self.block_size = int(block_size)
         self._num_blocks_arg = num_blocks
@@ -875,9 +1002,30 @@ class PagedContinuousBatchingServer(ContinuousBatchingServer):
         if nb is None:
             # full tables for every slot + staging/prefix slack + scratch
             nb = (self.num_slots + 2) * self.blocks_per_table + 1
-        self.mgr = kvp.PagedKVManager(self.api, self.cfg, num_blocks=nb,
-                                      block_size=self.block_size,
-                                      device=self.device)
+        # speculative decoding: each slot owns a private slice of spare
+        # pool rows (outside the allocator) for the worst drafted
+        # overhang, k positions past a block-aligned frontier
+        spec_k = self.spec.k if self._spec_on else 0
+        self._n_scratch = -(-spec_k // self.block_size)
+        self.mgr = kvp.PagedKVManager(
+            self.api, self.cfg, num_blocks=nb, block_size=self.block_size,
+            device=self.device,
+            spare_blocks=self.num_slots * self._n_scratch)
+        if self._spec_on:
+            spare = list(self.mgr.spare_ids)
+            n = self._n_scratch
+            self._scratch = [spare[i * n:(i + 1) * n]
+                             for i in range(self.num_slots)]
+            self.draft_api = self.spec.draft_api()
+            self._draft_params = self.spec.draft_params
+            # the draft's own dense slot cache: it never takes pool
+            # blocks, and the programs write it in place
+            self._draft_cache = self.draft_api.init_cache(
+                self.spec.draft_cfg, self.num_slots, self.max_len,
+                device=self.device)
+            # slot -> (rid, draft ingest frontier); keyed by rid, so slot
+            # reuse, spill and restore reset the frontier
+            self._dpos: dict[int, tuple[int, int]] = {}
         self.cache = None  # the pool replaces the slab entirely
         self.stage_ahead = (self._stage_ahead_arg
                             if self._stage_ahead_arg is not None
@@ -899,8 +1047,9 @@ class PagedContinuousBatchingServer(ContinuousBatchingServer):
         self.stats.pool_blocks = self.mgr.alloc.capacity
 
     def _validated(self, tables: np.ndarray) -> torch.Tensor:
-        """Bounds-check a table batch on the host, then ship it."""
-        kvp.validate_tables(tables, self.mgr.alloc.num_blocks)
+        """Bounds-check a table batch on the host (against the pool's
+        physical rows: the spare scratch rows are legal), then ship it."""
+        kvp.validate_tables(tables, self.mgr.pool.num_blocks)
         return torch.as_tensor(np.ascontiguousarray(tables),
                                device=self.device)
 
@@ -917,11 +1066,12 @@ class PagedContinuousBatchingServer(ContinuousBatchingServer):
 
     def _has_work(self) -> bool:
         return (super()._has_work() or bool(self._staging)
-                or bool(self._spilled))
+                or bool(self._spilled) or bool(self._queries))
 
     @property
     def load(self) -> int:
-        return super().load + len(self._staging) + len(self._spilled)
+        return (super().load + len(self._staging) + len(self._spilled)
+                + len(self._queries))
 
     def submit(self, prompt, max_new_tokens: int,
                sample: SamplingParams | None = None, *,
@@ -943,7 +1093,79 @@ class PagedContinuousBatchingServer(ContinuousBatchingServer):
                               priority=priority, ttft_target=ttft_target,
                               itl_target=itl_target)
 
+    # -- retrieval (RAG) ----------------------------------------------------
+    def submit_query(self, query, max_new_tokens: int,
+                     sample: SamplingParams | None = None, *,
+                     priority: int = 0, ttft_target: float | None = None,
+                     itl_target: float | None = None) -> int:
+        """Enqueue a RAG query; returns its rid. Retrieval and assembly
+        run later, between dispatches; the assembled ``RagPrompt`` lands
+        in ``rag_results[rid]`` and its tokens take the submit path. The
+        assembled length is known before retrieval (system prefix and
+        top_k chunks are fixed-size), so a request that cannot fit
+        raises here."""
+        if self.rag is None:
+            raise ValueError(
+                "submit_query needs a RagPipeline: construct the server "
+                "with rag=RagPipeline(...)")
+        q = np.asarray(query, np.int32).reshape(-1)
+        if q.size < 1:
+            raise ValueError("empty query")
+        if max_new_tokens < 1:
+            raise ValueError("max_new_tokens must be >= 1")
+        s = self.rag.prompt_len_for + q.size
+        if s + max_new_tokens > self.max_len:
+            raise ValueError(
+                f"assembled prompt {s} + max_new {max_new_tokens} "
+                f"exceeds max_len {self.max_len}")
+        need = self.mgr.blocks_needed(s + max_new_tokens - 1)
+        if need > self.mgr.alloc.capacity:
+            raise ValueError(
+                f"assembled request needs {need} blocks, pool holds "
+                f"{self.mgr.alloc.capacity} — raise num_blocks or "
+                "shrink the request")
+        rid = self._next_rid
+        self._next_rid += 1
+        self._queries.append(_PendingQuery(
+            rid=rid, query=q, max_new=int(max_new_tokens), sample=sample,
+            priority=int(priority), ttft_target=ttft_target,
+            itl_target=itl_target, submit_t=self._clock(), seq=self._seq))
+        self._seq += 1
+        if self.rag_overlap:
+            # the search starts now on the worker and runs behind every
+            # host step and dispatch until the drain collects it
+            self._rag_futures[rid] = _rag_io().submit(self.rag.retrieve, q)
+        return rid
+
+    def _drain_queries(self, *, overlapped: bool) -> None:
+        """Collect every parked query's retrieval (or run it, without
+        overlap), assemble it and make it a pending request. Called right
+        after a dispatch (``overlapped``: the search ran behind it) or at
+        the top of ``_advance`` when nothing decodes or overlap is off."""
+        while self._queries:
+            pq = self._queries.popleft()
+            fut = self._rag_futures.pop(pq.rid, None)
+            rp = self.rag.assemble(
+                pq.query, ranked=None if fut is None else fut.result())
+            self.rag_results[pq.rid] = rp
+            self._rag_meta[pq.rid] = rp.chunk_blocks(self.block_size)
+            self.stats.retrievals += 1
+            if overlapped:
+                self.stats.retrieval_overlapped += 1
+            self.pending.append(_Request(
+                pq.rid, rp.tokens, pq.max_new, pq.sample,
+                priority=pq.priority, ttft_target=pq.ttft_target,
+                itl_target=pq.itl_target, submit_t=pq.submit_t,
+                seq=pq.seq))
+
     def cancel(self, rid: int) -> bool:
+        for pq in self._queries:
+            if pq.rid == rid:
+                # an in-flight search is pure: drop its handle
+                self._queries.remove(pq)
+                self._rag_futures.pop(rid, None)
+                self.stats.cancelled += 1
+                return True
         for st in self._staging:
             if st.req.rid == rid:
                 self._staging.remove(st)
@@ -1038,6 +1260,13 @@ class PagedContinuousBatchingServer(ContinuousBatchingServer):
                 self.stats.stage_stalls += 1
                 break
             self.pending.remove(req)
+            meta = self._rag_meta.pop(req.rid, None)
+            if meta is not None:
+                # chunk reuse: of the retrieved-chunk blocks this prompt
+                # stages, those spliced from the index
+                self.stats.retrieval_chunk_blocks += len(meta)
+                self.stats.retrieval_chunk_hits += len(
+                    set(rb.hit_idx) & set(meta))
             self._staging.append(_Staging(
                 req=req, rb=rb,
                 todo=_hole_spans(rb.hit_idx, int(req.prompt.size) - 1,
@@ -1240,13 +1469,15 @@ class PagedContinuousBatchingServer(ContinuousBatchingServer):
     def _segment_steps(self, active: list[int], *,
                        draining: bool = False) -> int:
         """Shrink-to-fit: end when the earliest active slot finishes;
-        capped at ``segment`` while staging needs boundaries or a live
-        submit could enter a free slot; above ``segment`` the length
-        rounds down to a power of two."""
+        capped at ``segment`` while staging needs boundaries, a parked
+        query will stage at the next one, or a live submit could enter a
+        free slot; above ``segment`` the length rounds down to a power of
+        two."""
         min_rem = min(self.slots[i].remaining for i in active)
         staging_wants_boundaries = (
             any(not st.done for st in self._staging)
-            or bool(self._spilled))   # spills restore only at boundaries
+            or bool(self._spilled)    # spills restore only at boundaries
+            or bool(self._queries))   # park -> retrieve -> stage next
         entry_possible = staging_wants_boundaries or (
             not draining and any(s.free for s in self.slots))
         if entry_possible:
@@ -1343,19 +1574,24 @@ class PagedContinuousBatchingServer(ContinuousBatchingServer):
                    tables=self._validated(tables), admit_slots=a_slots,
                    admit_toks=a_toks, sample=state)
 
-    def _grow_active(self, draining: bool) -> tuple[list[int], int]:
+    def _grow_active(self, draining: bool,
+                     steps_override: int | None = None
+                     ) -> tuple[list[int], int]:
         """Grow every active row's span to cover the coming segment
         (``pos + steps``), best-scored rows first. A row that cannot
         grow reclaims from strictly worse holders, and when none exists
         spills itself. Any change of membership restarts the pass, so
         the returned (active, steps) is a fixpoint: every listed row
-        owns its segment's span."""
+        owns its segment's span. ``steps_override`` fixes the span
+        target: the speculative path secures one position (its input
+        token's write); drafted positions go to scratch."""
         while True:
             active = [i for i, s in enumerate(self.slots)
                       if not s.free and s.remaining > 0]
             if not active:
                 return [], 0
-            steps = self._segment_steps(active, draining=draining)
+            steps = (steps_override if steps_override is not None
+                     else self._segment_steps(active, draining=draining))
             changed = False
             for i in sorted(active,
                             key=lambda j: self._score(self.slots[j].req)):
@@ -1382,9 +1618,20 @@ class PagedContinuousBatchingServer(ContinuousBatchingServer):
             # the prefix index flushed
             self.mgr.alloc.evict_cached()
         active_now = any(not s.free and s.remaining > 0 for s in self.slots)
+        if self._queries and not (self.rag_overlap and active_now):
+            # nothing decodes to hide behind, or overlap is off: collect
+            # now, so the queries stage at this boundary
+            if not self.rag_overlap and self.device.type == "cuda":
+                # serial means serial: the queued device work finishes
+                # before retrieval, which would otherwise hide behind it
+                torch.cuda.synchronize(self.device)
+            self._drain_queries(overlapped=False)
         self._stage(catch_up=not active_now)
         self._admit_ready()
         self._sync_pool_stats()
+        if self._spec_on:
+            self._advance_spec(draining)
+            return
         active, steps = self._grow_active(draining)
         if not active:
             return
@@ -1403,7 +1650,200 @@ class PagedContinuousBatchingServer(ContinuousBatchingServer):
             buf = self._run_segment(steps, pos, aligned,
                                     self._tables[:, :width])
         self._observe(t0)
+        if self._queries:
+            # the searches ran on the worker behind the dispatch above;
+            # collect them before the host first reads its tokens
+            self._drain_queries(overlapped=True)
         self._account(active, steps, buf)
+        self._sync_pool_stats()
+
+    # -- speculative decoding (launch.spec) --------------------------------
+    def _fetch(self, t: torch.Tensor) -> np.ndarray:
+        """A program's result read on the host: a speculative step's two
+        syncs (the drafts before the verify, the targets after it)."""
+        return t.cpu().numpy()
+
+    def _hist(self, i: int) -> np.ndarray:
+        """Committed history of the request in slot ``i`` (prompt and
+        accepted tokens): ``hist[p]`` is the token at index p, so
+        ``hist[slot.pos]`` is the verifier's input token."""
+        slot = self.slots[i]
+        return np.concatenate(
+            [slot.prompt, self.slot_tokens(i)]).astype(np.int32)
+
+    def _draft_fn(self) -> Callable:
+        """The draft program on the draft's params and slot cache. It runs
+        under the default plan: a per-layer plan names the target's
+        layers."""
+        draft = make_draft_program(self.spec.draft_cfg, self.draft_api,
+                                   self.spec.k, self.max_len)
+
+        def run(fixed, chunk, chunk_len, start):
+            params, cache = fixed
+            return draft(params, chunk, chunk_len, start, cache)
+
+        return run
+
+    def _verify_fn(self) -> Callable:
+        """The verify program, in place on the pool."""
+        verify = make_verify_step(self.cfg, self.api)
+
+        def run(fixed, tokens, pos, tables, sample):
+            params, pool = fixed
+            return verify(params, tokens, pool, pos, tables, sample)
+
+        return run
+
+    def _draft_tokens(self, active: list[int]) -> np.ndarray:
+        """Run the ingest-and-draft program; returns the (N, k) drafts.
+
+        Each round feeds every active row the next <= k + 1 committed
+        tokens past its draft frontier (``_dpos``). In steady state the
+        lag is the last commit (<= k + 1), so one round ingests and
+        drafts; after admission or a restore, catch-up rounds run until
+        every frontier reaches ``pos + 1``. A row already caught up
+        re-feeds its input token at ``pos`` (the same KV rewritten), so
+        the batch keeps its shape. Only the final round's drafts are
+        read."""
+        k = self.spec.k
+        w = k + 1
+        n = self.num_slots
+        max_pos = self.max_len - 1
+        hists = {i: self._hist(i) for i in active}
+        dpos = {}
+        for i in active:
+            rid, dp = self._dpos.get(i, (None, 0))
+            dpos[i] = dp if rid == self.slots[i].rid else 0
+        fn = self._compiled(("draft", n, k),
+                            lambda: self._program(self._draft_fn()))
+        while True:
+            chunk = np.zeros((n, w), np.int64)
+            clen = np.ones((n,), np.int64)
+            start = np.full((n,), max_pos, np.int64)
+            final = True
+            for i in active:
+                pos = self.slots[i].pos
+                lag = pos + 1 - dpos[i]
+                if lag <= 0:
+                    start[i] = pos
+                    chunk[i, 0] = hists[i][pos]
+                else:
+                    take = min(lag, w)
+                    start[i] = dpos[i]
+                    chunk[i, :take] = hists[i][dpos[i]:dpos[i] + take]
+                    clen[i] = take
+                    dpos[i] += take
+                    if dpos[i] < pos + 1:
+                        final = False
+            drafts = fn((self._draft_params, self._draft_cache),
+                        chunk=torch.as_tensor(chunk, device=self.device),
+                        chunk_len=torch.as_tensor(clen, device=self.device),
+                        start=torch.as_tensor(start, device=self.device))
+            if final:
+                break
+        for i in active:
+            self._dpos[i] = (self.slots[i].rid, dpos[i])
+        return self._fetch(drafts)
+
+    def _advance_spec(self, draining: bool) -> None:
+        """One speculative iteration: draft k, verify k + 1 in one
+        program, accept and commit on the host. The pool grows only by
+        accepted positions: the verifier writes drafted positions into
+        the slot's spare rows (spliced into its table past the span), and
+        the commit copies just the blocks the accepted span reaches into
+        allocator-owned blocks, in place (``KVPool.copy_blocks``)."""
+        k = self.spec.k
+        n = self.num_slots
+        active, _ = self._grow_active(draining, steps_override=1)
+        if not active:
+            return
+        # an admitted row's input token comes from its host history here
+        self._admit_pending.clear()
+        drafts = self._draft_tokens(active)
+        width = self._segment_table_width(active, k + 1)
+        bt = np.full((n, width), kvp.SCRATCH_BLOCK, np.int32)
+        toks = np.zeros((n, k + 1), np.int64)
+        pos = np.full((n,), self.max_len - 1, np.int64)
+        for i in active:
+            slot = self.slots[i]
+            rb = self._slot_rb[i]
+            row = rb.table_row(self.blocks_per_table)[:width].copy()
+            # drafted positions past the span land in this slot's
+            # private spare rows
+            need = min(self.mgr.blocks_needed(slot.pos + k + 1), width)
+            for j in range(len(rb.bids), need):
+                row[j] = self._scratch[i][j - len(rb.bids)]
+            bt[i] = row
+            toks[i, 0] = self._hist(i)[slot.pos]
+            toks[i, 1:] = drafts[i]
+            pos[i] = slot.pos
+        # no check_span by design: drafted writes pass the span into
+        # scratch; the tables are still bounds-checked
+        state = self._segment_sample_state(active)
+        vf = self._compiled(
+            ("specv", n, k, width,
+             "sampled" if state is not None else "greedy", self._plan_key),
+            lambda: self._program(self._verify_fn()))
+        t0 = self._timer()
+        with kops.execution_plan(self.plan):
+            tgt = vf((self.params, self.mgr.pool.cache),
+                     tokens=torch.as_tensor(toks, device=self.device),
+                     pos=torch.as_tensor(pos, device=self.device),
+                     tables=self._validated(bt), sample=state)
+        if self._queries:
+            # the searches ran behind the verify dispatch: collect them
+            # before the host reads its targets
+            self._drain_queries(overlapped=True)
+        # the accept policy is the host's: read the targets
+        tgt = self._fetch(tgt)
+        self._observe(t0)
+        tgt_rows = torch.from_numpy(tgt)
+        self.stats.segments += 1
+        self.stats.spec_steps += 1
+        rids = {i: self.slots[i].rid for i in active}
+        wasted = (k + 1) * (n - len(active))
+        now = self._clock()
+        for i in sorted(active, key=lambda j: self._score(self.slots[j].req)):
+            slot = self.slots[i]
+            if slot.free or slot.rid != rids[i]:
+                # spilled by a better row's commit growth: its round is
+                # discarded, and redone after the restore
+                wasted += k + 1
+                continue
+            m = accepted_prefix(drafts[i], tgt[i])
+            emit = min(m + 1, slot.remaining)
+            self.stats.spec_drafted += k
+            self.stats.spec_accepted += m
+            rb = self._slot_rb[i]
+            old_nb = len(rb.bids)
+            ok = self.mgr.ensure_span(rb, slot.pos + emit)
+            while not ok and self._reclaim_for(self._score(slot.req),
+                                               exclude_slot=i):
+                ok = self.mgr.ensure_span(rb, slot.pos + emit)
+            if not ok:
+                # the pool cannot hold the accepted span: keep what the
+                # span already covers (>= 1 token, secured above)
+                emit = max(1, min(emit, rb.span - slot.pos))
+            new_nb = len(rb.bids)
+            if new_nb > old_nb:
+                dst = rb.bids[old_nb:new_nb]
+                self.mgr.pool.copy_blocks(dst, self._scratch[i][:len(dst)])
+                kops.record_dispatch("spec_commit_copy", "dma")
+                self.stats.spec_commit_copies += len(dst)
+            self.stats.decode_steps += emit
+            wasted += (k + 1) - emit
+            slot.chunks.append((tgt_rows, i, emit))
+            slot.generated += emit
+            slot.remaining -= emit
+            slot.pos += emit
+            if slot.first_t is None:
+                slot.first_t = now
+                if slot.req is not None:
+                    self.stats.record_ttft(slot.req.priority,
+                                           now - slot.req.submit_t)
+            if slot.remaining == 0:
+                self._retire(i)
+        self.stats.wasted_steps += wasted
         self._sync_pool_stats()
 
 

@@ -57,9 +57,6 @@ PER_LAYER_PLAN_FAMILIES = ("dense", "moe")
 # features of the JAX servers that are not ported, by ROADMAP item
 UNPORTED = {
     "mesh": "tensor parallelism (ROADMAP Queue 1 item 6)",
-    "spec": "speculative decoding (ROADMAP Queue 1 item 5)",
-    "rag": "RAG serving (ROADMAP Queue 1 item 5)",
-    "rag_overlap": "RAG serving (ROADMAP Queue 1 item 5)",
     "memory": "encoder memory for the audio and VLM families (ROADMAP "
               "Queue 1 item 8)",
 }
@@ -103,6 +100,31 @@ def make_prefill_step(cfg: ModelConfig, api: ModelApi):
         return nxt[:, None], cache
 
     return prefill_step
+
+
+def make_verify_step(cfg: ModelConfig, api: ModelApi):
+    """The speculative verifier, one batched rowwise program:
+    ``verify(params, tokens (B, K+1), cache, pos (B,), block_tables,
+    sample=None) -> target (B, K+1) int32``. Row r's chunk is its last
+    committed token and K drafts, written at ``pos[r] .. pos[r] + K``
+    through the block table (drafted positions land in the row's spare
+    scratch rows: the caller splices them into the table);
+    ``target[r, i]`` is the token the target emits at sequence index
+    ``pos[r] + 1 + i`` under the position-keyed rule (greedy rows: exact
+    argmax). Comparing the drafts with ``target`` on the host reproduces
+    plain decode's stream. The chunk attends through the gathered dense
+    view (a multi-token chunk), so it launches no paged decode kernel.
+    MoE: co-verified positions share expert capacity — serve no-drop
+    for parity."""
+
+    def verify_step(params, tokens, cache, pos, block_tables, sample=None):
+        logits, _ = api.prefill(params, cfg, {"tokens": tokens}, cache,
+                                cache_pos=pos, block_tables=block_tables,
+                                all_logits=True)
+        logits = L.mask_pad_logits(logits, cfg.vocab_size)
+        return sampling.sample_token_block(logits, sample, pos)
+
+    return verify_step
 
 
 def make_decode_scan(cfg: ModelConfig, api: ModelApi,

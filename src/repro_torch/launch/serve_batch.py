@@ -13,6 +13,19 @@ paged KV pool (block tables, prefix caching, chunked prefill-ahead).
 ``--temperature``/``--top-k``/``--top-p`` sample (every other request in
 continuous mode). ``--faults site=rate,...`` gives the paged server a
 seeded ``FaultInjector`` (``--fault-seed``, ``--max-faults-per-site``).
+``--spec-k K`` (with ``--paged``) decodes speculatively: K drafted
+tokens a row, verified in one program; the draft is the target itself
+(the oracle: greedy acceptance 1.0) unless ``--draft-arch`` names
+another smoke config, with random weights from seed 1. It asserts that
+the run speculated, the pool ended empty and, greedy with the oracle,
+that every draft was accepted.
+
+RAG mode (``--rag``): queries drawn from a toy corpus of
+``--corpus-size`` documents (chunks of ``--chunk-tokens``, one block by
+default) through ``submit_query``: retrieval (``--rag-top-k`` chunks) on
+the host between dispatches, chunk-addressed KV reuse. It asserts that
+every query was retrieved and drained, that distinct queries spliced
+each other's chunk blocks, and that the pool ended empty.
 
 Overload mode (``--overload``): 2x-oversubscribed two-class traffic on
 the paged server under EDF — a low-priority backlog of 2 x ``--slots``
@@ -31,6 +44,9 @@ Run: python -m repro_torch.launch.serve_batch --arch nemotron-4-15b \\
          --requests 8 --slots 4 --segment 8 --temperature 0.8
      python -m repro_torch.launch.serve_batch --continuous --paged \\
          --overload --num-blocks 10 --faults alloc=0.1,evict_storm=0.1
+     python -m repro_torch.launch.serve_batch --continuous --paged \\
+         --spec-k 4
+     python -m repro_torch.launch.serve_batch --continuous --paged --rag
 """
 
 from __future__ import annotations
@@ -52,13 +68,17 @@ from repro_torch.launch.scheduler import (
     PagedContinuousBatchingServer,
 )
 from repro_torch.launch.serve import UNPORTED, Server
+from repro_torch.launch.spec import SpecConfig
 from repro_torch.models.registry import get_model
+from repro_torch.retrieval import (
+    ChunkedCorpus,
+    EmbeddingIndex,
+    RagPipeline,
+    make_toy_corpus,
+)
 
 # flags of the JAX driver whose features are not ported
-_UNPORTED_FLAGS = {
-    "rag": UNPORTED["rag"], "spec_k": UNPORTED["spec"],
-    "mesh": UNPORTED["mesh"],
-}
+_UNPORTED_FLAGS = {"mesh": UNPORTED["mesh"]}
 
 
 def build_sampling(args) -> SamplingParams | None:
@@ -82,6 +102,21 @@ def build_faults(args) -> FaultInjector | None:
         rates[site.strip()] = float(rate)
     return FaultInjector(seed=args.fault_seed, rates=rates,
                          max_per_site=args.max_faults_per_site)
+
+
+def build_spec(args, cfg, params, device) -> SpecConfig | None:
+    """``--spec-k K`` -> a ``SpecConfig``; the draft is the target itself
+    (the oracle) unless ``--draft-arch`` names one (random weights from
+    seed 1). The tokens equal plain decode's either way."""
+    if not args.spec_k:
+        return None
+    if args.draft_arch is None:
+        return SpecConfig(draft_cfg=cfg, draft_params=params, k=args.spec_k)
+    draft_cfg = cfglib.get_smoke_config(args.draft_arch)
+    draft_params = get_model(draft_cfg).init(draft_cfg, seed=1,
+                                             device=device)
+    return SpecConfig(draft_cfg=draft_cfg, draft_params=draft_params,
+                      k=args.spec_k)
 
 
 def _paged_block_size(args, max_len: int) -> int:
@@ -133,14 +168,22 @@ def run_continuous(args, cfg, params, plan, device) -> None:
     sample = build_sampling(args)
     max_len = args.prompt_len + args.gen
     faults = build_faults(args)
+    spec = build_spec(args, cfg, params, device)
+    if spec is not None and not args.paged:
+        raise SystemExit("--spec-k requires --paged (the verifier runs "
+                         "through the block pool)")
     if args.paged:
         bs = _paged_block_size(args, max_len)
         sched = PagedContinuousBatchingServer(
             cfg, params, device=device, num_slots=args.slots,
             max_len=max_len, block_size=bs, num_blocks=args.num_blocks,
             prefill_chunk=args.prefill_chunk, segment=args.segment,
-            plan=plan, kernel=args.kernel, faults=faults)
-        kind = f"paged (block_size={bs}, kernel={args.kernel})"
+            plan=plan, kernel=args.kernel, faults=faults, spec=spec)
+        kind = f"paged (block_size={bs}, kernel={args.kernel}"
+        if spec is not None:
+            kind += (f", spec k={spec.k} draft={spec.draft_cfg.arch_id}"
+                     f"{' (oracle)' if args.draft_arch is None else ''}")
+        kind += ")"
     else:
         sched = ContinuousBatchingServer(
             cfg, params, device=device, num_slots=args.slots,
@@ -186,6 +229,82 @@ def run_continuous(args, cfg, params, plan, device) -> None:
             and sched.stats.prefix_block_hits == 0:
         raise RuntimeError("shared-prefix traffic produced zero prefix "
                            "hits")
+    if spec is not None:
+        # it speculated, the pool drained clean, and a greedy oracle
+        # draft was accepted whole
+        if sched.stats.spec_steps == 0:
+            raise RuntimeError("the speculative run never speculated")
+        if sched.mgr.alloc.in_use:
+            raise RuntimeError("the speculative run leaked pool blocks")
+        if (args.draft_arch is None and sample is None
+                and sched.stats.spec_acceptance_rate != 1.0):
+            raise RuntimeError(
+                "the greedy oracle draft must be accepted whole, got "
+                f"{sched.stats.spec_acceptance_rate:.2f}")
+
+
+def run_rag(args, cfg, params, plan, device) -> None:
+    """Shared-corpus queries through ``submit_query`` (see the module
+    docstring); raises unless every query was retrieved and drained,
+    distinct queries spliced each other's chunk blocks and the pool
+    ended empty."""
+    sample = build_sampling(args)
+    max_len = args.prompt_len + args.gen
+    bs = _paged_block_size(args, max_len)
+    chunk_tokens = args.chunk_tokens or bs
+    if chunk_tokens % bs:
+        raise SystemExit(f"--chunk-tokens {chunk_tokens} must be a "
+                         f"multiple of the pool block size {bs}")
+    docs = make_toy_corpus(cfg.vocab_size, n_docs=args.corpus_size,
+                           doc_len=max(2 * chunk_tokens, 32),
+                           seed=args.seed)
+    corpus = ChunkedCorpus(docs, chunk_tokens=chunk_tokens)
+    index = EmbeddingIndex(corpus, vocab_size=cfg.vocab_size,
+                           seed=args.seed)
+    rag = RagPipeline(index, system_prefix=list(range(5, 5 + bs // 2)),
+                      block_size=bs, top_k=args.rag_top_k)
+    sched = PagedContinuousBatchingServer(
+        cfg, params, device=device, num_slots=args.slots, max_len=max_len,
+        block_size=bs, prefill_chunk=args.prefill_chunk,
+        segment=args.segment, plan=plan, kernel=args.kernel, rag=rag)
+    print(f"arch={cfg.arch_id} rag [paged, block_size={bs}, kernel="
+          f"{args.kernel}]: corpus={args.corpus_size} docs x "
+          f"{len(corpus.chunks)} chunks ({chunk_tokens} tok), top_k="
+          f"{args.rag_top_k}, queries={args.requests}, slots={args.slots}, "
+          f"sample={sample}, device={device}, captured={sched.captured}")
+    rng = np.random.RandomState(args.seed)
+    # queries concentrate on a few documents, so distinct turns retrieve
+    # overlapping chunk sets: shared leading block runs the pool splices
+    hot = max(1, args.corpus_size // 2)
+    useful = 0
+    for i in range(args.requests):
+        d = docs[rng.randint(hot)]
+        lo = int(rng.randint(0, d.size - 6))
+        q = d[lo:lo + int(rng.randint(3, 7))]
+        gen = int(rng.randint(1, args.gen))
+        useful += gen
+        sched.submit_query(q, gen, sample=sample if i % 2 == 0 else None)
+    t0 = time.perf_counter()
+    done = sched.run()
+    dt = time.perf_counter() - t0
+    print(f"drained {len(done)} requests / {useful} tokens in {dt:.2f}s "
+          f"({useful / dt:.1f} tokens/s on {device}, cold)")
+    print(sched.stats.summary())
+    checks = [
+        (len(done) == args.requests,
+         f"drain lost requests: {len(done)} != {args.requests}"),
+        (sched.stats.retrievals == args.requests,
+         f"{sched.stats.retrievals} retrievals for {args.requests} "
+         "queries"),
+        (sched.stats.retrieval_chunk_blocks > 0,
+         "no retrieved-chunk block was staged"),
+        (args.requests < 3 or sched.stats.retrieval_chunk_hits > 0,
+         "shared-corpus queries produced zero chunk-cache hits"),
+        (sched.mgr.alloc.in_use == 0, "the RAG run leaked pool blocks"),
+    ]
+    for ok, what in checks:
+        if not ok:
+            raise RuntimeError(what)
 
 
 def run_overload(args, cfg, params, plan, device) -> None:
@@ -299,9 +418,26 @@ def main(argv=None) -> None:
     ap.add_argument("--fault-seed", type=int, default=0)
     ap.add_argument("--max-faults-per-site", type=int, default=8,
                     help="bound the Bernoulli firings per site")
+    ap.add_argument("--spec-k", type=int, default=0,
+                    help="speculative decoding (requires --paged): draft "
+                         "K tokens a row a step and verify them in one "
+                         "program; 0 disables")
+    ap.add_argument("--draft-arch", default=None, choices=cfglib.ARCH_IDS,
+                    help="the draft's architecture for --spec-k (default: "
+                         "the target itself, the oracle draft)")
+    ap.add_argument("--rag", action="store_true",
+                    help="shared-corpus queries through submit_query: "
+                         "host retrieval between dispatches, chunk-"
+                         "addressed KV reuse; asserts chunk-cache hits")
+    ap.add_argument("--corpus-size", type=int, default=4,
+                    help="with --rag: documents in the toy corpus (queries "
+                         "concentrate on the first half)")
+    ap.add_argument("--rag-top-k", type=int, default=2,
+                    help="with --rag: retrieved chunks a query")
+    ap.add_argument("--chunk-tokens", type=int, default=None,
+                    help="with --rag: corpus chunk length, a multiple of "
+                         "the block size (default: one block)")
     # the JAX driver's flags of features that are not ported: they raise
-    ap.add_argument("--rag", action="store_true")
-    ap.add_argument("--spec-k", type=int, default=0)
     ap.add_argument("--mesh", default=None)
     args = ap.parse_args(argv)
     asked = [k for k in _UNPORTED_FLAGS if getattr(args, k)]
@@ -316,7 +452,9 @@ def main(argv=None) -> None:
         cfg = dataclasses.replace(cfg, use_pallas=True)
     plan = build_plan(args, cfg)
     params = get_model(cfg).init(cfg, seed=0, device=device)
-    if args.overload:
+    if args.rag:
+        run_rag(args, cfg, params, plan, device)
+    elif args.overload:
         run_overload(args, cfg, params, plan, device)
     elif args.continuous:
         run_continuous(args, cfg, params, plan, device)

@@ -157,17 +157,38 @@ def _write_slab(cache: dict, name: str, vals: Tensor, cache_pos,
     leaf = cache[name].movedim(axis, 1)           # a view: writes land
     vals = vals.movedim(axis, 1)
     if rowwise_pos(cache_pos):
-        if s != 1:
-            raise NotImplementedError(
-                "multi-token rowwise slab writes (the speculative draft's "
-                "ingest) come with speculative decoding")
         bidx = torch.arange(leaf.shape[0], device=leaf.device)
-        leaf[bidx, cache_pos.to(leaf.device)] = vals[:, 0]
+        start = cache_pos.to(leaf.device)
+        if s == 1:
+            leaf[bidx, start] = vals[:, 0]
+        else:
+            _write_rows_dropping(leaf, vals, bidx, start, s)
     else:
         # dynamic_update_slice semantics: the start clamps so the update
         # fits inside the cache
         start = max(0, min(int(cache_pos), leaf.shape[1] - s))
         leaf[:, start:start + s] = vals
+
+
+def _write_rows_dropping(leaf: Tensor, vals: Tensor, bidx: Tensor,
+                         start: Tensor, s: int) -> None:
+    """Row b writes ``vals[b, i]`` at position ``start[b] + i`` of
+    ``leaf`` (B, T, ...); positions past the slab vanish, as the JAX
+    package's ``mode="drop"`` scatter (the speculative draft's ingest of
+    padded short rows). Dropped writes are aimed at position T - 1 and
+    carry what that position holds after the valid writes, so the
+    duplicate indices of the scatter all agree."""
+    t = leaf.shape[1]
+    ppos = start[:, None] + torch.arange(s, device=leaf.device)[None, :]
+    trail = (1,) * (vals.ndim - 2)
+    # the chunk offset that writes T - 1, where the row reaches it
+    at_last = t - 1 - start
+    hit = ((at_last >= 0) & (at_last < s)).reshape((-1,) + trail)
+    fill = torch.where(hit, vals[bidx, at_last.clamp(0, s - 1)],
+                       leaf[bidx, t - 1])
+    vals = torch.where((ppos < t).reshape(ppos.shape + trail), vals,
+                       fill[:, None])
+    leaf[bidx[:, None], ppos.clamp_max(t - 1)] = vals
 
 
 def _key_positions(positions: Tensor, cache, cache_pos, s: int,

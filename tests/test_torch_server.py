@@ -309,6 +309,16 @@ def test_serve_batch_driver(capsys):
     assert out.count("overload [paged, 6 blocks") == 2
     assert out.count("drained 5 requests") == 2
     assert out.count("preemptions") >= 2
-    for flag, item in ((["--rag"], "item 5"), (["--mesh", "1x2"], "item 6")):
+    # speculative decoding and RAG are ported (ROADMAP Queue 1 item 5):
+    # each drains and passes its end-of-run asserts
+    serve_batch.main(common + ["--continuous", "--paged", "--requests", "3",
+                               "--slots", "2", "--spec-k", "3"])
+    serve_batch.main(common + ["--continuous", "--paged", "--requests", "6",
+                               "--slots", "2", "--rag", "--gen", "8",
+                               "--prompt-len", "40"])
+    out = capsys.readouterr().out
+    assert "spec k=3 draft=nemotron-4-15b-smoke (oracle)" in out
+    assert "speculative:" in out and "retrieval: 6 queries" in out
+    for flag, item in ((["--mesh", "1x2"], "item 6"),):
         with pytest.raises(NotImplementedError, match=item):
             serve_batch.main(common + flag)

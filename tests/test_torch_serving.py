@@ -186,8 +186,8 @@ def test_cancel_releases_blocks(models):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(kernel="dense"), dict(mesh=object()), dict(spec=object()),
-    dict(rag=object()),
+    dict(kernel="dense"), dict(mesh=object()), dict(spec="other vocab"),
+    dict(rag="other block size"),
     dict(faults=FaultInjector(0, rates={"alloc": 0.2, "evict_storm": 0.3,
                                         "stage_stall": 0.3}, max_per_site=4)),
     dict(plan="sidebar_pipelined"),
@@ -197,8 +197,39 @@ def test_unsupported_server_arguments_raise(kw, models):
     ``faults=`` no longer do: every mode is served, and a pipelined plan
     drains with the tokens of the default SIDEBAR plan, its MLP
     dispatches recorded as planned; a faulted drain gives the unfaulted
-    tokens and leaves the pool empty."""
-    _, ct, _, pt = models["fp32"]
+    tokens and leaves the pool empty. ``spec=`` and ``rag=`` are ported
+    (ROADMAP Queue 1 item 5): they raise the JAX server's validation
+    errors, a draft of another vocabulary and a pipeline of another
+    block size."""
+    cj, ct, pj, pt = models["fp32"]
+    if "spec" in kw or "rag" in kw:
+        from repro import retrieval as jret
+        from repro.launch.spec import SpecConfig as JaxSpec
+        from repro_torch import retrieval as tret
+        from repro_torch.launch.spec import SpecConfig
+
+        for server, cfg, params, spec_cls, ret in (
+                (JaxServer, cj, pj, JaxSpec, jret),
+                (PagedContinuousBatchingServer, ct, pt, SpecConfig, tret)):
+            kwargs = {k: v for k, v in SERVER.items() if k != "device"}
+            if server is PagedContinuousBatchingServer:
+                kwargs["device"] = "cpu"
+            if "spec" in kw:
+                other = dataclasses.replace(cfg, vocab_size=256)
+                arg = dict(spec=spec_cls(other, params, k=2))
+                match = "vocab_size"
+            else:
+                docs = ret.make_toy_corpus(cfg.vocab_size, n_docs=2,
+                                           doc_len=32)
+                index = ret.EmbeddingIndex(
+                    ret.ChunkedCorpus(docs, chunk_tokens=8),
+                    vocab_size=cfg.vocab_size)
+                arg = dict(rag=ret.RagPipeline(index, system_prefix=[1],
+                                               block_size=4))
+                match = "block_size"
+            with pytest.raises(ValueError, match=match):
+                server(cfg, params, **kwargs, **arg)
+        return
     if "faults" in kw:
         reqs = _traffic(11, n=4)
         srv, got, _ = _serve(ct, pt, reqs, num_blocks=12, **kw)
