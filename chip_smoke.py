@@ -135,7 +135,8 @@ exits non-zero):
      shared expert in every layer), depth cut from 48 to 8 layers (~37
      GB), served like phase 6 and then eager against captured like
      phase 7;
- 13. overload on phase 2's weights (its depth follows ``--layers``):
+ 13. overload on the first 8 layers of phase 2's weights
+     (``SIDE_LAYERS``; fewer when ``--layers`` cuts phase 2):
      (13a) the paged server with 4 slots, block 16, max_len 512 and 48
      allocatable blocks, 2x oversubscribed: 8 lows of 96-160 tokens
      (priority 0, 128 greedy tokens), then, after 3 scheduler steps, 2
@@ -163,8 +164,8 @@ exits non-zero):
      at every site, on 13a's traffic, eagerly: every request finishes,
      every pool and spill region quiescent; stolen requests, quarantines
      and the faults injected are printed;
- 14. speculative decoding and RAG on phase 2's weights (its depth
-     follows ``--layers``): (14a) phase 2's server and greedy traffic on
+ 14. speculative decoding and RAG on the same 8 layers of phase 2's
+     weights: (14a) phase 2's server and greedy traffic on
      three servers — plain, the oracle draft (the model itself) and a
      shallow draft (the model's first 2 layers with its embedding and
      final norm, sharing the weights), k = 4 — each draining cold, then
@@ -188,7 +189,30 @@ exits non-zero):
      draft round is k forward calls on the draft's slab), each
      speculative drain's allocator traffic equal to the plain drain's,
      every query retrieved, chunk hits, overlap only in the overlap
-     arms, the same prompts in every arm.
+     arms, the same prompts in every arm;
+ 15. the analytical Sidebar engine (``core/engine.py``), its energy model
+     and its planner on the card, after ``chip_probe`` (the measured
+     constants of the port's H100 spec: idle draw, SM clock, a launch,
+     a pinned round trip, a flag's one way): (15a) the paper's LeNet on
+     CIFAR-10 shapes at batch 256 (fp32 weights from seed 0), relu and
+     softplus, through ``engine.run`` under the four modes: within 1e-4
+     of the plain ``forward``, every SidebarStats field, ``launches``
+     and the accounting equal to a CPU run of the same graph, the
+     ``activation`` kernel launched once a relu / softplus op of the
+     FLEXIBLE_DMA run (``max_pool`` runs its torch callable), MONOLITHIC
+     captured == eager bit for bit and unchanged by a table hot-swap
+     after build; each mode's median wall ms beside the modelled
+     latency, energy and normalized EDP of ``estimate(account_model(...))``
+     under the H100 spec, and the paper's claims (reported, not gated);
+     (15b) the MLP task at nemotron-4-15b's widths (d 6144, f 24576,
+     squared_relu, fp32) at 4 and 64 rows under the four modes, within
+     1e-4 relative of MONOLITHIC, beside phase 1's fused kernel; (15c)
+     ``AutoPolicy`` on the H100 spec plans one MLP layer graph a layer
+     (4 rows, bf16; its depth follows ``--layers``), and phase 2's
+     traffic is served on phase 2's weights under that plan: every
+     request finishes, exact launches, every MLP dispatch on its layer's
+     planned route, greedy tokens equal to phase 2's SIDEBAR drain (and
+     to phase 5's arm of the same plan when phase 5 ran).
 
 The line before the last holds the kernel table, the last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or of the JAX
@@ -1710,9 +1734,11 @@ def stage_programs(srv) -> dict:
 
 
 def serve(cfg, params, prompts, gen: int, *, phase: int, mode: str,
-          plan=None, **kw) -> tuple[dict, list]:
+          plan=None, records: list | None = None, **kw
+          ) -> tuple[dict, list]:
     """Drive the paged server once under ``plan`` with fresh launch
-    counts; returns its JSON row and the generated tokens by rid."""
+    counts; returns its JSON row and the generated tokens by rid (and
+    appends the drain's dispatch records to ``records``, if given)."""
     from repro_torch.kernels import ops as kops
     from repro_torch.launch.scheduler import PagedContinuousBatchingServer
 
@@ -1728,6 +1754,8 @@ def serve(cfg, params, prompts, gen: int, *, phase: int, mode: str,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = kops.launch_counts()
+    if records is not None:
+        records.extend(recs)
     ops = {r.op for r in recs}
     n_tok = sum(r.generated for r in done)
     toks = np.concatenate([r.tokens for r in done])
@@ -1881,7 +1909,8 @@ def eager_then_captured(phase: int, cfg, params, seed: int) -> dict:
     return row
 
 
-def plan_modes(cfg, params, sidebar_tokens: list) -> dict:
+def plan_modes(cfg, params, sidebar_tokens: list,
+               tokens_out: dict | None = None) -> dict:
     """Phase 5: phase 2's weights and traffic under the paper's execution
     modes. The drains run in the order S P L D D L P S, so every mode has
     one early and one late run (host-side time drifts between drains);
@@ -1918,6 +1947,8 @@ def plan_modes(cfg, params, sidebar_tokens: list) -> dict:
         same = sum(int((a == b).sum())
                    for a, b in zip(tokens, sidebar_tokens))
         runs[mode].append((row, same))
+        if tokens_out is not None:
+            tokens_out.setdefault(mode, tokens)
     for mode, rr in runs.items():
         tps = [r["tokens_per_s"] for r, _ in rr]
         emit({"phase": 5, "mode": mode, "tokens_per_s": tps,
@@ -2718,6 +2749,12 @@ SPEC_SMOKE = dict(num_slots=3, max_len=48, block_size=8, prefill_chunk=8,
 # top-2; queries from 4 hot documents: 4 leads (one a slot), then 8
 # waves of 2 queries, a scheduler step after each
 RAG_BLOCK, RAG_DOCS, RAG_DOC_LEN, RAG_HOT = 16, 2048, 128, 4
+# phases 13 and 14 serve this many of phase 2's layers (shared, not
+# copied; fewer when --layers cuts phase 2): their gates hold the host's
+# schedule (admission, preemption, drafts, retrieval), which depth does
+# not change, and at all 32 layers they took 300 s of a script that is
+# to stay inside half of its 1200 s limit
+SIDE_LAYERS = 8
 RAG_IO_LATENCY = 0.020
 RAG_LEAD_GENS = (72, 64, 56, 48)
 RAG_WAVES, RAG_PER_WAVE, RAG_WAVE_GEN = 8, 2, 12
@@ -3407,14 +3444,423 @@ def trainer_resume() -> dict:
     return row
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the analytical engine, the paper's LeNet and the planner
+# ---------------------------------------------------------------------------
+
+ENGINE_MODES = ("monolithic", "flexible_dma", "sidebar", "sidebar_pipelined")
+LENET_BATCH = 256
+ENGINE_REPS = 5
+# the paper's claims as examples/lenet_paper_workload.py prints them
+PAPER_CLAIMS = {"dma_latency_overhead_pct": "8-14",
+                "sidebar_latency_overhead_pct": "<=2",
+                "dma_edp": "~1.5", "sidebar_edp": "~1.07"}
+
+
+def _smi(query: str) -> str:
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def _median_s(fn, reps: int) -> float:
+    """Median host seconds of ``fn`` (which ends in a synchronize)."""
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        ts.append(time.perf_counter() - t0)
+    return float(np.median(ts))
+
+
+def chip_probe() -> dict:
+    """The measured constants of the port's H100 spec
+    (``src/repro_torch/core/constants.py``): the idle board draw (the
+    least ``power.draw`` of ten reads over ~3 s with the card idle), the
+    SM clock's maximum (``nvidia-smi``), the host seconds of one
+    ``activation`` launch on one element (1000 back to back, then one
+    synchronize), a 4 KiB pinned round trip (device -> pinned host ->
+    device, each copy synchronized: FLEXIBLE_DMA's handoff) and half of a
+    4-byte pinned round trip (one way of a flag: the engine's sidebar
+    handshake across PCIe). Its launches precede the counted runs."""
+    from repro_torch.kernels import activations as ak
+
+    torch.cuda.synchronize()
+    idle = []
+    for _ in range(10):         # the least of 10 reads over ~3 s idle
+        time.sleep(0.3)
+        idle.append(float(_smi("power.draw")))
+    idle_w = min(idle)
+    clock_mhz = float(_smi("clocks.max.sm"))
+    one = torch.zeros(1, 1, device="cuda")
+    for _ in range(20):
+        ak.activation_2d(one, "relu")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(1000):
+        ak.activation_2d(one, "relu")
+    torch.cuda.synchronize()
+    launch_s = (time.perf_counter() - t0) / 1000
+
+    def round_trip(n: int) -> float:
+        dev = torch.zeros(n, device="cuda")
+        host = torch.empty(n, pin_memory=True)
+
+        def trip():
+            host.copy_(dev, non_blocking=True)
+            torch.cuda.synchronize()
+            dev.copy_(host, non_blocking=True)
+            torch.cuda.synchronize()
+
+        for _ in range(20):
+            trip()
+        return _median_s(trip, 200)
+
+    row = {"phase": 15, "part": "chip_probe", "idle_power_w": idle_w,
+           "clocks_max_sm_mhz": clock_mhz, "kernel_launch_s": launch_s,
+           "dma_flush_s": round_trip(1024),
+           "sidebar_handshake_s": round_trip(1) / 2}
+    emit(row)
+    return row
+
+
+def _engine_modes(graph, params, x, table, ref, *, tol: float, rel: bool,
+                  what: str, cpu_check: bool) -> tuple[dict, dict]:
+    """One counted pass of ``graph`` under the four modes on the card,
+    each held to ``ref`` (None: the MONOLITHIC output; absolute, or
+    relative to max |ref|) and, with ``cpu_check``, its SidebarStats,
+    launches and accounting to a CPU run of the same graph; then each
+    mode's median wall ms after a warm-up. Returns the rows by mode and
+    the pass's launch counts."""
+    from repro_torch.core import engine
+    from repro_torch.core.modes import ExecutionMode
+    from repro_torch.kernels import ops as kops
+
+    cpu_params = ({k: v.cpu() for k, v in params.items()} if cpu_check
+                  else None)
+    rows, outs = {}, {}
+    kops.reset_launch_counts()
+    for mode in ENGINE_MODES:
+        outs[mode] = engine.run(graph, params, x, ExecutionMode(mode), table)
+    torch.cuda.synchronize()
+    counts = kops.launch_counts()
+    cpu_x = x.cpu() if cpu_check else None
+    if ref is None:
+        ref = outs["monolithic"].output
+    for mode in ENGINE_MODES:
+        res = outs[mode]
+        err, r = rel_err(res.output, ref)
+        check(res.output.is_cuda and res.output.shape == ref.shape
+              and bool(torch.isfinite(res.output).all())
+              and (r if rel else err) <= tol,
+              f"phase 15 {what} {mode}: error {err} (rel {r}) > {tol}")
+        stats = (None if res.sidebar is None
+                 else dataclasses.asdict(res.sidebar.stats))
+        if cpu_check:
+            cpu = engine.run(graph, cpu_params, cpu_x, ExecutionMode(mode),
+                             table)
+            check(stats == (None if cpu.sidebar is None
+                            else dataclasses.asdict(cpu.sidebar.stats))
+                  and res.launches == cpu.launches
+                  and res.accounting == cpu.accounting,
+                  f"phase 15 {what} {mode}: protocol counts differ from "
+                  "the CPU run's")
+
+        def once(mode=mode):
+            engine.run(graph, params, x, ExecutionMode(mode), table)
+            torch.cuda.synchronize()
+
+        once()
+        rows[mode] = {"wall_ms": _median_s(once, ENGINE_REPS) * 1e3,
+                      "max_abs_err": err, "max_rel_err": r,
+                      "launches": res.launches, "sidebar_stats": stats}
+    return rows, counts
+
+
+def engine_lenet(smi: str) -> dict:
+    """15a: LeNet on CIFAR-10 shapes at batch 256 (weights from seed 0),
+    relu and softplus, through ``engine.run`` under the four modes."""
+    from repro_torch.core import (ExecutionMode, account_model,
+                                  build_monolithic, estimate,
+                                  make_default_table, normalized_edp)
+    from repro_torch.core.constants import H100
+    from repro_torch.launch import graphs
+    from repro_torch.models import lenet
+
+    table = make_default_table()
+    lenet.register_pooling(table)
+    params = lenet.init(torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda")
+    x = torch.randn((LENET_BATCH, 3, 32, 32), device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(1))
+    ep = lenet.engine_params(params)
+    out = {"launches": 0, "rows": {}}
+    for act in ("relu", "softplus"):
+        graph, = lenet.to_layer_graphs(LENET_BATCH, act)
+        ref = lenet.forward(params, x, table.lookup(act))
+        rows, counts = _engine_modes(graph, ep, x, table, ref, tol=1e-4,
+                                     rel=False, what=f"15a {act}",
+                                     cpu_check=True)
+        n_act = sum(op.function == act for _, op, _ in graph.flexible_ops())
+        check(counts["activation"] == n_act
+              and sum(counts.values()) == n_act,
+              f"phase 15a {act}: launches {counts}, want {n_act} "
+              "activation launches (the FLEXIBLE_DMA run's ops)")
+        out["launches"] += counts["activation"]
+        # the fixed-function program: captured == eager bit for bit, and
+        # a table hot-swap after build leaves it as it was
+        swap = make_default_table()
+        lenet.register_pooling(swap)
+        mono = build_monolithic(graph, swap)
+        with graphs.disable_capture():
+            eager = mono(ep, x)
+        captured = [mono(ep, x) for _ in range(3)]
+        swap.register(act, lambda t: torch.clamp_min(t, 0.0) * 0.5,
+                      overwrite=True)
+        captured.append(mono(ep, x))
+        prog = mono.programs[x.device]
+        same = all(torch.equal(c, eager) for c in captured)
+        check(same and prog.captures == 1 and prog.replays == 2,
+              f"phase 15a {act}: MONOLITHIC captured != eager or moved by "
+              f"a hot-swap ({prog.captures} captures, {prog.replays} "
+              "replays)")
+
+        def replay():
+            mono(ep, x)
+            torch.cuda.synchronize()
+
+        replay()
+        rows["monolithic"]["captured_replay_ms"] = (
+            _median_s(replay, ENGINE_REPS) * 1e3)
+        graphs_ = lenet.to_layer_graphs(LENET_BATCH, act)
+        ests = {m.value: estimate(account_model(graphs_, m, table), H100)
+                for m in ExecutionMode}
+        norm = normalized_edp(ests)
+        for mode in ENGINE_MODES:
+            e = ests[mode]
+            rows[mode].update({"model_latency_us": e.latency_s * 1e6,
+                               "model_energy_mj": e.energy_j * 1e3,
+                               "model_norm_edp": norm[mode]})
+        mono_lat = ests["monolithic"].latency_s
+        claims = {
+            "dma_latency_overhead_pct":
+                100 * (ests["flexible_dma"].latency_s / mono_lat - 1),
+            "sidebar_latency_overhead_pct":
+                100 * (ests["sidebar"].latency_s / mono_lat - 1),
+            "dma_edp": norm["flexible_dma"], "sidebar_edp": norm["sidebar"]}
+        row = {"phase": 15, "part": "15a", "workload": "lenet",
+               "activation": act, "batch": LENET_BATCH, "dtype": "float32",
+               "tol": 1e-4, "modes": rows, "launches": counts,
+               "monolithic_captured_equals_eager": same,
+               "paper_claims_modelled": claims, "paper_claims": PAPER_CLAIMS,
+               "spec": "H100 (src/repro_torch/core/constants.py)",
+               "nvidia_smi": smi}
+        emit(row)
+        out["rows"][act] = row
+    # the activation kernel at the shape of LeNet's first FLEXIBLE_DMA op
+    out["kernel"] = engine_activation_row(
+        torch.randn((LENET_BATCH * 6 * 28, 28), device="cuda"), "relu",
+        "15a", torch.relu)
+    return out
+
+
+def engine_activation_row(x, act: str, part: str, library) -> dict:
+    """The ``activation`` kernel on ``x`` (the rows the engine's
+    FLEXIBLE_DMA op hands it) against its plain version, timed with its
+    bound and one library call."""
+    from repro_torch.kernels import activations as ak
+
+    out = ak.activation_2d(x, act)
+    ref = ak.activation_plain(x, act)
+    err, r = rel_err(out, ref)
+    check(r <= 1e-4, f"phase 15 {part} activation {act}: rel {r}")
+    b_ms, b_by = bound(2 * 4 * x.numel(), x.numel(), torch.float32)
+    row = {"phase": 15, "part": part, "op": "activation", "activation": act,
+           "dtype": "float32", "shape": list(x.shape), "max_abs_err": err,
+           "max_rel_err": r, "tol": 1e-4,
+           "ms": cuda_ms(lambda: ak.activation_2d(x, act)),
+           "plain_ms": cuda_ms(lambda: ak.activation_plain(x, act)),
+           "library_ms": cuda_ms(lambda: library(x)),
+           "bound_ms": b_ms, "bound_by": b_by}
+    emit(row)
+    return row
+
+
+def mlp_layer_graph(name: str, m: int, d: int, f: int, act: str,
+                    itemsize: int = 4):
+    """``benchmarks/fusion_bench.py``'s ``_mlp_graph``: x (m, d) @ W1 (d,
+    f), f, @ W2 (f, d)."""
+    from repro_torch.core.modes import FlexibleOp, LayerGraph, StaticOp
+    from repro_torch.kernels.ref import dot
+
+    def mm(w, x):
+        return dot(x, w, x.dtype)
+
+    return LayerGraph(name=name, ops=(
+        StaticOp("w1", mm, (m, f), flops=2 * m * d * f,
+                 weight_bytes=d * f * itemsize),
+        FlexibleOp(act, (m, f)),
+        StaticOp("w2", mm, (m, d), flops=2 * m * f * d,
+                 weight_bytes=f * d * itemsize),
+    ), in_shape=(m, d), itemsize=itemsize)
+
+
+def engine_mlp(smi: str, mlp_row: dict | None) -> dict:
+    """15b: the MLP task at nemotron-4-15b's widths (d 6144, f 24576,
+    squared_relu, fp32) at 4 and 64 rows through ``engine.run`` under the
+    four modes, each within 1e-4 relative of MONOLITHIC, beside phase 1's
+    fused ``sidebar_mlp`` (bf16, 4 rows)."""
+    from repro_torch.core import (ExecutionMode, account, estimate,
+                                  make_default_table, normalized_edp)
+    from repro_torch.core.constants import H100
+
+    table = make_default_table()
+    g = torch.Generator(device="cuda").manual_seed(15)
+    params = {"w1": torch.randn((D_MODEL, D_FF), generator=g,
+                                device="cuda") / D_MODEL ** 0.5,
+              "w2": torch.randn((D_FF, D_MODEL), generator=g,
+                                device="cuda") / D_FF ** 0.5}
+    out = {"launches": 0, "rows": {}}
+    for m in (4, 64):
+        graph = mlp_layer_graph(f"mlp{m}", m, D_MODEL, D_FF, "squared_relu")
+        x = torch.randn((m, D_MODEL), generator=g, device="cuda")
+        rows, counts = _engine_modes(graph, params, x, table, None,
+                                     tol=1e-4, rel=True, what=f"15b m={m}",
+                                     cpu_check=False)
+        check(counts["activation"] == 1 and sum(counts.values()) == 1,
+              f"phase 15b m={m}: launches {counts}, want 1 activation")
+        out["launches"] += counts["activation"]
+        ests = {md.value: estimate(account(graph, md, table), H100)
+                for md in ExecutionMode}
+        norm = normalized_edp(ests)
+        for mode in ENGINE_MODES:
+            rows[mode].update({
+                "model_latency_us": ests[mode].latency_s * 1e6,
+                "model_norm_edp": norm[mode]})
+        slowest = max(ENGINE_MODES, key=lambda k: rows[k]["wall_ms"])
+        row = {"phase": 15, "part": "15b", "workload": "nemotron-4-15b mlp",
+               "rows": m, "d_model": D_MODEL, "d_ff": D_FF,
+               "dtype": "float32", "tol_rel": 1e-4, "modes": rows,
+               "slowest_mode": slowest, "launches": counts,
+               "phase1_sidebar_mlp_ms_bf16_4_rows":
+                   None if mlp_row is None else mlp_row["ms"],
+               "nvidia_smi": smi}
+        emit(row)
+        out["rows"][m] = row
+        if m == 64:
+            out["kernel"] = engine_activation_row(
+                x.new_empty((m, D_FF)).normal_(generator=g), "squared_relu",
+                "15b", lambda t: torch.square(torch.relu(t)))
+    return out
+
+
+def planner_serves(cfg, params, arm_tokens: dict, smi: str) -> dict:
+    """15c: ``AutoPolicy`` on the H100 spec plans one MLP layer graph a
+    layer (named "0".."L-1", decode's 4 rows, bf16); phase 2's traffic is
+    served on phase 2's weights with ``plan=`` that plan. Every request
+    finishes, exact launch counts (``serve``), every MLP dispatch on its
+    layer's planned route, and the tokens equal those of the earlier arm
+    that served the same kernels (phase 2's SIDEBAR, or phase 5's)."""
+    from repro_torch.core.constants import H100
+    from repro_torch.core.modes import ExecutionMode as M
+    from repro_torch.core.modes import LayerPlan
+    from repro_torch.core.policy import AutoPolicy
+
+    t0 = time.perf_counter()
+    graphs_ = [mlp_layer_graph(str(i), 4, cfg.d_model, cfg.d_ff,
+                               cfg.activation, itemsize=2)
+               for i in range(cfg.num_layers)]
+    result = AutoPolicy(chip=H100).plan(graphs_)
+    plan_s = time.perf_counter() - t0
+    plan, diag = result.plan, result.diagnostics
+    by_plan = collections.Counter(
+        (lp.mode.value, lp.depth, lp.fuse) for lp in plan.layers.values())
+    emit({"phase": 15, "part": "15c_plan", "layers": cfg.num_layers,
+          "default": [plan.default.mode.value, plan.default.depth,
+                      plan.default.fuse],
+          "layer_plans": {f"{k[0]}/d{k[1]}/fuse{k[2]}": v
+                          for k, v in by_plan.items()},
+          "fallbacks": list(diag.fallbacks),
+          "edp_layer0": diag.edp["0"], "edp_sum": sum(diag.edp.values()),
+          "depth_sweep_layer0": diag.depth_sweep.get("0", {}),
+          "sidebar_capacity": H100.vmem_bytes // 2, "plan_host_s": plan_s})
+    prompts = traffic(2, 8, cfg.vocab_size, shared=128, lo=32, hi=256)
+    recs: list = []
+    row, tokens = serve(cfg, params, prompts, 32, phase=15, mode="planned",
+                        plan=plan, records=recs, **FULL_SERVER)
+    mlp = [r for r in recs if r.op == "sidebar_mlp"]
+    off = [(r.layer, r.mode.value, r.depth) for r in mlp
+           if r.mode is not plan.for_layer(r.layer).mode
+           or (r.mode is M.SIDEBAR_PIPELINED
+               and r.depth != plan.for_layer(r.layer).depth)
+           or not r.used_kernel]
+    check(bool(mlp) and not off,
+          f"phase 15c: MLP dispatches off the plan: {off[:4]}")
+    # the arm that served the same kernels: any mix of the fused modes
+    # gives SIDEBAR's tokens (the ring is the serial kernel's partition at
+    # every depth); a uniform plan has its phase 5 arm
+    arms = {LayerPlan(M.SIDEBAR_PIPELINED, 2): "sidebar_pipelined_d2",
+            LayerPlan(M.FLEXIBLE_DMA, 1): "flexible_dma",
+            LayerPlan(M.SIDEBAR, 1): "sidebar"}
+    same = {}
+    if plan.is_uniform and arms.get(plan.default) in arm_tokens:
+        same[arms[plan.default]] = arm_tokens[arms[plan.default]]
+    if all(lp.mode is not M.FLEXIBLE_DMA for lp in plan.layers.values()):
+        same["sidebar"] = arm_tokens["sidebar"]
+    equal = {arm: sum(int((a == b).sum()) for a, b in zip(tokens, want))
+             for arm, want in same.items()}
+    n = sum(t.size for t in tokens)
+    emit({"phase": 15, "part": "15c", "tokens_per_s": row["tokens_per_s"],
+          "launches": row["launches"], "mlp_dispatches": len(mlp),
+          "greedy_tokens_equal": equal, "of": n, "nvidia_smi": smi})
+    check(all(v == n for v in equal.values()),
+          f"phase 15c: planned tokens differ from {equal} of {n}")
+    return row
+
+
+def engine_kernel_rows(engine15: dict, planned: dict, rows: dict,
+                       sources: dict) -> list:
+    """Phase 15's rows of the kernel line: the ``activation`` kernel on
+    the engine's FLEXIBLE_DMA path (15a LeNet, 15b the MLP task; launches
+    from their counted passes, times at their shapes), and each kernel
+    the planner's plan served in 15c (launches from its drain, times
+    from phase 1 at the same decode shapes)."""
+    out = []
+    for part, path in (("15a", "engine FLEXIBLE_DMA, LeNet batch 256"),
+                       ("15b", "engine FLEXIBLE_DMA, nemotron MLP task")):
+        r = engine15[part]["kernel"]
+        out.append({
+            "name": "activation", "route": "cuda",
+            "source": f"src/repro_torch/csrc/{sources['activation'][0]}",
+            "replaces": sources["activation"][1],
+            "path": f"phase {part}: {path}",
+            "launches": engine15[part]["launches"],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    for name, n in planned["launches"].items():
+        if not n:
+            continue
+        r = rows[name]
+        src, replaces = sources[name]
+        out.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{src}", "replaces": replaces,
+            "path": "phase 15c: the planner's plan served", "launches": n,
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default="0,1,2,3,4,5,6,7,8,9,10,11,12,13,14",
+                    default="0,1,2,3,4,5,6,7,8,9,10,11,12,13,14,15",
                     help="comma-separated subset of phases to run")
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the depth of the full-width phases 2, 5, "
-                         "9, 13 and 14")
+                         "9, 13, 14 and 15")
     ap.add_argument("--stage-capture-after", type=int, default=None,
                     help="the paged servers' stage_capture_after (default: "
                          "the server's own)")
@@ -3465,21 +3911,24 @@ def main() -> None:
         autograd_refusals()
     served = {}
     params = None
-    if phases & {2, 5, 9, 13, 14}:
+    engine15 = {}
+    if phases & {2, 5, 9, 13, 14, 15}:
         cfg, params, init_s = full_width_params(args.layers)
         row, tokens = full_width(2, cfg, params, init_s)
         served["sidebar"] = row
+        arm_tokens = {"sidebar": tokens}
         if 5 in phases:
-            served.update(plan_modes(cfg, params, tokens))
+            served.update(plan_modes(cfg, params, tokens, arm_tokens))
         if 9 in phases:
             phase9_server(cfg, params)
             phase9_slots(cfg, params)
             phase9_paged(cfg, params)
+        side = shallow_draft(cfg, params, min(SIDE_LAYERS, cfg.num_layers))
         if 13 in phases:
             t13 = time.perf_counter()
-            ctx = phase13_server(cfg, params, smi)
+            ctx = phase13_server(*side, smi)
             t13a = time.perf_counter()
-            overload_fleet(cfg, params, ctx, smi)
+            overload_fleet(*side, ctx, smi)
             t13c = time.perf_counter()
             overload_families()
             emit({"phase": 13, "host_s": {
@@ -3488,19 +3937,31 @@ def main() -> None:
             torch.cuda.empty_cache()
         if 14 in phases:
             t14 = time.perf_counter()
-            spec_serving(cfg, params, smi)
+            spec_serving(*side, smi)
             t14a = time.perf_counter()
-            spec_captured_vs_eager(cfg, params, smi)
+            spec_captured_vs_eager(*side, smi)
             t14e = time.perf_counter()
             spec_families()
             t14b = time.perf_counter()
-            rag_serving(cfg, params, smi)
+            rag_serving(*side, smi)
             t14c = time.perf_counter()
             rag_families()
             emit({"phase": 14, "host_s": {
                 "14a": t14a - t14, "captured_vs_eager": t14e - t14a,
                 "14b": t14b - t14e, "14c": t14c - t14b,
                 "14c_smoke": time.perf_counter() - t14c}})
+            torch.cuda.empty_cache()
+        if 15 in phases:
+            t15 = time.perf_counter()
+            chip_probe()
+            engine15["15a"] = engine_lenet(smi)
+            t15a = time.perf_counter()
+            engine15["15b"] = engine_mlp(smi, rows.get("sidebar_mlp"))
+            t15b = time.perf_counter()
+            served["planned"] = planner_serves(cfg, params, arm_tokens, smi)
+            emit({"phase": 15, "host_s": {
+                "probe_and_15a": t15a - t15, "15b": t15b - t15a,
+                "15c": time.perf_counter() - t15b}})
             torch.cuda.empty_cache()
         if 8 not in phases or cfg.num_layers != D_LAYERS:
             params = None
@@ -3601,6 +4062,9 @@ def main() -> None:
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+        if engine15:
+            kernels += engine_kernel_rows(engine15, served["planned"], rows,
+                                          sources)
         emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

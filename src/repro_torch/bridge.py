@@ -91,3 +91,12 @@ def cache_to_numpy(cache: list, kinds: list[str] | None = None) -> dict:
                                          for layer in layers])
                          for name in layers[0]}
     return out
+
+
+def lenet_params_from_jax(params: dict, device=None) -> dict:
+    """JAX LeNet params (numpy leaves: OIHW convolutions, (in, out)
+    products) -> the port's ``models.lenet`` params, on ``device``
+    (``cuda`` unless asked otherwise). The layouts are the same, so each
+    array is copied as it is."""
+    device = resolve_device(device)
+    return {name: _tensor(a, device) for name, a in params.items()}

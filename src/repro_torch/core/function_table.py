@@ -25,6 +25,11 @@ callable, so the port needs the expression beside it, and the two must
 compute the same function. An entry with neither an id nor an
 expression serves the plain versions only; on a CUDA tensor its
 wrapper raises.
+
+Each entry also carries its host cost, ``vpu_ops_per_element``, which
+the analytical engine and the planner read (``cost``); it defaults to
+the model's ``constants.FLEXIBLE_OP_COST`` for the name. The table is
+versioned as the JAX one: every mutation bumps ``version``.
 """
 
 from __future__ import annotations
@@ -34,6 +39,8 @@ import threading
 from typing import Callable
 
 import torch
+
+from repro_torch.core import constants
 
 Tensor = torch.Tensor
 
@@ -49,6 +56,8 @@ class FunctionEntry:
       device_id: id of the kernel-side implementation, or None.
       device_expr: CUDA C++ expression in ``float x`` that the kernels
         compile for an entry without an id, or None.
+      vpu_ops_per_element: host-side vector-op cost (drives the energy
+        and latency model; encodes relu-vs-softplus asymmetry).
     """
 
     name: str
@@ -56,6 +65,7 @@ class FunctionEntry:
     rowwise: bool = False
     device_id: int | None = None
     device_expr: str | None = None
+    vpu_ops_per_element: float = constants.DEFAULT_FLEXIBLE_OP_COST
 
 
 # the kernel-side id of every entry registered with a ``device_expr``
@@ -79,26 +89,41 @@ def _check_device_expr(expr: str, rowwise: bool,
 
 class FunctionTable:
     """Driver-style registry of host ("flexible") functions
-    (thread-safe)."""
+    (thread-safe, versioned: ``version`` counts mutations)."""
 
     def __init__(self) -> None:
         self._entries: dict[str, FunctionEntry] = {}
         self._lock = threading.Lock()
+        self._version = 0
 
     def register(self, name: str, fn: Callable[..., Tensor], *,
                  rowwise: bool = False, device_id: int | None = None,
                  device_expr: str | None = None,
+                 vpu_ops_per_element: float | None = None,
                  overwrite: bool = False) -> FunctionEntry:
         if device_expr is not None:
             _check_device_expr(device_expr, rowwise, device_id)
+        cost = (vpu_ops_per_element if vpu_ops_per_element is not None
+                else constants.FLEXIBLE_OP_COST.get(
+                    name, constants.DEFAULT_FLEXIBLE_OP_COST))
         with self._lock:
             if name in self._entries and not overwrite:
                 raise ValueError(
                     f"function {name!r} already registered; pass "
                     "overwrite=True to hot-swap")
-            entry = FunctionEntry(name, fn, rowwise, device_id, device_expr)
+            entry = FunctionEntry(name, fn, rowwise, device_id, device_expr,
+                                  cost)
             self._entries[name] = entry
+            self._version += 1
             return entry
+
+    def unregister(self, name: str) -> None:
+        with self._lock:
+            del self._entries[name]
+            self._version += 1
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._entries
 
     def __getitem__(self, name: str) -> FunctionEntry:
         try:
@@ -111,8 +136,15 @@ class FunctionTable:
     def lookup(self, name: str) -> Callable[..., Tensor]:
         return self[name].fn
 
+    def cost(self, name: str) -> float:
+        return self[name].vpu_ops_per_element
+
     def names(self) -> list[str]:
         return sorted(self._entries)
+
+    @property
+    def version(self) -> int:
+        return self._version
 
 
 # ---------------------------------------------------------------------------

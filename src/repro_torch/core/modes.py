@@ -1,7 +1,16 @@
-"""Execution modes and plans (mirror of ``repro.core.modes``).
+"""Execution modes, the static/flexible layer-graph IR, and plans
+(mirror of ``repro.core.modes``).
+
+A ``LayerGraph`` is one accelerator task: an alternating list of
+``StaticOp``s (fixed tensor primitives: products, convolutions) and
+``FlexibleOp``s (function-table entries applied to the previous
+intermediate). ``core.engine`` runs and accounts it under each mode;
+``models.lenet`` emits the paper's workload in it. ``StaticOp.fn`` is a
+torch callable ``(param, x) -> x``.
 
 ``LayerPlan``/``ExecutionPlan`` carry the deployment choice per layer;
-``kernels.ops`` resolves them at call time. Every mode is served:
+``core.policy`` produces them and ``kernels.ops`` resolves them at call
+time. Every mode is served:
 ``SIDEBAR`` and ``MONOLITHIC`` take the fused serial kernel,
 ``SIDEBAR_PIPELINED`` the T-deep ring kernel at the plan's depth, and
 ``FLEXIBLE_DMA`` the unfused three-launch route (producer product,
@@ -13,7 +22,10 @@ from __future__ import annotations
 
 import dataclasses
 import enum
-from typing import Mapping, Sequence
+import math
+from typing import Callable, Mapping, Sequence
+
+import torch
 
 
 class ExecutionMode(enum.Enum):
@@ -21,6 +33,130 @@ class ExecutionMode(enum.Enum):
     FLEXIBLE_DMA = "flexible_dma"
     SIDEBAR = "sidebar"
     SIDEBAR_PIPELINED = "sidebar_pipelined"
+
+
+class OpKind(enum.Enum):
+    STATIC = "static"      # tensor cores: product/convolution
+    FLEXIBLE = "flexible"  # host / function table: activation, pooling
+
+
+@dataclasses.dataclass(frozen=True)
+class StaticOp:
+    """A fixed-function tensor primitive (one "small accelerator").
+
+    ``fn(param, x) -> y`` must be pure. ``flops`` and weight bytes are
+    declared, not inferred, so accounting is exact."""
+
+    name: str
+    fn: Callable[..., torch.Tensor]
+    out_shape: tuple[int, ...]
+    flops: int                    # tensor-core flops for one call
+    weight_bytes: int             # parameter bytes streamed from HBM
+    kind: OpKind = dataclasses.field(default=OpKind.STATIC, init=False)
+
+
+@dataclasses.dataclass(frozen=True)
+class FlexibleOp:
+    """A host/function-table op applied to the previous intermediate."""
+
+    function: str                 # function-table key
+    out_shape: tuple[int, ...]
+    kind: OpKind = dataclasses.field(default=OpKind.FLEXIBLE, init=False)
+
+
+Op = StaticOp | FlexibleOp
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerGraph:
+    """One accelerator task: an alternating sequence of ops.
+
+    ``in_shape`` describes the activation entering the task (DMA'd in at
+    task start in every mode); ``itemsize`` is the bytes per element of
+    activations and intermediates."""
+
+    name: str
+    ops: tuple[Op, ...]
+    in_shape: tuple[int, ...]
+    itemsize: int = 4
+
+    def __post_init__(self) -> None:
+        if not self.ops:
+            raise ValueError(f"layer graph {self.name!r} has no ops")
+
+    def shapes(self) -> list[tuple[int, ...]]:
+        """[in_shape, op0.out, op1.out, ...]."""
+        return [self.in_shape] + [op.out_shape for op in self.ops]
+
+    def bytes_of(self, shape: Sequence[int]) -> int:
+        return int(math.prod(shape)) * self.itemsize
+
+    @property
+    def in_bytes(self) -> int:
+        return self.bytes_of(self.in_shape)
+
+    @property
+    def out_bytes(self) -> int:
+        return self.bytes_of(self.ops[-1].out_shape)
+
+    @property
+    def static_flops(self) -> int:
+        return sum(op.flops for op in self.ops if isinstance(op, StaticOp))
+
+    @property
+    def weight_bytes(self) -> int:
+        return sum(op.weight_bytes for op in self.ops
+                   if isinstance(op, StaticOp))
+
+    def flexible_ops(self) -> list[tuple[int, FlexibleOp, tuple[int, ...]]]:
+        """(index, op, operand_shape) for each flexible op; the operand is
+        the previous op's output (or the input for index 0)."""
+        shapes = self.shapes()
+        return [(i, op, shapes[i]) for i, op in enumerate(self.ops)
+                if isinstance(op, FlexibleOp)]
+
+    def max_intermediate_bytes(self) -> int:
+        """Sidebar capacity the task needs (largest staged intermediate)."""
+        flex = self.flexible_ops()
+        if not flex:
+            return 0
+        return max(max(self.bytes_of(shape), self.bytes_of(op.out_shape))
+                   for _, op, shape in flex)
+
+
+def flexible_runs(graph: LayerGraph, fuse: bool = True
+                  ) -> list[tuple[int, ...]]:
+    """Indices of flexible ops grouped into maximal consecutive runs (one
+    host invocation per tile under SIDEBAR_PIPELINED); with
+    ``fuse=False`` every flexible op is its own run."""
+    runs: list[tuple[int, ...]] = []
+    current: list[int] = []
+    for i, op in enumerate(graph.ops):
+        if isinstance(op, FlexibleOp):
+            if current and (not fuse or current[-1] != i - 1):
+                runs.append(tuple(current))
+                current = []
+            current.append(i)
+        elif current:
+            runs.append(tuple(current))
+            current = []
+    if current:
+        runs.append(tuple(current))
+    return runs
+
+
+def segment_static_chains(graph: LayerGraph) -> list[list[Op]]:
+    """Split the op list into maximal chains, breaking after flexible
+    ops: FLEXIBLE_DMA launches one accelerator per chain (the paper's
+    S1..S5 for LeNet, Figure 4)."""
+    chains: list[list[Op]] = [[]]
+    for op in graph.ops:
+        chains[-1].append(op)
+        if isinstance(op, FlexibleOp):
+            chains.append([])
+    if not chains[-1]:
+        chains.pop()
+    return chains
 
 
 @dataclasses.dataclass(frozen=True)
