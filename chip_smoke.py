@@ -51,15 +51,19 @@ exits non-zero):
      route ("tc": tensor cores, "fma": CUDA cores);
      ``moe_grouped_mm`` (the MoE layers' expert products) at
      llama4-scout's and deepseek-v3's widths at decode and in a staging
-     round, on the tensor-core route, each row alone equal to its row in
-     the batch, and fp32 / ragged bf16 on its FMA route; the routed
-     expert pass in its plain form (JAX's: every expert on its
-     top-capacity tokens, batched cuBLAS products) and its kernel form
-     at those widths at 4, 64 and 4096 tokens, both timed, agreeing to
-     1e-2; and the
-     run-time activation check: mish registered with a ``device_expr``
-     on a fresh function table, through all five wrappers that take an
-     activation, an entry without one refused, and an expression that
+     round on the tensor-core route's narrow shape (each row alone equal
+     to its row in the batch; its K splits and its time before the
+     redesign; the wide shape's time beside it), at 4096 tokens on the
+     wide shape against per-group products (a row equal whatever the
+     other rows of its group hold), both shapes timed across the
+     narrow / wide threshold, and fp32 / ragged bf16 on its FMA
+     route; the routed expert pass in its plain form (JAX's: every
+     expert on its top-capacity tokens, batched cuBLAS products) and
+     its kernel form at those widths at 4, 64 and 4096 tokens, both
+     timed, agreeing to 1e-2; and the run-time activation check: mish
+     registered with a ``device_expr`` on a fresh function table,
+     through all five wrappers that take an activation, an entry
+     without one refused, and an expression that
      does not compute its torch callable (``x * tanhf(x)`` for mish)
      refused before any launch; and every CUDA wrapper's refusal of an
      operand that requires grad (no kernel has a backward);
@@ -283,7 +287,17 @@ PREVIOUS_MS = {"sidebar_mlp_pipelined": {4: 1.148, 64: 3.659},
                # the one-block-per-(row, 4 heads) paged_mla on the CUDA
                # cores, and the plain-launch activation by token rows
                "paged_mla": 0.0635,
-               "activation": {4: 0.00323, 64: 0.00400}}
+               "activation": {4: 0.00323, 64: 0.00400},
+               # the first design of moe_grouped_mm (mma.sync on 64 x 64
+               # tiles, a tile slot for every expert), by (architecture,
+               # product, tokens)
+               "moe_grouped_mm": {
+                   ("llama4-scout-17b-a16e", "gate", 4): 0.124,
+                   ("llama4-scout-17b-a16e", "down", 4): 0.129,
+                   ("llama4-scout-17b-a16e", "gate", 64): 0.482,
+                   ("deepseek-v3-671b", "gate", 4): 0.435,
+                   ("deepseek-v3-671b", "down", 4): 0.886,
+                   ("deepseek-v3-671b", "gate", 64): 2.309}}
 
 
 def mish(t: torch.Tensor) -> torch.Tensor:
@@ -1055,23 +1069,103 @@ def gated_ops(seed: int = 5) -> dict:
 
 
 # MoE layers at decode (4 rows) and in a staging round of four rows of
-# 16 tokens: (architecture, product, K, N, experts, top-k, tokens)
+# 16 tokens: (architecture, product, K, N, experts, top-k, tokens); every
+# one takes the narrow tc shape (kernels/moe_experts.py ``tc_tiles``)
 MOE_CASES = (("llama4-scout-17b-a16e", "gate", 5120, 8192, 16, 1, 4),
              ("llama4-scout-17b-a16e", "down", 8192, 5120, 16, 1, 4),
              ("llama4-scout-17b-a16e", "gate", 5120, 8192, 16, 1, 64),
              ("deepseek-v3-671b", "gate", 7168, 2048, 256, 8, 4),
              ("deepseek-v3-671b", "down", 2048, 7168, 256, 8, 4),
              ("deepseek-v3-671b", "gate", 7168, 2048, 256, 8, 64))
+# a training micro-batch of 4096 tokens: the wide tc shape
+MOE_WIDE_CASES = (("llama4-scout-17b-a16e", "gate", 5120, 8192, 16, 1, 4096),
+                  ("deepseek-v3-671b", "gate", 7168, 2048, 256, 8, 4096))
+# the narrow / wide threshold (``moe_experts.NARROW_GROUP_ROWS``): both
+# shapes timed at these rows a group on average, at llama4-scout's gate
+# widths (16 experts) and deepseek-v3's (256)
+MOE_CROSSOVER_ROWS = (1, 2, 4, 8, 16, 32, 64)
+
+
+def _moe_groups(g, e: int, top: int, t: int, k: int, dev: str = "cuda"):
+    """t tokens' k distinct experts each, drawn at random, grouped as
+    ``models/moe.py`` groups the pairs: the rows (t * top, k) bf16 and
+    the (E + 1) int32 offsets, and the per-expert counts."""
+    ids = torch.rand(t, e, generator=g, device=dev).argsort(-1)[:, :top]
+    counts = torch.bincount(ids.reshape(-1), minlength=e)
+    off = torch.cat([counts.new_zeros(1), counts.cumsum(0)]).int()
+    a = torch.randn(t * top, k, generator=g, device=dev).bfloat16()
+    return a, off, counts
+
+
+def _per_group_products(a, w, off) -> torch.Tensor:
+    """The reference at sizes where the plain version (every expert over
+    every row) would take minutes: each group's rows times its expert in
+    fp32 (``allow_tf32`` off: full fp32 products of the bf16 values)."""
+    out = torch.zeros(a.shape[0], w.shape[2], device=a.device)
+    o = off.tolist()
+    for e in range(w.shape[0]):
+        if o[e + 1] > o[e]:
+            out[o[e]:o[e + 1]] = a[o[e]:o[e + 1]].float() @ w[e].float()
+    return out
+
+
+def _moe_row(me, arch, prod, a, w, off, counts, t, top, ref_name, ref,
+             alone=None) -> dict:
+    """Check one grouped product against ``ref`` (1e-4 relative by row,
+    zeros past the groups, a second run's bits) and time it beside its
+    bound and ``torch._grouped_mm``'s bf16-out time."""
+    n, k = a.shape
+    e, _, nout = w.shape
+    p = me.plan(n, e, k, nout, me.route(a, w))
+    out = me.grouped_mm(a, w, off)
+    again = me.grouped_mm(a, w, off)
+    torch.cuda.synchronize()
+    grouped = int(off[-1])
+    err, rel = row_rel_err(out[:grouped], ref[:grouped])
+    check(rel <= 1e-4 and torch.equal(out, again) and p.route == "tc"
+          and not out[grouped:].any() and alone is not False,
+          f"moe_grouped_mm {arch} {prod} t={t} ({p.tiles.shape}): rel "
+          f"{rel}, alone {alone}")
+    chosen = int((counts > 0).sum())
+    nbytes = 2 * a.numel() + 2 * chosen * k * nout + 4 * n * nout \
+        + 4 * off.numel()
+    b_ms, b_by = bound(nbytes, 2 * grouped * k * nout, torch.bfloat16)
+    ms = cuda_ms(lambda: me.grouped_mm(a, w, off))
+    prev = PREVIOUS_MS["moe_grouped_mm"].get((arch, prod, t))
+    return {"phase": 1, "op": "moe_grouped_mm", "arch": arch,
+            "product": prod, "dtype": "bfloat16", "route": "tc",
+            "tc_shape": p.tiles.shape, "rows_per_tile": p.tiles.rows,
+            "rows_per_slice": (me.NARROW_SLICE if p.tiles.shape == "narrow"
+                               else p.tiles.rows),
+            "cols_per_tile": p.tiles.cols, "splits": p.tiles.splits,
+            "grid": list(p.grid), "tokens": t, "top_k": top, "rows": n,
+            "k": k, "n": nout, "experts": e, "experts_chosen": chosen,
+            "reference": ref_name, "max_abs_err": err, "max_rel_err": rel,
+            "tol": 1e-4, "equal_to_second_run": True,
+            "row_alone_equal": alone, "ms": ms, "previous_ms": prev,
+            "ms_over_previous": None if prev is None else ms / prev,
+            "ms_over_bound": ms / b_ms, "tb_per_s": nbytes / ms / 1e9,
+            # no PyTorch call computes the fp32-out grouped product of
+            # bf16 operands; the nearest, with a bf16 output:
+            "library_ms": None,
+            "library_bf16_out_ms": cuda_ms(lambda: torch._grouped_mm(
+                a, w, offs=off[1:])),
+            "bound_ms": b_ms, "bound_by": b_by}
 
 
 def moe_ops(seed: int = 10) -> dict:
     """moe_grouped_mm: the expert products of a MoE layer, each token's
     k pairs grouped by expert as ``models/moe.py`` groups them (experts
     drawn at random, so a decode step of 4 x 8 pairs chooses up to 32 of
-    256 experts), against the plain version; each row alone equal to its
-    row in the batch, and a second run's bits."""
+    256 experts): at decode and in a staging round on the narrow tc shape
+    against the plain version, each row alone equal to its row in the
+    batch; at 4096 tokens on the wide shape against per-group products,
+    a row equal whatever other rows share its group; a second run's bits
+    everywhere; both shapes timed across the narrow / wide threshold;
+    fp32 and ragged bf16 on the fma route."""
     from repro_torch.kernels import moe_experts as me
 
+    torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device="cuda").manual_seed(seed)
     dev = "cuda"
     # fp32 and ragged bf16 smoke shapes: the fma route
@@ -1096,60 +1190,81 @@ def moe_ops(seed: int = 10) -> dict:
           "max_rel_err": worst, "tol": 1e-4})
     main = None
     weights = {}
-    for arch, prod, k, nout, e, top, t in MOE_CASES:
+
+    def weight(arch, prod, e, k, nout):
         if (arch, prod) not in weights:
             weights.clear()
             torch.cuda.empty_cache()
             weights[(arch, prod)] = (torch.randn(
                 e, k, nout, generator=g, device=dev) / k ** 0.5).bfloat16()
-        w = weights[(arch, prod)]
-        ids = torch.stack([torch.randperm(e, generator=g, device=dev)[:top]
-                           for _ in range(t)])
-        key = ids.reshape(-1)
-        counts = torch.bincount(key, minlength=e)
-        off = torch.cat([counts.new_zeros(1), counts.cumsum(0)]).int()
-        a = torch.randn(t * top, k, generator=g, device=dev).bfloat16()
+        return weights[(arch, prod)]
+
+    for arch, prod, k, nout, e, top, t in MOE_CASES:
+        w = weight(arch, prod, e, k, nout)
+        a, off, counts = _moe_groups(g, e, top, t, k)
         out = me.grouped_mm(a, w, off)
-        again = me.grouped_mm(a, w, off)
-        torch.cuda.synchronize()
-        ref = me.grouped_mm_plain(a, w, off)
-        err, rel = row_rel_err(out, ref)
-        chosen = int((counts > 0).sum())
         # row 0 (the first chosen expert's) alone, a group of one,
         # against its row in the batch
-        e0 = int(key.min())
+        e0 = int(torch.nonzero(counts)[0])
         one = torch.tensor([0] * (e0 + 1) + [1] * (e - e0),
                            dtype=torch.int32, device=dev)
         alone = torch.equal(me.grouped_mm(a[:1].contiguous(), w, one)[0],
                             out[0])
-        check(rel <= 1e-4 and torch.equal(out, again) and alone
-              and me.route(a, w) == "tc",
-              f"moe_grouped_mm {arch} {prod} t={t}: rel {rel}, "
-              f"alone {alone}")
-        n = t * top
-        nbytes = 2 * a.numel() + 2 * chosen * k * nout + 4 * n * nout \
-            + 4 * off.numel()
-        b_ms, b_by = bound(nbytes, 2 * n * k * nout, torch.bfloat16)
-        ms = cuda_ms(lambda: me.grouped_mm(a, w, off))
-        row = {"phase": 1, "op": "moe_grouped_mm", "arch": arch,
-               "product": prod, "dtype": "bfloat16", "route": "tc",
-               "tokens": t, "top_k": top, "rows": n, "k": k, "n": nout,
-               "experts": e, "experts_chosen": chosen,
-               "max_abs_err": err, "max_rel_err": rel, "tol": 1e-4,
-               "equal_to_second_run": True, "row_alone_equal": alone,
-               "ms": ms, "ms_over_bound": ms / b_ms,
-               "tb_per_s": nbytes / ms / 1e9,
-               "plain_ms": cuda_ms(lambda: me.grouped_mm_plain(a, w, off),
-                                   iters=3, warmup=1),
-               # no PyTorch call computes the fp32-out grouped product
-               # of bf16 operands; the nearest, with a bf16 output:
-               "library_ms": None,
-               "library_bf16_out_ms": cuda_ms(lambda: torch._grouped_mm(
-                   a, w, offs=off[1:])),
-               "bound_ms": b_ms, "bound_by": b_by}
+        row = _moe_row(me, arch, prod, a, w, off, counts, t, top, "plain",
+                       me.grouped_mm_plain(a, w, off), alone=alone)
+        row["plain_ms"] = cuda_ms(lambda: me.grouped_mm_plain(a, w, off),
+                                  iters=3, warmup=1)
+        # the other shape at the same call (the rule keeps these narrow)
+        wide = me.plan(a.shape[0], e, k, nout, "tc", me.TcTiles(
+            "wide", me.WIDE_ROWS, me.WIDE_COLS, 1))
+        row["wide_ms"] = cuda_ms(lambda: me.launch(a, w, off, wide))
+        check(row["tc_shape"] == "narrow",
+              f"moe_grouped_mm {arch} {prod} t={t}: not narrow")
         emit(row)
         if main is None:
             main = row
+    for arch, prod, k, nout, e, top, t in MOE_WIDE_CASES:
+        w = weight(arch, prod, e, k, nout)
+        a, off, counts = _moe_groups(g, e, top, t, k)
+        out = me.grouped_mm(a, w, off)
+        # row 0 against itself with every other row of its group (and of
+        # the batch) drawn anew: the same n, the same groups
+        other = torch.randn(a.shape, generator=g, device=dev).bfloat16()
+        other[0] = a[0]
+        same = torch.equal(me.grouped_mm(other, w, off)[0], out[0])
+        row = _moe_row(me, arch, prod, a, w, off, counts, t, top,
+                       "per-group fp32 products",
+                       _per_group_products(a, w, off))
+        # the plain version (every expert over all rows) would take
+        # minutes here
+        row.update(plain_ms=None, row_equal_whatever_its_group=same)
+        check(row["tc_shape"] == "wide" and same,
+              f"moe_grouped_mm {arch} {prod} t={t}: shape "
+              f"{row['tc_shape']}, row equal {same}")
+        emit(row)
+        del a, other, out
+    # the threshold: both shapes at rising rows a group
+    for arch, prod, k, nout, e, top, _ in MOE_CASES[::3]:
+        w = weight(arch, prod, e, k, nout)
+        for per in MOE_CROSSOVER_ROWS:
+            a, off, _ = _moe_groups(g, e, top, e * per // top, k)
+            n = a.shape[0]
+            p = me.plan(n, e, k, nout, "tc")
+            times = {}
+            for shape, tiles in (("narrow", me.TcTiles(
+                    "narrow", me.NARROW_ROWS, me.NARROW_COLS,
+                    me.narrow_splits(k))), ("wide", me.TcTiles(
+                        "wide", me.WIDE_ROWS, me.WIDE_COLS, 1))):
+                forced = me.plan(n, e, k, nout, "tc", tiles)
+                times[shape] = cuda_ms(
+                    lambda p_=forced: me.launch(a, w, off, p_),
+                    iters=5, warmup=1)
+            emit({"phase": 1, "op": "moe_grouped_mm_crossover",
+                  "arch": arch, "product": prod, "rows": n, "experts": e,
+                  "rows_per_group": n / e, "narrow_ms": times["narrow"],
+                  "wide_ms": times["wide"], "rule": p.tiles.shape,
+                  "faster": min(times, key=times.get)})
+            del a
     weights.clear()
     torch.cuda.empty_cache()
     return main
@@ -3887,11 +4002,16 @@ def main() -> None:
                  if ("registers" in ln or "spill" in ln)
                  and "(C7519)" not in ln]
              for k, v in build.build_log.items()}
-    # ptxas notes where it had to fence registers shared with wgmma
+    # ptxas notes where it had to fence registers shared with wgmma, and
+    # where it serialised a kernel's wgmma (divergent code around them)
     gmma_fences = {k: v.count("(C7519)") for k, v in build.build_log.items()
                    if "(C7519)" in v}
+    gmma_serial = {k: v.count("(C7518)") + v.count("(C7520)")
+                   for k, v in build.build_log.items()
+                   if "(C7518)" in v or "(C7520)" in v}
     emit({"phase": 0, "nvidia_smi": smi, "build_s": build_s,
           "ptxas": ptxas, "ptxas_gmma_register_fences": gmma_fences,
+          "ptxas_gmma_serialized": gmma_serial,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0)})
     rows = {}

@@ -1,5 +1,6 @@
 // Hopper building blocks shared by the tensor-core kernels
-// (sidebar_tc.cuh and the products built on it, flash_attention.cu):
+// (sidebar_tc.cuh and the products built on it, flash_attention.cu,
+// moe_experts.cu):
 // mbarriers, thread-block cluster helpers, TMA tile loads and their
 // tensor maps, and wgmma on 128-byte-swizzled shared-memory tiles.
 //
@@ -13,9 +14,11 @@
 //     (the next 8 rows);
 //   * MN-major (rows are the contraction, the 64 columns are M or N):
 //     a k-step starts 16 rows (2048 bytes) further down; SBO = 1024 (the
-//     next 8 contraction rows). Every MN-major operand here is exactly
-//     64 wide (one atom), so LBO is never crossed; it is set to 1024
-//     as well.
+//     next 8 contraction rows). An MN-major operand 64 wide (one atom)
+//     never crosses LBO, which ``desc_sw128`` sets to 1024 as well; a
+//     wider one (moe_experts.cu's wide tiles: four atoms of a 256-wide
+//     operand, one after another) gives the atoms' distance as LBO
+//     (``desc_sw128_mn``).
 //
 // Barriers. ``mbar_wait`` traps after ~10 s of spinning, so a protocol
 // fault reports a launch error instead of hanging the card.
@@ -101,6 +104,40 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
+// ``mbar_wait`` as one loop inside inline PTX, for a warpgroup that
+// waits while its wgmma products are in flight: a C++ spin loop is
+// divergent code to ptxas, which then serialises every wgmma of the
+// kernel (C7518); the same ~10 s trap
+__device__ __forceinline__ void mbar_wait_asm(uint64_t* bar,
+                                              uint32_t parity) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\t.reg .u64 t0, t1;\n\t"
+      "mov.u64 t0, %%clock64;\n"
+      "MBAR_WAIT:\n\t"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n\t"
+      "@p bra MBAR_DONE;\n\t"
+      "mov.u64 t1, %%clock64;\n\t"
+      "sub.u64 t1, t1, t0;\n\t"
+      "setp.gt.u64 p, t1, 20000000000;\n\t"
+      "@p trap;\n\t"
+      "bra MBAR_WAIT;\n"
+      "MBAR_DONE:\n\t}" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// ``mbar_arrive`` by the threads whose ``pred`` is set, predicated inside
+// the instruction (no branch around it)
+__device__ __forceinline__ void mbar_arrive_if(uint64_t* bar, bool pred) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\t.reg .b64 state;\n\t"
+      "setp.ne.b32 p, %1, 0;\n\t"
+      "@p mbarrier.arrive.shared::cta.b64 state, [%0];\n\t}" ::"r"(
+          smem_addr(bar)),
+      "r"((int)pred)
+      : "memory");
+}
+
 // ---- thread-block clusters --------------------------------------------
 
 __device__ __forceinline__ uint32_t cluster_rank() {
@@ -139,6 +176,17 @@ __device__ __forceinline__ void mbar_arrive_cluster(uint32_t addr) {
       : "memory");
 }
 
+// ``mbar_arrive`` on a barrier of another CTA of the cluster (its
+// cluster address, ``map_rank``) by the threads whose ``pred`` is set
+__device__ __forceinline__ void mbar_arrive_remote_if(uint32_t addr,
+                                                      bool pred) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %1, 0;\n\t"
+      "@p mbarrier.arrive.shared::cluster.b64 _, [%0];\n\t}" ::"r"(addr),
+      "r"((int)pred)
+      : "memory");
+}
+
 // every thread of every CTA of the cluster
 __device__ __forceinline__ void cluster_sync() {
   asm volatile("barrier.cluster.arrive.release;\n\t"
@@ -160,6 +208,21 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       "bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
       "r"(c1)
+      : "memory");
+}
+
+// the same box into the same shared offset of every CTA of the cluster
+// in ``mask``, completing on the barrier at ``bar``'s offset in each
+__device__ __forceinline__ void tma_load_2d_multicast(void* dst,
+                                                      const CUtensorMap* map,
+                                                      uint64_t* bar, int c0,
+                                                      int c1, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes.multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;" ::"r"(
+          smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1), "h"(mask)
       : "memory");
 }
 
@@ -252,6 +315,16 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
   constexpr uint64_t kOffsets = (uint64_t(1024 >> 4) << 16) |  // LBO
                                 (uint64_t(1024 >> 4) << 32);   // SBO
   return kOffsets | uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t(1) << 62);
+}
+
+// the descriptor of an MN-major operand wider than one atom: 64-column
+// atoms of 128-byte-swizzled rows, each ``lbo`` bytes after the one
+// before (a multiple of 16 below 256 KB; SBO stays 1024, the next 8
+// contraction rows)
+__device__ __forceinline__ uint64_t desc_sw128_mn(uint32_t addr,
+                                                  uint32_t lbo) {
+  return (uint64_t(lbo >> 4) << 16) | (uint64_t(1024 >> 4) << 32) |
+         uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t(1) << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -388,6 +461,67 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float* d, uint64_t da,
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// D (64 x 256, fp32, this thread's 128) = A * B (16 x 256) + D, both in
+// shared memory
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n256k16_ss(float* d, uint64_t da,
+                                                    uint64_t db,
+                                                    int scale_d = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1, %131, %132;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
 }
 

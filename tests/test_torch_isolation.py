@@ -12,7 +12,8 @@
     kernel against its plain version (the gated MLP at deepseek-7b's
     widths, paged decode at group 1, MLA absorbed decode at deepseek-
     v3's widths with fp32 and bf16 pools, flash attention in fp32 and
-    bf16, the MoE grouped expert product on both routes), the paged
+    bf16, the MoE grouped expert product on both routes and both tc
+    shapes, captured and eager), the paged
     pool's host round trip (bf16, int8 with scales, MLA) in place and a
     preempted drain whose replayed segments read restored blocks, a
     run-time activation with a ``device_expr`` through every
@@ -1090,6 +1091,132 @@ def test_moe_grouped_mm_rejects_what_it_does_not_take(cuda):
         me.grouped_mm(a, w, off.cpu())
     with pytest.raises(ValueError, match="contiguous"):
         me.grouped_mm(a.t().contiguous().t(), w, off)
+
+
+# The tc route's two shapes at production widths over cut expert stacks:
+# (tokens, top-k, K, N, experts, shape). llama4-scout's decode gate
+# (three K ranges), deepseek-v3's decode gate (four) and down product
+# (one), and llama4-scout's gate at 128 rows a group (the wide shape)
+TC_SHAPE_CASES = [(4, 1, 5120, 8192, 16, "narrow"),
+                  (4, 8, 7168, 2048, 64, "narrow"),
+                  (4, 8, 2048, 7168, 64, "narrow"),
+                  (512, 1, 5120, 8192, 4, "wide")]
+
+
+def _routed_problem(cuda, t, top, k, n, e, seed=0):
+    """t tokens' ``top`` distinct experts each, grouped by expert, the
+    last token's pairs dropped (rows past the groups)."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    ids = torch.rand(t, e, generator=g, device=cuda).argsort(-1)[:, :top]
+    counts = torch.bincount(ids[:-1].reshape(-1), minlength=e)
+    off = torch.cat([counts.new_zeros(1), counts.cumsum(0)]).int()
+    a = torch.randn(t * top, k, generator=g, device=cuda).bfloat16()
+    w = (torch.randn(e, k, n, generator=g, device=cuda) / k ** 0.5
+         ).bfloat16()
+    return a, w, off
+
+
+def _per_group(a, w, off):
+    """Each group's rows times its expert, in fp32 (TF32 off)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = torch.zeros(a.shape[0], w.shape[2], device=a.device)
+    o = off.tolist()
+    for e in range(w.shape[0]):
+        if o[e + 1] > o[e]:
+            out[o[e]:o[e + 1]] = a[o[e]:o[e + 1]].float() @ w[e].float()
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", TC_SHAPE_CASES, ids=str)
+def test_moe_tc_shapes_at_production_widths(cuda, case):
+    """Both tc shapes against per-group fp32 products (1e-4 of each row's
+    largest), zeros past the groups, one count a call, a second run's
+    bits (through a K split too); on the narrow shape a row alone equals
+    its row in the batch, on the wide one a row equals itself whatever
+    the other rows of its group and batch hold (the same n and groups)."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import moe_experts as me
+
+    t, top, k, n, e, shape = case
+    a, w, off = _routed_problem(cuda, t, top, k, n, e)
+    rows, grouped = a.shape[0], int(off[-1])
+    p = me.plan(rows, e, k, n, me.route(a, w))
+    assert p.tiles.shape == shape and grouped < rows
+    before = build.launches["moe_grouped_mm"]
+    out = me.grouped_mm(a, w, off)
+    assert build.launches["moe_grouped_mm"] == before + 1
+    assert _row_rel_err(out[:grouped], _per_group(a, w, off)[:grouped]) \
+        <= 1e-4
+    assert not out[grouped:].any()
+    assert torch.equal(out, me.grouped_mm(a, w, off))
+    group = me.group_of_rows(off, rows)
+    if shape == "narrow":
+        for r in (0, grouped - 1):
+            e_r = int(group[r])
+            one = torch.tensor([0] * (e_r + 1) + [1] * (e - e_r),
+                               dtype=torch.int32, device=cuda)
+            alone = me.grouped_mm(a[r:r + 1].contiguous(), w, one)
+            assert me.tc_tiles(1, e, k, n) == p.tiles
+            assert torch.equal(alone[0], out[r])
+    else:
+        other = torch.randn(a.shape, device=cuda).bfloat16()
+        for r in (0, grouped - 1):
+            other[r] = a[r]
+        again = me.grouped_mm(other, w, off)
+        for r in (0, grouped - 1):
+            assert torch.equal(again[r], out[r])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [TC_SHAPE_CASES[1], TC_SHAPE_CASES[3]],
+                         ids=str)
+def test_moe_grouped_mm_captured_equals_eager(cuda, case):
+    """A call captured in a CUDA graph replays bit for bit as the eager
+    call, and, replayed after its inputs and its groups were rewritten in
+    place (the same n), as the eager call on the new ones: the launch
+    reads nothing on the host."""
+    from repro_torch.kernels import moe_experts as me
+
+    t, top, k, n, e, _ = case
+    a, w, off = _routed_problem(cuda, t, top, k, n, e)
+    a2, _, off2 = _routed_problem(cuda, t, top, k, n, e, seed=1)
+    assert not torch.equal(off, off2)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        me.grouped_mm(a, w, off)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = me.grouped_mm(a, w, off)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, me.grouped_mm(a, w, off))
+    a.copy_(a2)
+    off.copy_(off2)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, me.grouped_mm(a2, w, off2))
+
+
+@pytest.mark.gpu
+def test_moe_grouped_mm_refuses_a_tc_shape_it_does_not_have(cuda):
+    """A plan of other operands, or a tc plan on the fma route, raises
+    before any launch."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import moe_experts as me
+
+    a, w, off = _routed_problem(cuda, 4, 2, 256, 128, 4)
+    p = me.plan(8, 4, 256, 128, "tc")
+    before = build.launches["moe_grouped_mm"]
+    with pytest.raises(ValueError, match="not a plan"):
+        me.launch(a, w[..., :64].contiguous(), off, p)
+    with pytest.raises(ValueError, match="fma route"):
+        me.launch(a.float(), w.float(), off, p)
+    assert build.launches["moe_grouped_mm"] == before
+    assert me.launch(a, w, off, p).shape == (8, 128)
+    assert build.launches["moe_grouped_mm"] == before + 1
 
 
 # (B, Hq, Hkv, S, T, Dh, causal): the JAX package's FLASH_CASES, nemotron's
