@@ -45,8 +45,9 @@ exits non-zero):
      and 4096 rows, bitwise equal to the ring at depths 1-4 (it is the
      ring with one slot) and timed beside the ring at depth 1; the
      gated MLP at 4, 16 and 64 rows of deepseek-7b's and deepseek-v3's
-     widths and at 16 and 64 rows of qwen3-14b's (5120 x 17408) and
-     llama3-405b's (16384 x 53248) with its route, clusters and D2
+     widths, at 16 and 64 rows of qwen3-14b's (5120 x 17408) and
+     llama3-405b's (16384 x 53248), and at 4 and 512 rows of zamba2-7b's
+     shared block (3584 x 14336) with its route, clusters and D2
      passes, equal to a second run bit for bit; every case names its
      route ("tc": tensor cores, "fma": CUDA cores);
      ``moe_grouped_mm`` (the MoE layers' expert products) at
@@ -122,8 +123,10 @@ exits non-zero):
      steps) == ``"loop"`` bit for bit, greedy and sampled (temperature
      0.9, top-k 50, top-p 0.95), temperature 0 and top-k 1 == greedy,
      SIDEBAR_PIPELINED d2 == SIDEBAR, exact ``sidebar_mlp`` launches,
-     ms a decode step scan beside loop; (9b) the slot-cache
-     ``ContinuousBatchingServer`` on phase 2's traffic, every other
+     ms a decode step scan beside loop; on the first 8 of phase 2's
+     layers (``SIDE_LAYERS``, shared): (9b) the
+     slot-cache ``ContinuousBatchingServer`` on phase 2's traffic, every
+     other
      request sampled: captured == eager (``disable_capture()``) bit for
      bit, compiles/hits, tokens/s, TTFT, peak memory; (9c) the paged
      server on the same traffic, greedy and half sampled, its staging
@@ -216,9 +219,26 @@ exits non-zero):
      traffic is served on phase 2's weights under that plan: every
      request finishes, exact launches, every MLP dispatch on its layer's
      planned route, greedy tokens equal to phase 2's SIDEBAR drain (and
-     to phase 5's arm of the same plan when phase 5 ran).
+     to phase 5's arm of the same plan when phase 5 ran);
+ 16. the recurrent families, each at full width and depth (bf16 weights
+     from seed 0, the kernels on; one model on the card at a time):
+     (16a) rwkv6-7b (32 layers, attention-free) and (16b) zamba2-7b (81
+     Mamba2 layers, the shared attention + gated MLP block after each
+     of 13 groups of 6) served by ``Server`` on 4 prompts of 128 tokens,
+     32 new, as 9a: ``decode="scan"`` (a graph captured on the server's
+     state buffer, zeroed before each request; the second ``generate``
+     replays it) == ``"loop"`` bit for bit, greedy and sampled,
+     temperature 0 == greedy, exact launches (none for rwkv6-7b; 13
+     ``sidebar_gated_mlp`` a prefill and a decode step for zamba2-7b),
+     prefill + 4 decode steps against the no-cache forward on the
+     weights cast to fp32 (2e-3; bf16 printed); ms a decode step scan
+     beside loop and the step's bound, TTFT, tokens/s, capture s, peak
+     memory, one eager step's device time by op; (16c) both fp32 smoke
+     configs: ``Server`` scan == loop and logits within 1e-4 of the
+     same weights' CPU run.
 
-The line before the last holds the kernel table, the last line
+The lines before the last hold the host seconds a phase, then the
+kernel table, then the card's name and power limit; the last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or of the JAX
 package ``repro``.
 """
@@ -229,6 +249,7 @@ import argparse
 import collections
 import contextlib
 import dataclasses
+import gc
 import json
 import pathlib
 import subprocess
@@ -254,6 +275,7 @@ DS_MODEL, DS_FF = 4096, 11008         # deepseek-7b
 V3_MODEL, V3_FF = 7168, 18432         # deepseek-v3-671b's dense layers
 QW_MODEL, QW_FF = 5120, 17408         # qwen3-14b
 L3_MODEL, L3_FF = 16384, 53248        # llama3-405b
+ZB_MODEL, ZB_FF = 3584, 14336         # zamba2-7b's shared block
 KERNELS = ("sidebar_mlp", "paged_gqa", "sidebar_mlp_pipelined",
            "sidebar_matmul", "activation", "sidebar_gated_mlp", "paged_mla",
            "flash_attention", "moe_grouped_mm")
@@ -958,8 +980,9 @@ def pipelined_ops(seed: int = 4) -> dict:
 
 
 def gated_ops(seed: int = 5) -> dict:
-    """sidebar_gated_mlp: every MLP launch of deepseek-7b and of
-    deepseek-v3's dense layers."""
+    """sidebar_gated_mlp: every MLP launch of deepseek-7b, of
+    deepseek-v3's dense layers, and of zamba2-7b's shared block (decode,
+    and its prefill's 512 rows)."""
     from repro_torch.kernels import sidebar_gated_mlp as sg
     from repro_torch.kernels import sidebar_mlp as sm
 
@@ -1012,7 +1035,8 @@ def gated_ops(seed: int = 5) -> dict:
                              ("deepseek-v3-671b", V3_MODEL, V3_FF,
                               (4, 16, 64)),
                              ("qwen3-14b", QW_MODEL, QW_FF, (16, 64)),
-                             ("llama3-405b", L3_MODEL, L3_FF, (16, 64))):
+                             ("llama3-405b", L3_MODEL, L3_FF, (16, 64)),
+                             ("zamba2-7b", ZB_MODEL, ZB_FF, (4, 512))):
         wg, wu = ((torch.randn(d, f, generator=g, device=dev) / d ** 0.5
                    ).bfloat16() for _ in range(2))
         wd = (torch.randn(f, d, generator=g, device=dev) / f ** 0.5
@@ -2864,11 +2888,12 @@ SPEC_SMOKE = dict(num_slots=3, max_len=48, block_size=8, prefill_chunk=8,
 # top-2; queries from 4 hot documents: 4 leads (one a slot), then 8
 # waves of 2 queries, a scheduler step after each
 RAG_BLOCK, RAG_DOCS, RAG_DOC_LEN, RAG_HOT = 16, 2048, 128, 4
-# phases 13 and 14 serve this many of phase 2's layers (shared, not
-# copied; fewer when --layers cuts phase 2): their gates hold the host's
-# schedule (admission, preemption, drafts, retrieval), which depth does
-# not change, and at all 32 layers they took 300 s of a script that is
-# to stay inside half of its 1200 s limit
+# phases 9b, 9c, 13 and 14 serve this many of phase 2's layers (shared,
+# not copied; fewer when --layers cuts phase 2): their gates hold the
+# host's schedule (admission, preemption, drafts, retrieval) and captured
+# against eager, which depth does not change; at all 32 layers 13 and 14
+# took 300 s, and phase 9 206 s, of a script that is to stay inside half
+# of its 1200 s limit
 SIDE_LAYERS = 8
 RAG_IO_LATENCY = 0.020
 RAG_LEAD_GENS = (72, 64, 56, 48)
@@ -3968,10 +3993,253 @@ def engine_kernel_rows(engine15: dict, planned: dict, rows: dict,
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the recurrent families (RWKV6 and the Mamba2 hybrid)
+# ---------------------------------------------------------------------------
+
+RECURRENT_ARCHS = ("rwkv6-7b", "zamba2-7b")
+# prefill then decode against the no-cache forward at full width and
+# depth, on the bf16 weights cast to fp32 (2e-3, the bound of
+# tests/test_decode_consistency.py). In bf16 the two paths round
+# differently (products over 4 rows against 528; rwkv6-7b's forward
+# takes 4-token WKV chunks at 132 tokens where prefill takes 64), and the
+# random-weight stacks amplify the difference through their depth, to
+# where no bf16 bound tells a fault from rounding (16a's bf16 error is
+# of the order of the logits themselves), so the bf16 comparison is
+# printed, not gated
+RECURRENT_FP32_TOL = 2e-3
+
+
+def recurrent_launches(cfg, steps: int) -> dict:
+    """Exact launches of one ``Server.generate`` with ``steps`` decode
+    steps after its prefill: the hybrid's shared block runs its gated MLP
+    once an invocation (n_groups a forward call: 13 at zamba2-7b's 81
+    layers); nothing else of either family launches a kernel."""
+    want = dict.fromkeys(KERNELS, 0)
+    if cfg.family == "hybrid":
+        want["sidebar_gated_mlp"] = (cfg.num_layers // cfg.attn_every
+                                     ) * (1 + steps)
+    return want
+
+
+def _nbytes(tree_) -> int:
+    from repro_torch import tree
+
+    return sum(t.numel() * t.element_size() for t in tree.leaves(tree_))
+
+
+def recurrent_step_bound(cfg, params, cache, pos: int, b: int) -> dict:
+    """The least time of one decode step at position ``pos``: every
+    weight read once (the tied table once, by the unembedding) and the
+    hybrid's shared block once an invocation (0.41 GB at zamba2-7b's
+    widths, beyond the 50 MB L2: each of the 13 streams it), the
+    recurrent state read and written, the KV slabs read up to ``pos``,
+    the logits written; operations 2 x rows x weight elements."""
+    from repro_torch import tree
+
+    wbytes = _nbytes(params)
+    welems = sum(t.numel() for t in tree.leaves(params))
+    state, kv = cache, 0
+    if cfg.family == "hybrid":
+        again = cfg.num_layers // cfg.attn_every - 1
+        wbytes += again * _nbytes(params["shared"])
+        welems += again * sum(t.numel()
+                              for t in tree.leaves(params["shared"]))
+        state = cache["ssm"]
+        kv = _nbytes(cache["kv"]) * (pos + 1) / cache["kv"][0]["k"].shape[2]
+    nbytes = wbytes + 2 * _nbytes(state) + kv + b * params["embed"].shape[0] * 4
+    ms, by = bound(nbytes, 2 * b * welems, torch.bfloat16)
+    return {"bound_ms": ms, "bound_by": by, "bound_gb": nbytes / 1e9,
+            "weights_gb": _nbytes(params) / 1e9,
+            "state_gb": _nbytes(state) / 1e9}
+
+
+def recurrent_vs_forward(cfg, api, params, prompts, steps: int = 4):
+    """Prefill, then ``steps`` greedy decode steps, against the no-cache
+    ``forward`` of the whole sequence (128 + 4 = 132 tokens: no flash
+    route, no multiple of 128): the largest error over the largest
+    |logit|, the share of (row, position) whose argmax agree, and the
+    cache and last token (for the step breakdown)."""
+    b, s = prompts.shape
+    cache = api.init_cache(cfg, b, 256, device="cuda")
+    with torch.no_grad():
+        toks = torch.as_tensor(prompts, device="cuda")
+        logits, cache = api.prefill(params, cfg, {"tokens": toks}, cache)
+        seq, got = [toks], [logits[:, -1]]
+        for i in range(steps):
+            nxt = torch.argmax(logits[:, -1], -1)[:, None]
+            seq.append(nxt)
+            logits, cache = api.decode_step(params, cfg, nxt, cache, s + i)
+            got.append(logits[:, -1])
+        ref = api.forward(params, cfg, {"tokens": torch.cat(seq, 1)}
+                          )[:, s - 1:s + steps]
+        got = torch.stack(got, 1)
+        _, rel = rel_err(got, ref)
+        agree = (got.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    return rel, agree, cache, torch.argmax(logits[:, -1], -1)[:, None]
+
+
+def phase16_server(arch: str, smi: str) -> dict:
+    """16a / 16b: ``arch`` at full width and depth (bf16 weights from
+    seed 0, the kernels on) served by ``Server`` on 4 prompts of 128
+    seeded tokens, 32 new, max_len 256, as 9a: ``decode="scan"`` (a
+    graph, replayed by the second ``generate``: one capture) == ``"loop"``
+    bit for bit, greedy and sampled (two graphs, and no third:
+    temperature 0 replays the sampled one); temperature 0 == greedy;
+    sampled !=
+    greedy; exact launches (``recurrent_launches``); prefill + decode
+    against the no-cache forward; ms a decode step scan beside loop and
+    the step's bound; TTFT (a ``generate`` of one token), tokens/s,
+    capture s, peak memory (before the fp32 copy), and one eager step's
+    device time by op."""
+    from repro_torch import configs, tree
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch.sampling import SamplingParams
+    from repro_torch.launch.serve import Server
+    from repro_torch.models.registry import get_model
+
+    cfg = dataclasses.replace(configs.get_config(arch), use_pallas=True)
+    api = get_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    init_s, params = _timed(lambda: api.init(cfg, seed=0, device="cuda"))
+    srv = Server(cfg, params, max_len=256, device="cuda")
+    prompts = np.random.RandomState(16).randint(0, cfg.vocab_size, (4, 128))
+    sp = SamplingParams(**SP_KW)
+    part = "16a" if cfg.family == "ssm" else "16b"
+
+    def gen(n=32, **kw):
+        return srv.generate(prompts, n, **kw).tokens.cpu().numpy()
+
+    want = recurrent_launches(cfg, 31)
+    out = {}
+    for name, sample in (("greedy", None), ("sampled", sp)):
+        first = gen(sample=sample)                     # warm-up + capture
+        kops.reset_launch_counts()
+        scan = gen(sample=sample)                      # replay
+        counts = kops.launch_counts()
+        loop = gen(sample=sample, decode="loop")
+        prog = srv._decode_scans[(31, None)]
+        out[name] = scan
+        check(np.array_equal(first, scan) and np.array_equal(scan, loop),
+              f"phase {part} {name}: scan {scan[:, 128:136].tolist()} != "
+              f"loop {loop[:, 128:136].tolist()}")
+        check(counts == want, f"phase {part} {name}: launches {counts} != "
+                              f"{want}")
+        if name == "greedy":
+            check(prog.captures == 1 and prog.replays == 1,
+                  f"phase {part}: a second generate did not replay "
+                  f"({prog.captures} captures, {prog.replays} replays)")
+    # temperature 0 with the sampled request's top-k / top-p: the same
+    # sampling-state layout, so it replays the sampled graph
+    t0 = gen(sample=dataclasses.replace(sp, temperature=0.0, seed=3))
+    check(np.array_equal(t0, out["greedy"]),
+          f"phase {part}: temperature 0 != greedy")
+    check(not np.array_equal(out["sampled"], out["greedy"]),
+          f"phase {part}: sampled tokens equal greedy everywhere")
+    check(prog.captures == 2, f"phase {part}: {prog.captures} captures "
+                              "(greedy, sampled)")
+    # ms a decode step: (generate(32) - generate(1)) / 31, L S S L
+    times = {"scan": [], "loop": []}
+    full_s, ttft_s = [], []
+    for decode in ("loop", "scan", "scan", "loop"):
+        full, _ = _timed(lambda: srv.generate(prompts, 32, decode=decode))
+        pre, _ = _timed(lambda: srv.generate(prompts, 1, decode=decode))
+        times[decode].append((full - pre) / 31 * 1e3)
+        ttft_s.append(pre)
+        if decode == "scan":
+            full_s.append(full)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    rel, agree, cache, nxt = recurrent_vs_forward(cfg, api, params, prompts)
+    with torch.no_grad():
+        breakdown = loop_breakdown(
+            lambda: api.decode_step(params, cfg, nxt, cache, 132), 1)
+    bnd = recurrent_step_bound(cfg, params, cache, 144, 4)
+    graph = {"captured": srv.captured, "captures": prog.captures,
+             "replays": prog.replays, "capture_s": prog.capture_s}
+    del srv, prog, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the same comparison on the weights cast to fp32
+    f32 = dataclasses.replace(cfg, dtype=torch.float32,
+                              kv_cache_dtype=torch.float32)
+    params = tree.map_leaves(lambda t: t.float(), params)
+    rel32, agree32, _, _ = recurrent_vs_forward(f32, api, params, prompts)
+    check(rel32 <= RECURRENT_FP32_TOL,
+          f"phase {part}: fp32 prefill + decode against forward: rel "
+          f"{rel32}")
+    scan_ms = float(np.median(times["scan"]))
+    row = {"phase": 16, "part": part, "arch": cfg.arch_id,
+           "nvidia_smi": smi, "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "dtype": "bfloat16", "init_s": init_s,
+           "batch": 4, "prompt": 128, "gen": 32, "max_len": 256,
+           "scan_equals_loop": True, "greedy_equals_t0": True,
+           "sampled_differs_from_greedy": int(
+               (out["sampled"] != out["greedy"]).sum()),
+           "launches": {k: v for k, v in want.items() if v},
+           "forward_fp32_max_rel_err": rel32,
+           "forward_fp32_tol": RECURRENT_FP32_TOL,
+           "forward_fp32_argmax_agree": agree32,
+           "forward_bf16_max_rel_err": rel, "forward_bf16_argmax_agree": agree,
+           **graph, "order": "L S S L",
+           "step_ms_scan": times["scan"], "step_ms_loop": times["loop"],
+           "step_ms_scan_median": scan_ms,
+           "step_ms_loop_median": float(np.median(times["loop"])),
+           **bnd, "scan_ms_over_bound": scan_ms / bnd["bound_ms"],
+           "ttft_s_median": float(np.median(ttft_s)),
+           "tokens_per_s": 4 * 32 / float(np.median(full_s)),
+           "peak_mem_gb": peak_gb,
+           "device_ms_per_step_by_kernel": breakdown}
+    emit(row)
+    return row
+
+
+def recurrent_smoke(arch: str) -> None:
+    """16c: the fp32 smoke config (kernels on) on the card, its weights
+    drawn on the CPU from seed 0 and copied: ``Server`` greedy tokens,
+    scan == loop bit for bit, and the prefill and 3 decode steps' logits
+    (on the CPU's tokens) within 1e-4 of the CPU's, relative to the
+    largest |logit| (fp32: the two sum in different orders)."""
+    from repro_torch import configs, tree
+    from repro_torch.launch.serve import Server
+    from repro_torch.models.registry import get_model
+
+    cfg = dataclasses.replace(configs.get_smoke_config(arch),
+                              use_pallas=True)
+    api = get_model(cfg)
+    cpu_params = api.init(cfg, seed=0, device="cpu")
+    params = tree.map_leaves(lambda t: t.cuda(), cpu_params)
+    prompts = np.random.RandomState(16).randint(0, cfg.vocab_size, (2, 12))
+    srv = Server(cfg, params, max_len=32, device="cuda")
+    scan = srv.generate(prompts, 8).tokens.cpu()
+    loop = srv.generate(prompts, 8, decode="loop").tokens.cpu()
+    cpu = Server(cfg, cpu_params, max_len=32, device="cpu").generate(
+        prompts, 8).tokens
+    check(torch.equal(scan, loop), f"phase 16c {arch}: scan != loop")
+    errs = []
+    for dev, p in (("cuda", params), ("cpu", cpu_params)):
+        cache = api.init_cache(cfg, 2, 32, device=dev)
+        with torch.no_grad():
+            lg, cache = api.prefill(p, cfg, {"tokens": cpu[:, :12].long()
+                                             .to(dev)}, cache)
+            seq = [lg[:, -1].cpu()]
+            for i in range(3):
+                lg, cache = api.decode_step(
+                    p, cfg, cpu[:, 12 + i:13 + i].long().to(dev), cache,
+                    12 + i)
+                seq.append(lg[:, -1].cpu())
+        errs.append(torch.stack(seq, 1))
+    _, rel = rel_err(errs[0], errs[1])
+    emit({"phase": 16, "part": "16c", "arch": cfg.arch_id,
+          "dtype": "float32", "scan_equals_loop": True,
+          "tokens_equal_cpu": bool(torch.equal(scan, cpu)),
+          "logits_max_rel_err_vs_cpu": rel, "tol": 1e-4})
+    check(rel <= 1e-4, f"phase 16c {arch}: logits {rel} off the CPU's")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default="0,1,2,3,4,5,6,7,8,9,10,11,12,13,14,15",
+                    default="0,1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16",
                     help="comma-separated subset of phases to run")
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the depth of the full-width phases 2, 5, "
@@ -3980,6 +4248,16 @@ def main() -> None:
                     help="the paged servers' stage_capture_after (default: "
                          "the server's own)")
     args = ap.parse_args()
+    t_start = time.perf_counter()
+    laps = {}
+
+    def lap(name: str) -> None:
+        """Host seconds since the previous lap, under ``name``."""
+        now = time.perf_counter()
+        laps[name] = now - lap.t
+        lap.t = now
+
+    lap.t = t_start
     if args.stage_capture_after is not None:
         FULL_SERVER["stage_capture_after"] = args.stage_capture_after
     phases = {int(p) for p in args.phases.split(",")}
@@ -4014,6 +4292,7 @@ def main() -> None:
           "ptxas_gmma_serialized": gmma_serial,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0)})
+    lap("0")
     rows = {}
     if 1 in phases:
         rows["sidebar_mlp"] = mlp_ops()
@@ -4029,6 +4308,7 @@ def main() -> None:
         moe_pass_ops()
         user_activation_ops()
         autograd_refusals()
+        lap("1")
     served = {}
     params = None
     engine15 = {}
@@ -4037,13 +4317,16 @@ def main() -> None:
         row, tokens = full_width(2, cfg, params, init_s)
         served["sidebar"] = row
         arm_tokens = {"sidebar": tokens}
+        lap("2")
         if 5 in phases:
             served.update(plan_modes(cfg, params, tokens, arm_tokens))
+            lap("5")
+        side = shallow_draft(cfg, params, min(SIDE_LAYERS, cfg.num_layers))
         if 9 in phases:
             phase9_server(cfg, params)
-            phase9_slots(cfg, params)
-            phase9_paged(cfg, params)
-        side = shallow_draft(cfg, params, min(SIDE_LAYERS, cfg.num_layers))
+            phase9_slots(*side)
+            phase9_paged(*side)
+            lap("9")
         if 13 in phases:
             t13 = time.perf_counter()
             ctx = phase13_server(*side, smi)
@@ -4055,6 +4338,7 @@ def main() -> None:
                 "13a": t13a - t13, "13c": t13c - t13a,
                 "13b": time.perf_counter() - t13c}})
             torch.cuda.empty_cache()
+            lap("13")
         if 14 in phases:
             t14 = time.perf_counter()
             spec_serving(*side, smi)
@@ -4071,6 +4355,7 @@ def main() -> None:
                 "14b": t14b - t14e, "14c": t14c - t14b,
                 "14c_smoke": time.perf_counter() - t14c}})
             torch.cuda.empty_cache()
+            lap("14")
         if 15 in phases:
             t15 = time.perf_counter()
             chip_probe()
@@ -4083,6 +4368,10 @@ def main() -> None:
                 "probe_and_15a": t15a - t15, "15b": t15b - t15a,
                 "15c": time.perf_counter() - t15b}})
             torch.cuda.empty_cache()
+            lap("15")
+        # phase 2's first layers stay resident through ``side`` unless
+        # dropped here
+        del side
         if 8 not in phases or cfg.num_layers != D_LAYERS:
             params = None
             torch.cuda.empty_cache()
@@ -4095,21 +4384,25 @@ def main() -> None:
         torch.cuda.empty_cache()
         train_steps_full()
         trainer_resume()
+        lap("8")
     if 3 in phases:
         cfg, params, init_s = full_width_params(4, int8=True)
         full_width(3, cfg, params, init_s)
         del params
         torch.cuda.empty_cache()
+        lap("3")
     if 4 in phases:
         for arch in ("nemotron-4-15b", "deepseek-7b", "deepseek-v3-671b",
                      "qwen3-14b", "llama3-405b", "llama4-scout-17b-a16e"):
             smoke_routes(arch)
+        lap("4")
     if 6 in phases:
         torch.cuda.reset_peak_memory_stats()
         cfg, params, init_s = full_width_params(None, arch="deepseek-7b")
         served["deepseek_7b"], _ = full_width(6, cfg, params, init_s)
         del params
         torch.cuda.empty_cache()
+        lap("6")
     if 7 in phases:
         # deepseek-v3-671b at full width, cut to its 3 dense + 2 MoE
         # layers (all 256 experts): FULL's 61 layers do not fit one card
@@ -4120,6 +4413,7 @@ def main() -> None:
         eager_then_captured(7, cfg, params, seed=6)
         del params
         torch.cuda.empty_cache()
+        lap("7")
     # the three configs of this slice at full width: qwen3-14b at full
     # depth (40 layers, ~28 GB), llama3-405b with its int8 KV pool cut to
     # 8 of 126 layers (~55 GB: one layer is ~6.4 GB, the table 4.2 GB),
@@ -4137,6 +4431,21 @@ def main() -> None:
             eager_then_captured(phase, cfg, params, seed=phase)
         del params
         torch.cuda.empty_cache()
+        lap(str(phase))
+    if 16 in phases:
+        t16 = time.perf_counter()
+        host_s = {}
+        for arch in RECURRENT_ARCHS:
+            row = phase16_server(arch, smi)
+            host_s[row["part"]] = time.perf_counter() - t16
+            t16 = time.perf_counter()
+            gc.collect()
+            torch.cuda.empty_cache()
+        for arch in RECURRENT_ARCHS:
+            recurrent_smoke(arch)
+        host_s["16c"] = time.perf_counter() - t16
+        emit({"phase": 16, "host_s": host_s})
+        lap("16")
     # launches: the drain of the main path (phase 2), of the mode (phase
     # 5) or of the model (phases 6, 7 and 12) that runs the kernel
     run_of = {"sidebar_mlp": "sidebar", "paged_gqa": "sidebar",
@@ -4186,6 +4495,7 @@ def main() -> None:
             kernels += engine_kernel_rows(engine15, served["planned"], rows,
                                           sources)
         emit({"kernels": kernels})
+    emit({"script_s": time.perf_counter() - t_start, "phase_s": laps})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -10,6 +10,14 @@ list of per-layer dicts in layer order. The input here is that tree with
 every leaf already a numpy array (``jax.tree.map(np.asarray, tree)``) —
 this module imports no JAX.
 
+The recurrent families: RWKV6 stacks its layers under ``blocks`` and
+its state ``{"wkv", "shift_tm", "shift_cm"}`` on a leading L axis; the
+Mamba2 hybrid nests its layers as ``groups`` [n_groups][attn_every] and
+``tail``, their pre-norms as ``mamba_norm["w"]`` (L, D), keeps one
+``shared`` block, and its state as ``{"ssm": {"h", "conv"} (L, ...),
+"kv": {"k", "v"} (n_groups, ...)}``. The port keeps per-layer lists
+(``models.rwkv_model``, ``models.zamba``); each direction is here.
+
 Used by the tests, so both frameworks compute on the same weights: the
 port cannot redraw ``jax.random``'s numbers.
 """
@@ -75,22 +83,119 @@ def cache_from_jax(cache: dict, device=None) -> list:
     return _unstack(cache, resolve_device(device))
 
 
+def _host(t) -> np.ndarray:
+    """A port tensor (bf16 as fp32) or a numpy array, as numpy."""
+    if isinstance(t, np.ndarray):
+        return t
+    return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+
+
 def cache_to_numpy(cache: list, kinds: list[str] | None = None) -> dict:
     """The port's per-layer cache -> the JAX layout as numpy, for
     comparisons (bf16 leaves as fp32). ``kinds`` names each layer's
     stack (``transformer.layer_kinds``); default: all dense."""
-    def host(t):
-        return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
-
     kinds = kinds if kinds is not None else ["dense"] * len(cache)
     out = {}
     for kind in KINDS:
         layers = [layer for layer, k in zip(cache, kinds) if k == kind]
         if layers:
-            out[kind] = {name: np.stack([host(layer[name])
+            out[kind] = {name: np.stack([_host(layer[name])
                                          for layer in layers])
                          for name in layers[0]}
     return out
+
+
+def _map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _stack(layers: list) -> dict:
+    """Per-layer dicts -> one dict of (L, ...) numpy stacks."""
+    return {name: (_stack([layer[name] for layer in layers])
+                   if isinstance(layers[0][name], dict)
+                   else np.stack([_host(layer[name]) for layer in layers]))
+            for name in layers[0]}
+
+
+def rwkv_params_from_jax(params: dict, device=None) -> dict:
+    """JAX RWKV6 params (numpy leaves) -> the port's (``layers`` a list),
+    on ``device`` (``cuda`` unless asked otherwise)."""
+    device = resolve_device(device)
+    blocks = params["blocks"]
+    return {"embed": _tensor(params["embed"], device),
+            "final_norm": _tensor(params["final_norm"], device),
+            "layers": [_layer(blocks, i, device)
+                       for i in range(_depth(blocks))]}
+
+
+def rwkv_params_to_numpy(params: dict) -> dict:
+    """The port's RWKV6 params -> the JAX layout as numpy."""
+    return {"embed": _host(params["embed"]),
+            "final_norm": _host(params["final_norm"]),
+            "blocks": _stack(params["layers"])}
+
+
+def zamba_params_from_jax(params: dict, device=None) -> dict:
+    """JAX Mamba2-hybrid params (numpy leaves) -> the port's: the nested
+    ``groups`` and the ``tail`` unstacked into one list in layer order,
+    each layer with its ``mamba_norm``; the one ``shared`` block as it
+    is. On ``device`` (``cuda`` unless asked otherwise)."""
+    device = resolve_device(device)
+    groups = [_map(params["groups"], lambda a: np.asarray(a)[g])
+              for g in range(_depth(params["groups"]))]
+    layers = [_layer(group, j, device)
+              for group in groups for j in range(_depth(group))]
+    if "tail" in params:
+        layers += [_layer(params["tail"], i, device)
+                   for i in range(_depth(params["tail"]))]
+    norms = np.asarray(params["mamba_norm"]["w"])
+    for i, layer in enumerate(layers):
+        layer["mamba_norm"] = _tensor(norms[i], device)
+    return {"embed": _tensor(params["embed"], device),
+            "final_norm": _tensor(params["final_norm"], device),
+            "layers": layers,
+            "shared": _map(params["shared"], lambda a: _tensor(a, device))}
+
+
+def zamba_params_to_numpy(params: dict, attn_every: int) -> dict:
+    """The port's Mamba2-hybrid params -> the JAX layout as numpy
+    (``groups`` [n_groups][attn_every], ``tail`` when the depth leaves
+    one)."""
+    layers = [{k: v for k, v in layer.items() if k != "mamba_norm"}
+              for layer in params["layers"]]
+    n_groups = len(layers) // attn_every
+    out = {"embed": _host(params["embed"]),
+           "final_norm": _host(params["final_norm"]),
+           "mamba_norm": {"w": np.stack([_host(layer["mamba_norm"])
+                                         for layer in params["layers"]])},
+           "groups": _stack([_stack(layers[g * attn_every:
+                                           (g + 1) * attn_every])
+                             for g in range(n_groups)]),
+           "shared": _map(params["shared"], _host)}
+    if len(layers) > n_groups * attn_every:
+        out["tail"] = _stack(layers[n_groups * attn_every:])
+    return out
+
+
+def state_from_jax(state: dict, device=None):
+    """A recurrent family's JAX state (numpy leaves) -> the port's: each
+    dict of (L, ...) stacks becomes a list of per-layer dicts (RWKV6's
+    whole state; the hybrid's ``ssm`` and ``kv``). On ``device``
+    (``cuda`` unless asked otherwise)."""
+    device = resolve_device(device)
+    if all(isinstance(v, dict) for v in state.values()):
+        return {k: state_from_jax(v, device) for k, v in state.items()}
+    return [_layer(state, i, device) for i in range(_depth(state))]
+
+
+def state_to_numpy(state):
+    """The port's recurrent state -> the JAX layout as numpy (bf16
+    leaves as fp32)."""
+    if isinstance(state, dict):
+        return {k: state_to_numpy(v) for k, v in state.items()}
+    return _stack(state)
 
 
 def lenet_params_from_jax(params: dict, device=None) -> dict:

@@ -4,7 +4,8 @@ from __future__ import annotations
 
 from repro_torch.configs import (deepseek_7b, deepseek_v3_671b,
                                  llama3_405b, llama4_scout_17b,
-                                 nemotron_4_15b, qwen3_14b)
+                                 nemotron_4_15b, qwen3_14b, rwkv6_7b,
+                                 zamba2_7b)
 from repro_torch.configs.base import ModelConfig
 
 _MODULES = {
@@ -14,6 +15,8 @@ _MODULES = {
     "qwen3-14b": qwen3_14b,
     "llama3-405b": llama3_405b,
     "llama4-scout-17b-a16e": llama4_scout_17b,
+    "rwkv6-7b": rwkv6_7b,
+    "zamba2-7b": zamba2_7b,
 }
 
 ARCH_IDS = tuple(_MODULES)

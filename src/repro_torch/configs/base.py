@@ -2,8 +2,9 @@
 (mirror of ``repro.configs.base``).
 
 Only the fields the ported paths read are kept: the dense GQA family
-(qk-norm included) and the MoE family (GQA or MLA attention), served
-and trained. The JAX config's SSM, audio and VLM fields come with the
+(qk-norm included), the MoE family (GQA or MLA attention), RWKV6
+(``ssm``) and the Mamba2 hybrid with its shared attention block
+(``hybrid``). The JAX config's audio and VLM fields come with the
 slices that port those families.
 """
 
@@ -17,7 +18,7 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     arch_id: str
-    family: str                    # dense | moe (the families ported)
+    family: str                    # dense | moe | ssm | hybrid (ported)
     num_layers: int
     d_model: int
     num_heads: int
@@ -47,6 +48,16 @@ class ModelConfig:
     nope_head_dim: int = 128
     v_head_dim: int = 128
 
+    # SSM (mamba2) / hybrid
+    ssm_state: int = 0
+    ssm_head_dim: int = 64
+    ssm_expand: int = 2
+    ssm_chunk: int = 256
+    attn_every: int = 0            # zamba2: shared attn block period
+
+    # RWKV6
+    rwkv_head_dim: int = 64
+
     # numerics
     dtype: torch.dtype = torch.bfloat16
     rope_theta: float = 10000.0
@@ -65,6 +76,16 @@ class ModelConfig:
                                self.d_model // max(self.num_heads, 1))
         if self.num_experts and self.moe_d_ff == 0:
             object.__setattr__(self, "moe_d_ff", self.d_ff)
+
+    @property
+    def attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def subquadratic(self) -> bool:
+        """Whether the state is O(1) in sequence length outside attention
+        (the recurrent families)."""
+        return self.family in ("ssm", "hybrid")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -30,6 +30,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from repro_torch import tree
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.modes import (
     ExecutionMode,
@@ -46,7 +47,10 @@ from repro_torch.models.registry import ModelApi, get_model
 
 # Families whose caches are pure position-masked KV: a reused buffer's
 # stale tail is invisible (decode attends kpos <= pos), so prefill can
-# overwrite in place.
+# overwrite in place. The recurrent families (ssm, hybrid) integrate
+# unmasked state: their pooled buffer is zeroed before each request,
+# the JAX server's fresh zero cache at the same addresses, so a
+# captured decode graph replays on it.
 _CACHE_REUSE_FAMILIES = ("dense", "moe", "vlm")
 
 # Families whose layer stack runs every layer under kops.layer_scope —
@@ -216,18 +220,20 @@ class Server:
 
     # -- KV-cache pooling --------------------------------------------------
     def _take_cache(self, b: int):
-        """A (B, max_len) cache: the pooled buffer when the family's
-        cache is position-masked KV, else a fresh one."""
-        if self.cfg.family in _CACHE_REUSE_FAMILIES:
-            pooled = self._cache_pool.pop(b, None)
-            if pooled is not None:
-                return pooled
-        return self.api.init_cache(self.cfg, b, self.max_len,
-                                   device=self.device)
+        """The pooled (B, max_len) cache, zeroed first for a recurrent
+        family (whose prefill and decode write it in place); a new one
+        at a batch size's first request."""
+        pooled = self._cache_pool.pop(b, None)
+        if pooled is None:
+            return self.api.init_cache(self.cfg, b, self.max_len,
+                                       device=self.device)
+        if self.cfg.family not in _CACHE_REUSE_FAMILIES:
+            for leaf in tree.leaves(pooled):
+                leaf.zero_()
+        return pooled
 
     def _return_cache(self, b: int, cache) -> None:
-        if self.cfg.family in _CACHE_REUSE_FAMILIES:
-            self._cache_pool[b] = cache
+        self._cache_pool[b] = cache
 
     def _decode_scan(self, num_steps: int) -> graphs.Program:
         key = (num_steps, None)
@@ -272,9 +278,15 @@ class Server:
         if s + num_tokens > self.max_len:
             raise ValueError(f"prompt {s} + generate {num_tokens} exceeds "
                              f"max_len {self.max_len}")
-        if prefill_chunk is not None and prefill_chunk < 1:
-            raise ValueError(f"prefill_chunk must be >= 1, got "
-                             f"{prefill_chunk}")
+        if prefill_chunk is not None:
+            if prefill_chunk < 1:
+                raise ValueError(f"prefill_chunk must be >= 1, got "
+                                 f"{prefill_chunk}")
+            if self.cfg.family not in PER_LAYER_PLAN_FAMILIES:
+                raise ValueError(
+                    "chunked prefill needs a prefill that takes a "
+                    "cache_pos offset (the transformer's dense/moe "
+                    f"stacks); family {self.cfg.family!r} does not")
         state = (sampling.sample_state(sample, b, self.device)
                  if sample is not None else None)
         cache = self._take_cache(b)

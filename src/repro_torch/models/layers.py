@@ -11,9 +11,14 @@ through ``repro_torch.bridge``.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.kernels.ref import dot
 
@@ -42,6 +47,63 @@ def init_leaf(shape: tuple[int, ...], init: str, dtype: torch.dtype, *,
     w = torch.randn(shape, generator=generator, dtype=torch.float32,
                     device=device)
     return (w * std).to(dtype)
+
+
+def materialize(shapes, dtype: torch.dtype, *, seed: int,
+                device: torch.device):
+    """Draw every leaf of a shape tree (dicts and lists of ``(shape,
+    init)``, or ``(shape, init, leaf_dtype)`` for a leaf the JAX package
+    keeps in its own type) from one seeded ``torch.Generator``, in tree
+    order."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def build(tree):
+        if isinstance(tree, list):
+            return [build(t) for t in tree]
+        if isinstance(tree, dict):
+            return {k: build(v) for k, v in tree.items()}
+        shape, init, *leaf_dtype = tree
+        return init_leaf(shape, init, leaf_dtype[0] if leaf_dtype else dtype,
+                         generator=gen, device=device)
+
+    return build(shapes)
+
+
+def zeros(shapes, device: torch.device):
+    """Zero tensors for a tree of ``(shape, dtype)`` leaves (caches and
+    recurrent states)."""
+    if isinstance(shapes, list):
+        return [zeros(t, device) for t in shapes]
+    if isinstance(shapes, dict):
+        return {k: zeros(v, device) for k, v in shapes.items()}
+    shape, dtype = shapes
+    return torch.zeros(shape, dtype=dtype, device=device)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op is torch.ops.aten.mm.default
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+REMAT = ("full", "dots", "none")
+
+
+def remat_kwargs(cfg) -> dict | None:
+    """``torch.utils.checkpoint`` arguments for ``cfg.remat`` when the
+    forward is differentiated; None when every activation is kept.
+    "full" recomputes a checkpointed layer's activations in the
+    backward; "dots" saves the outputs of its un-batched matrix products
+    (``aten.mm``; the JAX policy ``checkpoint_dots_with_no_batch_dims``)
+    and recomputes the rest."""
+    if cfg.remat not in REMAT:
+        raise ValueError(f"remat must be one of {REMAT}, got {cfg.remat!r}")
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return None
+    kw = {"use_reentrant": False}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)
+    return kw
 
 
 def rms_norm(x: Tensor, weight: Tensor, eps: float = 1e-6) -> Tensor:

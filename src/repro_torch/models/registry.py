@@ -1,7 +1,7 @@
 """Model registry: family -> model API (mirror of
-``repro.models.registry``, for the ported families: dense and moe, both
-the transformer): serving (``prefill``, ``decode_step``) and training
-(``forward``, ``loss``)."""
+``repro.models.registry``, for the ported families): the transformer
+for dense and moe, RWKV6 for ssm, the Mamba2 hybrid for hybrid. Serving
+(``prefill``, ``decode_step``) and training (``forward``, ``loss``)."""
 
 from __future__ import annotations
 
@@ -9,7 +9,7 @@ import dataclasses
 from typing import Callable
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import transformer
+from repro_torch.models import rwkv_model, transformer, zamba
 
 
 @dataclasses.dataclass(frozen=True)
@@ -22,20 +22,30 @@ class ModelApi:
     decode_step: Callable
     forward: Callable
     loss: Callable
-    # decode_step takes a per-row (B,) position vector
+    # decode_step takes a per-row (B,) position vector (the schedulers'
+    # batched segments over unaligned slots need it); the recurrent
+    # stacks carry one state a row and take the batch's one position
     rowwise_decode_pos: bool = False
 
 
-def get_model(cfg: ModelConfig) -> ModelApi:
-    transformer.check_family(cfg)
+def _api(mod, *, rowwise_decode_pos: bool = False) -> ModelApi:
     return ModelApi(
-        param_shapes=transformer.param_shapes,
-        init=transformer.init,
-        cache_shapes=transformer.cache_shapes,
-        init_cache=transformer.init_cache,
-        prefill=transformer.prefill,
-        decode_step=transformer.decode_step,
-        forward=transformer.forward,
-        loss=transformer.loss,
-        rowwise_decode_pos=True,
+        param_shapes=mod.param_shapes,
+        init=mod.init,
+        cache_shapes=mod.cache_shapes,
+        init_cache=mod.init_cache,
+        prefill=mod.prefill,
+        decode_step=mod.decode_step,
+        forward=mod.forward,
+        loss=mod.loss,
+        rowwise_decode_pos=rowwise_decode_pos,
     )
+
+
+def get_model(cfg: ModelConfig) -> ModelApi:
+    if cfg.family == "hybrid":
+        return _api(zamba)
+    if cfg.family == "ssm":
+        return _api(rwkv_model)
+    transformer.check_family(cfg)
+    return _api(transformer, rowwise_decode_pos=True)

@@ -37,11 +37,7 @@ from __future__ import annotations
 import functools
 
 import torch
-from torch.utils.checkpoint import (
-    CheckpointPolicy,
-    checkpoint,
-    create_selective_checkpoint_contexts,
-)
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.function_table import DEFAULT_TABLE
@@ -110,19 +106,8 @@ def param_shapes(cfg: ModelConfig) -> dict:
 def init(cfg: ModelConfig, *, seed: int = 0, device=None) -> dict:
     """Random weights at the JAX package's scales, from a seeded
     ``torch.Generator`` on the target device."""
-    dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
-
-    def build(tree):
-        if isinstance(tree, list):
-            return [build(t) for t in tree]
-        if isinstance(tree, dict):
-            return {k: build(v) for k, v in tree.items()}
-        shape, kind = tree
-        return L.init_leaf(shape, kind, cfg.dtype, generator=gen,
-                           device=dev)
-
-    return build(param_shapes(cfg))
+    return L.materialize(param_shapes(cfg), cfg.dtype, seed=seed,
+                         device=resolve_device(device))
 
 
 def cache_shapes(cfg: ModelConfig, batch: int, max_len: int) -> list:
@@ -133,10 +118,7 @@ def cache_shapes(cfg: ModelConfig, batch: int, max_len: int) -> list:
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                device=None) -> list:
-    dev = resolve_device(device)
-    return [{name: torch.zeros(shape, dtype=dt, device=dev)
-             for name, (shape, dt) in layer.items()}
-            for layer in cache_shapes(cfg, batch, max_len)]
+    return L.zeros(cache_shapes(cfg, batch, max_len), resolve_device(device))
 
 
 def _block(i, p, cfg, x, positions, *, table, cache, cache_pos,
@@ -154,31 +136,9 @@ def _block(i, p, cfg, x, positions, *, table, cache, cache_pos,
         return x + mlp(p["mlp"], cfg, h, table=table)
 
 
-def _save_dots(ctx, op, *args, **kwargs):
-    return (CheckpointPolicy.MUST_SAVE if op is torch.ops.aten.mm.default
-            else CheckpointPolicy.PREFER_RECOMPUTE)
-
-
-REMAT = ("full", "dots", "none")
-
-
-def _remat_kwargs(cfg: ModelConfig) -> dict | None:
-    """``checkpoint`` arguments for ``cfg.remat`` when the forward is
-    differentiated; None when every activation is kept."""
-    if cfg.remat not in REMAT:
-        raise ValueError(f"remat must be one of {REMAT}, got {cfg.remat!r}")
-    if cfg.remat == "none" or not torch.is_grad_enabled():
-        return None
-    kw = {"use_reentrant": False}
-    if cfg.remat == "dots":
-        kw["context_fn"] = functools.partial(
-            create_selective_checkpoint_contexts, _save_dots)
-    return kw
-
-
 def _run_stack(params, cfg, x, positions, *, table, caches=None,
                cache_pos=None, block_tables=None):
-    remat = _remat_kwargs(cfg) if caches is None else None
+    remat = L.remat_kwargs(cfg) if caches is None else None
     for i, p in enumerate(params["layers"]):
         kw = dict(table=table,
                   cache=caches[i] if caches is not None else None,

@@ -40,6 +40,7 @@ from repro_torch.launch.scheduler import (
 )
 from repro_torch.launch.serve import Server
 from repro_torch.models import transformer as T
+from repro_torch.models.registry import get_model
 
 
 class _StandInGraph:
@@ -155,22 +156,30 @@ def test_off_the_card_programs_run_eagerly():
 def test_servers_capture_only_models_without_a_host_sync():
     """No ported model syncs with the host any more (the MoE layer keeps
     its routing on the card), so every config's servers capture on the
-    card and run eagerly on the CPU or under ``disable_capture()``."""
+    card and run eagerly on the CPU or under ``disable_capture()``. The
+    recurrent families (ssm, hybrid) are served by ``Server`` only: both
+    schedulers refuse them, as the JAX package's do."""
     assert not hasattr(graphs, "syncs_with_host")
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
     assert graphs.captures(cuda) and not graphs.captures(cpu)
     with graphs.disable_capture():
         assert not graphs.captures(cuda)
-    assert len(configs.ARCH_IDS) == 6
+    assert len(configs.ARCH_IDS) == 8
     for arch in configs.ARCH_IDS:
         cfg = configs.get_smoke_config(arch)
-        params = T.init(cfg, device="cpu")
+        params = get_model(cfg).init(cfg, device="cpu")
         solo = Server(cfg, params, max_len=32, device="cpu")
-        slots = (ContinuousBatchingServer(cfg, params, device="cpu",
-                                          num_slots=1, max_len=32),
-                 PagedContinuousBatchingServer(cfg, params, device="cpu",
-                                               num_slots=1, max_len=32,
-                                               block_size=8))
+        kw = (dict(device="cpu", num_slots=1, max_len=32),
+              dict(device="cpu", num_slots=1, max_len=32, block_size=8))
+        classes = (ContinuousBatchingServer, PagedContinuousBatchingServer)
+        if cfg.family in ("ssm", "hybrid"):
+            for cls, k in zip(classes, kw):
+                with pytest.raises(ValueError, match="continuous batching"):
+                    cls(cfg, params, **k)
+            slots = ()
+        else:
+            slots = tuple(cls(cfg, params, **k)
+                          for cls, k in zip(classes, kw))
         for srv in (solo, *slots):
             assert srv.captured is False    # the CPU runs eagerly
         for prog in (solo._decode_scan(3),
@@ -321,3 +330,32 @@ def test_capture_with_a_host_sync_raises(cuda):
     assert float(torch.ones(2, device=cuda).sum()) == 2.0
     # and so does its default generator (the broken capture held it)
     assert torch.randn(2, device=cuda).isfinite().all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sample", [None, SP], ids=["greedy", "sampled"])
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "zamba2-7b"])
+def test_recurrent_server_captured_equals_eager(cuda, arch, sample):
+    """The recurrent families at their published widths cut to 2 layers
+    (zamba2-7b to 3: one group of 2 Mamba2 layers and the shared block,
+    and a tail layer): captured == eager bit for bit, and a second
+    ``generate`` of the same batch replays the graph captured on the
+    zeroed state buffer (one capture)."""
+    cfg = configs.get_config(arch)
+    cfg = dataclasses.replace(
+        cfg, use_pallas=True,
+        **(dict(num_layers=3, attn_every=2) if cfg.family == "hybrid"
+           else dict(num_layers=2)))
+    params = get_model(cfg).init(cfg, seed=0, device=cuda)
+    srv = Server(cfg, params, max_len=64, device=cuda)
+    prompts = np.random.RandomState(1).randint(0, cfg.vocab_size, (4, 16))
+    runs = _both(lambda: [srv.generate(prompts, 8, sample=sample)
+                          .tokens.cpu().numpy()])
+    (eager, counts, _), *captured = runs
+    for got, c, _ in captured:
+        np.testing.assert_array_equal(eager[0], got[0], err_msg=arch)
+        assert c == counts, f"{arch}: launches {c} != eager {counts}"
+    want = {"sidebar_gated_mlp": 8} if cfg.family == "hybrid" else {}
+    assert {k: v for k, v in counts.items() if v} == want
+    prog = srv._decode_scans[(7, None)]
+    assert (prog.captures, prog.replays) == (1, 1)
