@@ -46,9 +46,12 @@ exits non-zero):
      ring with one slot) and timed beside the ring at depth 1; the
      gated MLP at 4, 16 and 64 rows of deepseek-7b's and deepseek-v3's
      widths, at 16 and 64 rows of qwen3-14b's (5120 x 17408) and
-     llama3-405b's (16384 x 53248), and at 4 and 512 rows of zamba2-7b's
-     shared block (3584 x 14336) with its route, clusters and D2
-     passes, equal to a second run bit for bit; every case names its
+     llama3-405b's (16384 x 53248), at 4 and 512 rows of zamba2-7b's
+     shared block (3584 x 14336) and at 4 and 64 rows of
+     llama-3.2-vision-90b's (8192 x 28672) with its route, clusters and
+     D2 passes, equal to a second run bit for bit; the serial MLP with
+     gelu at whisper-medium's widths (1024 x 4096) at 4 and 6000 rows
+     (the encoder's 4 x 1500 frames); every case names its
      route ("tc": tensor cores, "fma": CUDA cores);
      ``moe_grouped_mm`` (the MoE layers' expert products) at
      llama4-scout's and deepseek-v3's widths at decode and in a staging
@@ -118,13 +121,13 @@ exits non-zero):
      microbatches of 4096 tokens, remat, AdamW), with the kernels'
      refusal under autograd; (8c) ``Trainer`` at the fp32 smoke size:
      checkpoint, resume, and the uninterrupted run's losses;
-  9. on phase 2's weights: (9a) the static-batch ``Server`` on 4 prompts
+  9. on the first 8 of phase 2's layers (``SIDE_LAYERS``, shared):
+     (9a) the static-batch ``Server`` on 4 prompts
      of 128 tokens, 32 new: ``decode="scan"`` (one graph of the 31
      steps) == ``"loop"`` bit for bit, greedy and sampled (temperature
      0.9, top-k 50, top-p 0.95), temperature 0 and top-k 1 == greedy,
      SIDEBAR_PIPELINED d2 == SIDEBAR, exact ``sidebar_mlp`` launches,
-     ms a decode step scan beside loop; on the first 8 of phase 2's
-     layers (``SIDE_LAYERS``, shared): (9b) the
+     ms a decode step scan beside loop; (9b) the
      slot-cache ``ContinuousBatchingServer`` on phase 2's traffic, every
      other
      request sampled: captured == eager (``disable_capture()``) bit for
@@ -235,7 +238,27 @@ exits non-zero):
      beside loop and the step's bound, TTFT, tokens/s, capture s, peak
      memory, one eager step's device time by op; (16c) both fp32 smoke
      configs: ``Server`` scan == loop and logits within 1e-4 of the
-     same weights' CPU run.
+     same weights' CPU run;
+ 17. the encoder-memory families (bf16 weights from seed 0, the kernels
+     on; one model on the card at a time): (17a) whisper-medium at full
+     width and depth (24 + 24 layers, ~1.5 GB) and (17b)
+     llama-3.2-vision-90b at full width cut from 100 to 10 layers (2
+     groups of 4 dense layers and a cross layer, its tanh gates set to
+     0.5, int8 KV; ~19.8 GB), served by ``Server`` on 4 prompts of 128
+     tokens, 32 new, with ``extra`` frames (4, 1500, 1024) or image
+     embeddings (4, 1600, 8192) from seed 0: ``decode="scan"`` ==
+     ``"loop"`` bit for bit, greedy and sampled, temperature 0 ==
+     greedy, one capture across two ``generate``s, a ``generate`` on new
+     memory (seed 1) replaying that graph and equal to an eager run on
+     it, exact launches (816 ``sidebar_mlp`` for whisper: the server's
+     encode, prefill's own encode and decoder, a decoder layer a step;
+     320 ``sidebar_gated_mlp`` for the VLM), the VLM's logits moving
+     without its images, prefill + 4 decode steps against the no-cache
+     forward on the weights cast to fp32 (2e-3; bf16 printed); ms a
+     decode step scan beside loop and the step's bound, whisper's encode
+     ms, TTFT, tokens/s, capture s, peak memory of each part, one eager
+     step's device time by op; (17c) both fp32 smoke configs with their
+     memory: ``Server`` scan == loop and logits within 1e-4 of the CPU's.
 
 The lines before the last hold the host seconds a phase, then the
 kernel table, then the card's name and power limit; the last line
@@ -276,6 +299,8 @@ V3_MODEL, V3_FF = 7168, 18432         # deepseek-v3-671b's dense layers
 QW_MODEL, QW_FF = 5120, 17408         # qwen3-14b
 L3_MODEL, L3_FF = 16384, 53248        # llama3-405b
 ZB_MODEL, ZB_FF = 3584, 14336         # zamba2-7b's shared block
+WH_MODEL, WH_FF = 1024, 4096          # whisper-medium
+VL_MODEL, VL_FF = 8192, 28672         # llama-3.2-vision-90b
 KERNELS = ("sidebar_mlp", "paged_gqa", "sidebar_mlp_pipelined",
            "sidebar_matmul", "activation", "sidebar_gated_mlp", "paged_mla",
            "flash_attention", "moe_grouped_mm")
@@ -486,6 +511,54 @@ def mlp_ops(seed: int = 0) -> dict:
     del w1, w2
     torch.cuda.empty_cache()
     return main
+
+
+def whisper_mlp_ops(seed: int = 12) -> None:
+    """sidebar_mlp at whisper-medium's widths (1024 x 4096, gelu) in
+    bf16: decode (4 rows) and the encoder's 4 x 1500 frames (6000 rows),
+    on the tc route, against the plain version in fp32 on the same values
+    (2e-2 relative), a second run bit for bit; timed beside the plain
+    version, cuBLAS and the bound."""
+    from repro_torch.core.function_table import DEFAULT_TABLE
+    from repro_torch.kernels import sidebar_mlp as sm
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    gelu = DEFAULT_TABLE.lookup("gelu")
+    w1 = (torch.randn(WH_MODEL, WH_FF, generator=g, device="cuda")
+          / WH_MODEL ** 0.5).bfloat16()
+    w2 = (torch.randn(WH_FF, WH_MODEL, generator=g, device="cuda")
+          / WH_FF ** 0.5).bfloat16()
+    for m in (4, 6000):
+        x = torch.randn(m, WH_MODEL, generator=g, device="cuda").bfloat16()
+        out = sm.sidebar_mlp(x, w1, w2, "gelu")
+        again = sm.sidebar_mlp(x, w1, w2, "gelu")
+        torch.cuda.synchronize()
+        ref = sm.sidebar_mlp_plain(x.float(), w1.float(), w2.float(), "gelu")
+        err, rel = rel_err(out, ref)
+        route = sm.route(x, w1, w2)
+        check(rel <= 2e-2 and route == "tc",
+              f"sidebar_mlp whisper m={m}: route {route}, rel {rel}")
+        check(torch.equal(out, again), f"sidebar_mlp whisper m={m}: runs "
+                                       "differ")
+        iters = 20 if m <= 64 else 10
+        ms = cuda_ms(lambda: sm.sidebar_mlp(x, w1, w2, "gelu"), iters)
+        nbytes = 2 * (x.numel() + w1.numel() + w2.numel() + m * WH_MODEL)
+        ops = 2 * 2 * m * WH_MODEL * WH_FF
+        b_ms, b_by = bound(nbytes, ops, torch.bfloat16)
+        emit({"phase": 1, "op": "sidebar_mlp", "arch": "whisper-medium",
+              "activation": "gelu", "dtype": "bfloat16",
+              "shape": [m, WH_MODEL, WH_FF], "route": route,
+              "plan": dataclasses.asdict(sm.serial_plan(m, WH_FF, route)),
+              "max_abs_err": err, "max_rel_err": rel, "tol": 2e-2,
+              "equal_to_second_run": True, "ms": ms,
+              "ms_over_bound": ms / b_ms,
+              "plain_ms": cuda_ms(lambda: sm.sidebar_mlp_plain(
+                  x, w1, w2, "gelu"), iters),
+              "library_ms": cuda_ms(lambda: gelu(x @ w1) @ w2, iters),
+              "bound_ms": b_ms, "bound_by": b_by})
+        del x, out, again, ref
+    del w1, w2
+    torch.cuda.empty_cache()
 
 
 def _pool_problem(g, *, b, hkv, group, dh, bs, nb, lengths, qdtype,
@@ -981,8 +1054,9 @@ def pipelined_ops(seed: int = 4) -> dict:
 
 def gated_ops(seed: int = 5) -> dict:
     """sidebar_gated_mlp: every MLP launch of deepseek-7b, of
-    deepseek-v3's dense layers, and of zamba2-7b's shared block (decode,
-    and its prefill's 512 rows)."""
+    deepseek-v3's dense layers, of zamba2-7b's shared block (decode, and
+    its prefill's 512 rows) and of llama-3.2-vision-90b (decode, and 64
+    rows)."""
     from repro_torch.kernels import sidebar_gated_mlp as sg
     from repro_torch.kernels import sidebar_mlp as sm
 
@@ -1036,7 +1110,9 @@ def gated_ops(seed: int = 5) -> dict:
                               (4, 16, 64)),
                              ("qwen3-14b", QW_MODEL, QW_FF, (16, 64)),
                              ("llama3-405b", L3_MODEL, L3_FF, (16, 64)),
-                             ("zamba2-7b", ZB_MODEL, ZB_FF, (4, 512))):
+                             ("zamba2-7b", ZB_MODEL, ZB_FF, (4, 512)),
+                             ("llama-3.2-vision-90b", VL_MODEL, VL_FF,
+                              (4, 64))):
         wg, wu = ((torch.randn(d, f, generator=g, device=dev) / d ** 0.5
                    ).bfloat16() for _ in range(2))
         wd = (torch.randn(f, d, generator=g, device=dev) / f ** 0.5
@@ -2888,12 +2964,13 @@ SPEC_SMOKE = dict(num_slots=3, max_len=48, block_size=8, prefill_chunk=8,
 # top-2; queries from 4 hot documents: 4 leads (one a slot), then 8
 # waves of 2 queries, a scheduler step after each
 RAG_BLOCK, RAG_DOCS, RAG_DOC_LEN, RAG_HOT = 16, 2048, 128, 4
-# phases 9b, 9c, 13 and 14 serve this many of phase 2's layers (shared,
-# not copied; fewer when --layers cuts phase 2): their gates hold the
-# host's schedule (admission, preemption, drafts, retrieval) and captured
-# against eager, which depth does not change; at all 32 layers 13 and 14
-# took 300 s, and phase 9 206 s, of a script that is to stay inside half
-# of its 1200 s limit
+# phases 9, 13 and 14 serve this many of phase 2's layers (shared, not
+# copied; fewer when --layers cuts phase 2): their gates hold the host's
+# schedule (admission, preemption, drafts, retrieval), scan against loop
+# and captured against eager, which depth does not change; at all 32
+# layers 13 and 14 took 300 s, and phase 9 206 s (9a alone 125 s with
+# 9b-9c at 8), of a script that is to stay inside half of its 1200 s
+# limit
 SIDE_LAYERS = 8
 RAG_IO_LATENCY = 0.020
 RAG_LEAD_GENS = (72, 64, 56, 48)
@@ -4236,10 +4313,369 @@ def recurrent_smoke(arch: str) -> None:
     check(rel <= 1e-4, f"phase 16c {arch}: logits {rel} off the CPU's")
 
 
+MEMORY_ARCHS = ("whisper-medium", "llama-3.2-vision-90b")
+# llama-3.2-vision-90b at full width cut to 2 of its 20 groups (~17.7 GB
+# of layers and a 2.1 GB table; FULL's 100 layers do not fit one card)
+VLM_LAYERS = 10
+# the cross layers' tanh gates: 0 at init, which hides the cross path
+VLM_GATE = 0.5
+
+
+def _memory(cfg, seed: int, b: int = 4, device="cuda") -> dict:
+    """``Server.generate``'s ``extra`` of an encoder-memory family: the
+    audio frames (b, encoder_seq, D) or the image embeddings (b,
+    num_image_tokens, D), standard normal from ``seed`` in ``cfg.dtype``
+    (drawn on the CPU: the same numbers on either device)."""
+    from repro_torch.data.pipeline import memory_input
+
+    name, t = memory_input(cfg)
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(b, t, cfg.d_model, generator=g)
+    return {name: x.to(device=device, dtype=cfg.dtype)}
+
+
+def _decode_memory(cfg, params, extra: dict):
+    """What a decode step attends: whisper's encoder output, or the image
+    embeddings as they are."""
+    from repro_torch.models import whisper
+
+    if cfg.family == "audio":
+        return whisper.encode(params, cfg, extra["frames"])
+    return extra["image_embeds"]
+
+
+def memory_launches(cfg, steps: int) -> dict:
+    """Exact launches of one ``Server.generate`` with ``steps`` decode
+    steps: whisper's MLP once a layer of the server's encode, prefill's
+    own encode and decoder, and once a decoder layer a step (816 for a
+    generate of 32 at 24 + 24 layers); the VLM's gated MLP once a layer
+    a forward call (the cross layers' included)."""
+    want = dict.fromkeys(KERNELS, 0)
+    if cfg.family == "audio":
+        want["sidebar_mlp"] = (2 * cfg.encoder_layers + cfg.num_layers
+                               + cfg.num_layers * steps)
+    else:
+        want["sidebar_gated_mlp"] = cfg.num_layers * (1 + steps)
+    return want
+
+
+def memory_step_bound(cfg, params, cache, memory, pos: int, b: int) -> dict:
+    """The least time of one decode step at position ``pos``: the
+    decoder's weights read once (whisper's encoder weights are not read
+    by a step), the KV cache read up to ``pos``, the memory read once a
+    cross layer when it exceeds the 50 MB L2 and once otherwise, the
+    logits written; operations: 2 x rows x the weights' elements, and
+    the cross layers' K and V projected from the memory (2 x 2 x memory
+    rows x D x Hkv Dh a layer, as the JAX package recomputes them every
+    step) and attended (2 x 2 x rows x H x T x Dh a layer)."""
+    from repro_torch import tree
+
+    used = ({k: v for k, v in params.items() if k not in ("encoder",
+                                                           "enc_norm")}
+            if cfg.family == "audio" else params)
+    layers = used["decoder"] if cfg.family == "audio" else used["layers"]
+    n_cross = sum("xattn" in layer for layer in layers)
+    welems = sum(t.numel() for t in tree.leaves(used))
+    mem_bytes = memory.numel() * memory.element_size()
+    reads = n_cross if mem_bytes > 50e6 else 1
+    kv = _nbytes(cache) * (pos + 1) / cache[0]["k"].shape[2]
+    nbytes = (_nbytes(used) + kv + reads * mem_bytes
+              + b * params["embed"].shape[0] * 4)
+    t = memory.shape[1]
+    kv_width = cfg.num_kv_heads * cfg.head_dim
+    cross_ops = n_cross * (2 * 2 * memory.shape[0] * t * cfg.d_model
+                           * kv_width
+                           + 2 * 2 * b * cfg.num_heads * t * cfg.head_dim)
+    ms, by = bound(nbytes, 2 * b * welems + cross_ops, torch.bfloat16)
+    return {"bound_ms": ms, "bound_by": by, "bound_gb": nbytes / 1e9,
+            "bound_gflop": (2 * b * welems + cross_ops) / 1e9,
+            "cross_kv_gflop": cross_ops / 1e9,
+            "weights_gb": _nbytes(used) / 1e9, "memory_mb": mem_bytes / 1e6}
+
+
+def memory_vs_forward(cfg, api, params, prompts, extra: dict,
+                      steps: int = 4):
+    """Prefill (reading ``extra``), then ``steps`` greedy decode steps on
+    the memory, against the no-cache ``forward`` of the whole sequence
+    (128 + 4 tokens): the largest error over the largest |logit|, the
+    share of argmax that agree, and the cache, memory and last token
+    (for the step breakdown)."""
+    b, s = prompts.shape
+    extra = {k: v.to(cfg.dtype) for k, v in extra.items()}
+    cache = api.init_cache(cfg, b, 256, device="cuda")
+    with torch.no_grad():
+        toks = torch.as_tensor(prompts, device="cuda")
+        logits, cache = api.prefill(params, cfg, {"tokens": toks, **extra},
+                                    cache)
+        memory = _decode_memory(cfg, params, extra)
+        seq, got = [toks], [logits[:, -1]]
+        for i in range(steps):
+            nxt = torch.argmax(logits[:, -1], -1)[:, None]
+            seq.append(nxt)
+            logits, cache = api.decode_step(params, cfg, nxt, cache, s + i,
+                                            memory=memory)
+            got.append(logits[:, -1])
+        ref = api.forward(params, cfg, {"tokens": torch.cat(seq, 1),
+                                        **extra})[:, s - 1:s + steps]
+        got = torch.stack(got, 1)
+        _, rel = rel_err(got, ref)
+        agree = (got.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    return rel, agree, cache, memory, torch.argmax(logits[:, -1], -1)[:, None]
+
+
+def _fp32_in_place(tree_) -> None:
+    """Every tensor of a tree of dicts and lists replaced by its fp32
+    copy, one at a time (the bf16 leaf is freed as its copy is made)."""
+    items = (tree_.items() if isinstance(tree_, dict)
+             else enumerate(tree_))
+    for key, leaf in list(items):
+        if isinstance(leaf, (dict, list)):
+            _fp32_in_place(leaf)
+        else:
+            tree_[key] = leaf.float()
+
+
+def phase17_server(arch: str, smi: str) -> dict:
+    """17a / 17b: whisper-medium at full width and depth, or
+    llama-3.2-vision-90b at full width and ``VLM_LAYERS`` layers with its
+    cross gates at ``VLM_GATE`` (bf16 weights from seed 0, the kernels
+    on), served by ``Server`` on 4 prompts of 128 seeded tokens, 32 new,
+    max_len 256, with ``extra`` frames or image embeddings from seed 0:
+    ``decode="scan"`` (a graph, replayed by the second ``generate``: one
+    capture) == ``"loop"`` bit for bit, greedy and sampled; temperature
+    0 == greedy; exact launches (``memory_launches``); a ``generate`` on
+    new memory (seed 1) replays the greedy graph and equals an eager run
+    on it; the VLM's logits move with the images; prefill + decode
+    against the no-cache forward on the weights cast to fp32 (2e-3;
+    bf16 printed); ms a decode step scan beside loop and the step's
+    bound, whisper's encode ms, TTFT (a ``generate`` of one token),
+    tokens/s, capture s, peak memory of each part, and one eager step's
+    device time by op."""
+    from repro_torch import configs
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import graphs
+    from repro_torch.launch.sampling import SamplingParams
+    from repro_torch.launch.serve import Server
+    from repro_torch.models import whisper
+    from repro_torch.models.registry import get_model
+
+    cfg = dataclasses.replace(configs.get_config(arch), use_pallas=True)
+    reduced = {}
+    if cfg.family == "vlm":
+        reduced = {"num_layers": f"{cfg.num_layers} -> {VLM_LAYERS}"}
+        cfg = dataclasses.replace(cfg, num_layers=VLM_LAYERS)
+    api = get_model(cfg)
+    part = "17a" if cfg.family == "audio" else "17b"
+    peaks = {}
+    torch.cuda.reset_peak_memory_stats()
+    init_s, params = _timed(lambda: api.init(cfg, seed=0, device="cuda"))
+    for layer in params.get("layers", ()):
+        for gate in ("xattn_gate", "xmlp_gate"):
+            if gate in layer:
+                layer[gate].fill_(VLM_GATE)
+    peaks["init"] = torch.cuda.max_memory_allocated() / 1e9
+    srv = Server(cfg, params, max_len=256, device="cuda")
+    prompts = np.random.RandomState(17).randint(0, cfg.vocab_size, (4, 128))
+    extra, new = _memory(cfg, 0), _memory(cfg, 1)
+    sp = SamplingParams(**SP_KW)
+
+    def gen(n=32, memory=extra, **kw):
+        return srv.generate(prompts, n, memory, **kw).tokens.cpu().numpy()
+
+    want = memory_launches(cfg, 31)
+    out = {}
+    torch.cuda.reset_peak_memory_stats()
+    for name, sample in (("greedy", None), ("sampled", sp)):
+        first = gen(sample=sample)                     # warm-up + capture
+        kops.reset_launch_counts()
+        scan = gen(sample=sample)                      # replay
+        counts = kops.launch_counts()
+        loop = gen(sample=sample, decode="loop")
+        prog = srv._decode_scans[(31, None)]
+        out[name] = scan
+        check(np.array_equal(first, scan) and np.array_equal(scan, loop),
+              f"phase {part} {name}: scan {scan[:, 128:136].tolist()} != "
+              f"loop {loop[:, 128:136].tolist()}")
+        check(counts == want, f"phase {part} {name}: launches {counts} != "
+                              f"{want}")
+        if name == "greedy":
+            check(prog.captures == 1 and prog.replays == 1,
+                  f"phase {part}: a second generate did not replay "
+                  f"({prog.captures} captures, {prog.replays} replays)")
+            # new memory: the same graph replays on it, as eager does
+            kops.reset_launch_counts()
+            replayed = gen(memory=new)
+            new_counts = kops.launch_counts()
+            with graphs.disable_capture():
+                eager = gen(memory=new)
+            check(np.array_equal(replayed, eager),
+                  f"phase {part}: new memory, captured "
+                  f"{replayed[:, 128:136].tolist()} != eager "
+                  f"{eager[:, 128:136].tolist()}")
+            check(prog.captures == 1 and prog.replays == 2,
+                  f"phase {part}: new memory did not replay "
+                  f"({prog.captures} captures, {prog.replays} replays)")
+            check(new_counts == want, f"phase {part}: launches on new "
+                                      f"memory {new_counts} != {want}")
+            new_differs = int((replayed != scan).sum())
+    t0 = gen(sample=dataclasses.replace(sp, temperature=0.0, seed=3))
+    check(np.array_equal(t0, out["greedy"]),
+          f"phase {part}: temperature 0 != greedy")
+    check(not np.array_equal(out["sampled"], out["greedy"]),
+          f"phase {part}: sampled tokens equal greedy everywhere")
+    check(prog.captures == 2, f"phase {part}: {prog.captures} captures "
+                              "(greedy, sampled)")
+    peaks["serve"] = torch.cuda.max_memory_allocated() / 1e9
+    # ms a decode step: (generate(32) - generate(1)) / 31, L S S L
+    times = {"scan": [], "loop": []}
+    full_s, ttft_s = [], []
+    for decode in ("loop", "scan", "scan", "loop"):
+        full, _ = _timed(lambda: srv.generate(prompts, 32, extra,
+                                              decode=decode))
+        pre, _ = _timed(lambda: srv.generate(prompts, 1, extra,
+                                             decode=decode))
+        times[decode].append((full - pre) / 31 * 1e3)
+        ttft_s.append(pre)
+        if decode == "scan":
+            full_s.append(full)
+    encode_ms = None
+    if cfg.family == "audio":
+        with torch.no_grad():
+            encode_ms = cuda_ms(lambda: whisper.encode(
+                params, cfg, extra["frames"]), iters=5, warmup=1)
+    graph = {"captured": srv.captured, "captures": prog.captures,
+             "replays": prog.replays, "capture_s": prog.capture_s}
+    del srv, prog
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rel, agree, cache, memory, nxt = memory_vs_forward(cfg, api, params,
+                                                       prompts, extra)
+    image_rel = None
+    if cfg.family == "vlm":
+        # the cross path is live: the logits move without the images
+        with torch.no_grad():
+            bare = api.init_cache(cfg, 4, 256, device="cuda")
+            toks = torch.as_tensor(prompts, device="cuda")
+            with_img, _ = api.prefill(params, cfg, {"tokens": toks, **extra},
+                                      bare)
+            without, _ = api.prefill(params, cfg, {"tokens": toks}, bare)
+            _, image_rel = rel_err(without, with_img)
+        del bare
+        check(image_rel > 1e-2, f"phase {part}: the logits without images "
+                                f"are within {image_rel} of those with them")
+    with torch.no_grad():
+        breakdown = loop_breakdown(lambda: api.decode_step(
+            params, cfg, nxt, cache, 132, memory=memory), 1)
+    bnd = memory_step_bound(cfg, params, cache, memory, 144, 4)
+    peaks["forward"] = torch.cuda.max_memory_allocated() / 1e9
+    del cache, memory
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the same comparison on the weights cast to fp32 (the bf16 copy
+    # freed leaf by leaf), the KV cache in fp32
+    torch.cuda.reset_peak_memory_stats()
+    f32 = dataclasses.replace(cfg, dtype=torch.float32,
+                              kv_cache_dtype=torch.float32)
+    _fp32_in_place(params)
+    rel32, agree32, *_ = memory_vs_forward(f32, api, params, prompts, extra)
+    peaks["forward_fp32"] = torch.cuda.max_memory_allocated() / 1e9
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(rel32 <= RECURRENT_FP32_TOL,
+          f"phase {part}: fp32 prefill + decode against forward: rel "
+          f"{rel32}")
+    scan_ms = float(np.median(times["scan"]))
+    row = {"phase": 17, "part": part, "arch": cfg.arch_id,
+           "nvidia_smi": smi, "reduced": reduced,
+           "layers": cfg.num_layers, "encoder_layers": cfg.encoder_layers,
+           "d_model": cfg.d_model, "dtype": "bfloat16",
+           "kv_cache_dtype": str(cfg.kv_cache_dtype).split(".")[-1],
+           "memory": {k: list(v.shape) for k, v in extra.items()},
+           "gates": VLM_GATE if cfg.family == "vlm" else None,
+           "init_s": init_s, "batch": 4, "prompt": 128, "gen": 32,
+           "max_len": 256, "scan_equals_loop": True,
+           "greedy_equals_t0": True,
+           "sampled_differs_from_greedy": int(
+               (out["sampled"] != out["greedy"]).sum()),
+           "new_memory_replayed_equals_eager": True,
+           "new_memory_tokens_differ": new_differs,
+           "launches": {k: v for k, v in want.items() if v},
+           "logits_without_memory_rel_diff": image_rel,
+           "forward_fp32_max_rel_err": rel32,
+           "forward_fp32_tol": RECURRENT_FP32_TOL,
+           "forward_fp32_argmax_agree": agree32,
+           "forward_bf16_max_rel_err": rel, "forward_bf16_argmax_agree": agree,
+           **graph, "order": "L S S L",
+           "step_ms_scan": times["scan"], "step_ms_loop": times["loop"],
+           "step_ms_scan_median": scan_ms,
+           "step_ms_loop_median": float(np.median(times["loop"])),
+           **bnd, "scan_ms_over_bound": scan_ms / bnd["bound_ms"],
+           "encode_ms": encode_ms,
+           "ttft_s_median": float(np.median(ttft_s)),
+           "tokens_per_s": 4 * 32 / float(np.median(full_s)),
+           "peak_mem_gb": peaks,
+           "device_ms_per_step_by_kernel": breakdown}
+    emit(row)
+    return row
+
+
+def memory_smoke(arch: str) -> None:
+    """17c: the fp32 smoke config (kernels on; the VLM's gates at
+    ``VLM_GATE``) on the card, its weights drawn on the CPU from seed 0
+    and copied, the memory from seed 0: ``Server`` scan == loop bit for
+    bit, and the prefill and 3 decode steps' logits (on the CPU's
+    tokens) within 1e-4 of the CPU's, relative to the largest |logit|."""
+    from repro_torch import configs, tree
+    from repro_torch.launch.serve import Server
+    from repro_torch.models.registry import get_model
+
+    cfg = dataclasses.replace(configs.get_smoke_config(arch),
+                              use_pallas=True)
+    api = get_model(cfg)
+    cpu_params = api.init(cfg, seed=0, device="cpu")
+    for layer in cpu_params.get("layers", ()):
+        for gate in ("xattn_gate", "xmlp_gate"):
+            if gate in layer:
+                layer[gate].fill_(VLM_GATE)
+    params = tree.map_leaves(lambda t: t.cuda(), cpu_params)
+    prompts = np.random.RandomState(17).randint(0, cfg.vocab_size, (2, 12))
+    extra = {dev: _memory(cfg, 0, b=2, device=dev) for dev in ("cuda",
+                                                                "cpu")}
+    srv = Server(cfg, params, max_len=32, device="cuda")
+    scan = srv.generate(prompts, 8, extra["cuda"]).tokens.cpu()
+    loop = srv.generate(prompts, 8, extra["cuda"], decode="loop"
+                        ).tokens.cpu()
+    cpu = Server(cfg, cpu_params, max_len=32, device="cpu").generate(
+        prompts, 8, extra["cpu"]).tokens
+    check(torch.equal(scan, loop), f"phase 17c {arch}: scan != loop")
+    errs = []
+    for dev, p in (("cuda", params), ("cpu", cpu_params)):
+        cache = api.init_cache(cfg, 2, 32, device=dev)
+        with torch.no_grad():
+            lg, cache = api.prefill(p, cfg, {
+                "tokens": cpu[:, :12].long().to(dev), **extra[dev]}, cache)
+            memory = _decode_memory(cfg, p, extra[dev])
+            seq = [lg[:, -1].cpu()]
+            for i in range(3):
+                lg, cache = api.decode_step(
+                    p, cfg, cpu[:, 12 + i:13 + i].long().to(dev), cache,
+                    12 + i, memory=memory)
+                seq.append(lg[:, -1].cpu())
+        errs.append(torch.stack(seq, 1))
+    _, rel = rel_err(errs[0], errs[1])
+    emit({"phase": 17, "part": "17c", "arch": cfg.arch_id,
+          "dtype": "float32", "scan_equals_loop": True,
+          "tokens_equal_cpu": bool(torch.equal(scan, cpu)),
+          "logits_max_rel_err_vs_cpu": rel, "tol": 1e-4})
+    check(rel <= 1e-4, f"phase 17c {arch}: logits {rel} off the CPU's")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default="0,1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16",
+                    default="0,1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17",
                     help="comma-separated subset of phases to run")
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the depth of the full-width phases 2, 5, "
@@ -4296,6 +4732,7 @@ def main() -> None:
     rows = {}
     if 1 in phases:
         rows["sidebar_mlp"] = mlp_ops()
+        whisper_mlp_ops()
         rows["paged_gqa"] = paged_ops()
         rows["sidebar_mlp_pipelined"] = pipelined_ops()
         rows["sidebar_matmul"] = matmul_ops()
@@ -4323,9 +4760,15 @@ def main() -> None:
             lap("5")
         side = shallow_draft(cfg, params, min(SIDE_LAYERS, cfg.num_layers))
         if 9 in phases:
-            phase9_server(cfg, params)
+            t9 = time.perf_counter()
+            phase9_server(*side)
+            t9a = time.perf_counter()
             phase9_slots(*side)
+            t9b = time.perf_counter()
             phase9_paged(*side)
+            emit({"phase": 9, "host_s": {
+                "9a": t9a - t9, "9b": t9b - t9a,
+                "9c": time.perf_counter() - t9b}})
             lap("9")
         if 13 in phases:
             t13 = time.perf_counter()
@@ -4446,6 +4889,20 @@ def main() -> None:
         host_s["16c"] = time.perf_counter() - t16
         emit({"phase": 16, "host_s": host_s})
         lap("16")
+    if 17 in phases:
+        t17 = time.perf_counter()
+        host_s = {}
+        for arch in MEMORY_ARCHS:
+            row = phase17_server(arch, smi)
+            host_s[row["part"]] = time.perf_counter() - t17
+            t17 = time.perf_counter()
+            gc.collect()
+            torch.cuda.empty_cache()
+        for arch in MEMORY_ARCHS:
+            memory_smoke(arch)
+        host_s["17c"] = time.perf_counter() - t17
+        emit({"phase": 17, "host_s": host_s})
+        lap("17")
     # launches: the drain of the main path (phase 2), of the mode (phase
     # 5) or of the model (phases 6, 7 and 12) that runs the kernel
     run_of = {"sidebar_mlp": "sidebar", "paged_gqa": "sidebar",

@@ -5,10 +5,16 @@ scan (``repro.models.layers.stack_specs``): ``params["blocks"]["dense"]
 [name]`` has shape (L_dense, ...) and ``params["blocks"]["moe"][name]``
 (L_moe, ...), dense layers first (``_layer_plan``); the cache is
 ``{"dense": {"k": (L, B, Hkv, T, Dh), ...}, "moe": {...}}`` (MLA leaves:
-``c_kv`` (L, B, T, kvr), ``k_rope`` (L, B, T, rope)). The port keeps one
-list of per-layer dicts in layer order. The input here is that tree with
-every leaf already a numpy array (``jax.tree.map(np.asarray, tree)``) —
-this module imports no JAX.
+``c_kv`` (L, B, T, kvr), ``k_rope`` (L, B, T, rope)). The VLM nests its
+groups as ``blocks["vlm_group"]`` = {"self": (G, n_self, ...) stacks,
+"cross": (G, ...) stacks}, and its cache alike. The port keeps one list
+of per-layer dicts in layer order (a group's self layers, then its cross
+layer). The input here is that tree with every leaf already a numpy
+array (``jax.tree.map(np.asarray, tree)``) — this module imports no JAX.
+
+Whisper stacks its ``encoder`` and ``decoder`` layers on a leading L
+axis beside ``embed``, ``enc_norm`` and ``dec_norm``; the port keeps two
+lists (``models.whisper``), and its decoder cache is the dense one.
 
 The recurrent families: RWKV6 stacks its layers under ``blocks`` and
 its state ``{"wkv", "shift_tm", "shift_cm"}`` on a leading L axis; the
@@ -46,6 +52,8 @@ def _layer(tree, i: int, device):
 
 # the JAX package's stack names, in layer order
 KINDS = ("dense", "moe")
+# the VLM's nested stack: [G] groups of n_self dense layers + one cross
+VLM_GROUP = "vlm_group"
 
 
 def _depth(tree) -> int:
@@ -56,17 +64,24 @@ def _depth(tree) -> int:
 
 
 def _unstack(stacks: dict, device) -> list:
-    return [_layer(stacks[kind], i, device)
-            for kind in KINDS if kind in stacks
-            for i in range(_depth(stacks[kind]))]
+    layers = [_layer(stacks[kind], i, device)
+              for kind in KINDS if kind in stacks
+              for i in range(_depth(stacks[kind]))]
+    group = stacks.get(VLM_GROUP)
+    if group is not None:
+        for g in range(_depth(group["cross"])):
+            own = _map(group["self"], lambda a: np.asarray(a)[g])
+            layers += [_layer(own, j, device) for j in range(_depth(own))]
+            layers.append(_layer(group["cross"], g, device))
+    return layers
 
 
 def params_from_jax(params: dict, device=None) -> dict:
-    """JAX transformer params (numpy leaves; dense and/or moe stacks) ->
-    the port's, on ``device`` (``cuda`` unless the caller asks for
-    another, as every entry point of the port)."""
+    """JAX transformer params (numpy leaves; dense and/or moe stacks, or
+    the VLM's groups) -> the port's, on ``device`` (``cuda`` unless the
+    caller asks for another, as every entry point of the port)."""
     device = resolve_device(device)
-    unknown = set(params["blocks"]) - set(KINDS)
+    unknown = set(params["blocks"]) - set(KINDS) - {VLM_GROUP}
     if unknown:
         raise NotImplementedError(f"layer stacks {sorted(unknown)} are not "
                                   "ported")
@@ -93,8 +108,15 @@ def _host(t) -> np.ndarray:
 def cache_to_numpy(cache: list, kinds: list[str] | None = None) -> dict:
     """The port's per-layer cache -> the JAX layout as numpy, for
     comparisons (bf16 leaves as fp32). ``kinds`` names each layer's
-    stack (``transformer.layer_kinds``); default: all dense."""
+    kind (``transformer.layer_kinds``: "cross" ends a VLM group);
+    default: all dense."""
     kinds = kinds if kinds is not None else ["dense"] * len(cache)
+    if "cross" in kinds:
+        per = kinds.index("cross") + 1
+        groups = [cache[g:g + per] for g in range(0, len(cache), per)]
+        return {VLM_GROUP: {
+            "self": _stack([_stack(grp[:-1]) for grp in groups]),
+            "cross": _stack([grp[-1] for grp in groups])}}
     out = {}
     for kind in KINDS:
         layers = [layer for layer, k in zip(cache, kinds) if k == kind]
@@ -196,6 +218,29 @@ def state_to_numpy(state):
     if isinstance(state, dict):
         return {k: state_to_numpy(v) for k, v in state.items()}
     return _stack(state)
+
+
+def whisper_params_from_jax(params: dict, device=None) -> dict:
+    """JAX whisper params (numpy leaves) -> the port's: the ``encoder``
+    and ``decoder`` stacks unstacked into lists in layer order. On
+    ``device`` (``cuda`` unless asked otherwise)."""
+    device = resolve_device(device)
+    out = {name: _tensor(params[name], device)
+           for name in ("embed", "enc_norm", "dec_norm")}
+    for stack in ("encoder", "decoder"):
+        out[stack] = [_layer(params[stack], i, device)
+                      for i in range(_depth(params[stack]))]
+    return out
+
+
+def whisper_params_to_numpy(params: dict) -> dict:
+    """The port's whisper params -> the JAX layout as numpy (bf16 leaves
+    as fp32)."""
+    out = {name: _host(params[name])
+           for name in ("embed", "enc_norm", "dec_norm")}
+    for stack in ("encoder", "decoder"):
+        out[stack] = _stack(params[stack])
+    return out
 
 
 def lenet_params_from_jax(params: dict, device=None) -> dict:

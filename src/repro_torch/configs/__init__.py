@@ -1,10 +1,11 @@
-"""Config registry for the architectures the port serves so far."""
+"""Config registry for the architectures the port serves."""
 
 from __future__ import annotations
 
 from repro_torch.configs import (deepseek_7b, deepseek_v3_671b,
                                  llama3_405b, llama4_scout_17b,
-                                 nemotron_4_15b, qwen3_14b, rwkv6_7b,
+                                 llama32_vision_90b, nemotron_4_15b,
+                                 qwen3_14b, rwkv6_7b, whisper_medium,
                                  zamba2_7b)
 from repro_torch.configs.base import ModelConfig
 
@@ -17,6 +18,8 @@ _MODULES = {
     "llama4-scout-17b-a16e": llama4_scout_17b,
     "rwkv6-7b": rwkv6_7b,
     "zamba2-7b": zamba2_7b,
+    "whisper-medium": whisper_medium,
+    "llama-3.2-vision-90b": llama32_vision_90b,
 }
 
 ARCH_IDS = tuple(_MODULES)

@@ -3,9 +3,9 @@
 
 Only the fields the ported paths read are kept: the dense GQA family
 (qk-norm included), the MoE family (GQA or MLA attention), RWKV6
-(``ssm``) and the Mamba2 hybrid with its shared attention block
-(``hybrid``). The JAX config's audio and VLM fields come with the
-slices that port those families.
+(``ssm``), the Mamba2 hybrid with its shared attention block
+(``hybrid``), the whisper encoder-decoder (``audio``) and the
+transformer with gated cross-attention blocks (``vlm``).
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     arch_id: str
-    family: str                    # dense | moe | ssm | hybrid (ported)
+    family: str                    # dense | moe | ssm | hybrid | audio | vlm
     num_layers: int
     d_model: int
     num_heads: int
@@ -58,6 +58,14 @@ class ModelConfig:
     # RWKV6
     rwkv_head_dim: int = 64
 
+    # encoder-decoder (whisper)
+    encoder_layers: int = 0
+    encoder_seq: int = 0           # fixed frame count (1500 for whisper)
+
+    # VLM
+    cross_attn_every: int = 0      # every Nth layer is a cross-attn block
+    num_image_tokens: int = 0
+
     # numerics
     dtype: torch.dtype = torch.bfloat16
     rope_theta: float = 10000.0
@@ -86,6 +94,10 @@ class ModelConfig:
         """Whether the state is O(1) in sequence length outside attention
         (the recurrent families)."""
         return self.family in ("ssm", "hybrid")
+
+    @property
+    def is_encoder_decoder(self) -> bool:
+        return self.encoder_layers > 0
 
 
 @dataclasses.dataclass(frozen=True)

@@ -20,6 +20,14 @@ name or an ``ExecutionPlan`` (uniform or per layer; every layer runs
 under its ``layer_scope``, so a per-layer plan reaches the kernels). Its
 default mode must be SIDEBAR or SIDEBAR_PIPELINED, as in the JAX
 package.
+
+Encoder memory (``Server.generate(extra=...)``, as the JAX server): the
+audio family's memory is ``whisper.encode`` of ``extra["frames"]``, the
+VLM's is ``extra["image_embeds"]``; other families ignore ``extra``. The
+prefill gets the whole batch (tokens and ``extra``), each decode step
+the memory. A captured scan takes the memory as an input, copied into
+its static buffer at every replay, so a later ``generate`` with new
+frames or images replays the graph on them.
 """
 
 from __future__ import annotations
@@ -43,14 +51,16 @@ from repro_torch.kernels import ops as kops
 from repro_torch.launch import graphs, sampling
 from repro_torch.launch.sampling import SamplingParams
 from repro_torch.models import layers as L
+from repro_torch.models import whisper
 from repro_torch.models.registry import ModelApi, get_model
 
 # Families whose caches are pure position-masked KV: a reused buffer's
 # stale tail is invisible (decode attends kpos <= pos), so prefill can
 # overwrite in place. The recurrent families (ssm, hybrid) integrate
-# unmasked state: their pooled buffer is zeroed before each request,
-# the JAX server's fresh zero cache at the same addresses, so a
-# captured decode graph replays on it.
+# unmasked state, and the JAX server gives them and the audio decoder a
+# fresh zero cache: their pooled buffer is zeroed before each request,
+# that zero cache at the same addresses, so a captured decode graph
+# replays on it.
 _CACHE_REUSE_FAMILIES = ("dense", "moe", "vlm")
 
 # Families whose layer stack runs every layer under kops.layer_scope —
@@ -61,22 +71,22 @@ PER_LAYER_PLAN_FAMILIES = ("dense", "moe")
 # features of the JAX servers that are not ported, by ROADMAP item
 UNPORTED = {
     "mesh": "tensor parallelism (ROADMAP Queue 1 item 6)",
-    "memory": "encoder memory for the audio and VLM families (ROADMAP "
-              "Queue 1 item 8)",
 }
 
 
 def make_serve_step(cfg: ModelConfig, api: ModelApi):
     """decode one token: (params, tokens (B, 1), cache, pos[, sample,
-    block_tables]) -> (next tokens (B, 1) int32, cache). ``pos`` is an
-    int or a per-row (B,) tensor; the token emitted sits at ``pos + 1``
-    and is keyed there. ``block_tables`` makes ``cache`` the paged pool,
-    decoded in place."""
+    block_tables, memory]) -> (next tokens (B, 1) int32, cache). ``pos``
+    is an int or a per-row (B,) tensor; the token emitted sits at ``pos +
+    1`` and is keyed there. ``block_tables`` makes ``cache`` the paged
+    pool, decoded in place. ``memory`` is the encoder output or the image
+    embeddings (B, T, D) the step attends."""
 
     def serve_step(params, tokens, cache, pos, sample=None,
-                   block_tables=None):
+                   block_tables=None, memory=None):
+        kw = {} if memory is None else {"memory": memory}
         logits, cache = api.decode_step(params, cfg, tokens, cache, pos,
-                                        block_tables=block_tables)
+                                        block_tables=block_tables, **kw)
         logits = L.mask_pad_logits(logits, cfg.vocab_size)
         nxt = sampling.sample_tokens(logits[:, -1, :], sample, pos + 1)
         return nxt[:, None], cache
@@ -134,17 +144,19 @@ def make_verify_step(cfg: ModelConfig, api: ModelApi):
 def make_decode_scan(cfg: ModelConfig, api: ModelApi,
                      num_steps: int) -> Callable:
     """``num_steps`` decode steps as one program:
-    ``decode_scan(params, tok (B, 1), cache, pos, sample=None) ->
-    (tokens (B, num_steps) int32, cache)``; ``pos`` (int or (B,)) is the
-    first step's position. Sampling keys fold (request key, position)
-    inside each step, so the scan matches the loop decode."""
+    ``decode_scan(params, tok (B, 1), cache, pos, sample=None,
+    memory=None) -> (tokens (B, num_steps) int32, cache)``; ``pos`` (int
+    or (B,)) is the first step's position. Sampling keys fold (request
+    key, position) inside each step, so the scan matches the loop
+    decode."""
     step = make_serve_step(cfg, api)
 
-    def decode_scan(params, tok, cache, pos, sample=None):
+    def decode_scan(params, tok, cache, pos, sample=None, memory=None):
         buf = torch.empty((tok.shape[0], num_steps), dtype=torch.int32,
                           device=tok.device)
         for i in range(num_steps):
-            nxt, cache = step(params, tok, cache, pos + i, sample)
+            nxt, cache = step(params, tok, cache, pos + i, sample,
+                              memory=memory)
             buf[:, i] = nxt[:, 0]
             tok = nxt.long()
         return buf, cache
@@ -220,9 +232,9 @@ class Server:
 
     # -- KV-cache pooling --------------------------------------------------
     def _take_cache(self, b: int):
-        """The pooled (B, max_len) cache, zeroed first for a recurrent
-        family (whose prefill and decode write it in place); a new one
-        at a batch size's first request."""
+        """The pooled (B, max_len) cache, zeroed first for a family
+        outside ``_CACHE_REUSE_FAMILIES`` (whose prefill and decode write
+        it in place); a new one at a batch size's first request."""
         pooled = self._cache_pool.pop(b, None)
         if pooled is None:
             return self.api.init_cache(self.cfg, b, self.max_len,
@@ -241,9 +253,9 @@ class Server:
         if prog is None:
             scan = make_decode_scan(self.cfg, self.api, num_steps)
 
-            def run(fixed, tok, pos, sample):
+            def run(fixed, tok, pos, sample, memory):
                 params, cache = fixed
-                return scan(params, tok, cache, pos, sample)[0]
+                return scan(params, tok, cache, pos, sample, memory)[0]
 
             prog = self._decode_scans[key] = graphs.Program(
                 run, device=self.device, pool=self._pool)
@@ -255,6 +267,9 @@ class Server:
                  sample: SamplingParams | None = None,
                  prefill_chunk: int | None = None) -> ServeResult:
         """prompts (B, S) int — one bucket; decode ``num_tokens``.
+        ``extra`` holds the audio family's ``frames`` (B, T_enc, D) or
+        the VLM's ``image_embeds`` (B, T_img, D), moved to the server's
+        device; the other families ignore it, as the JAX server does.
 
         ``decode="scan"`` runs the steps as one program (a CUDA graph on
         the card), ``"loop"`` one eager step a token: token for token
@@ -268,9 +283,6 @@ class Server:
         if decode not in ("scan", "loop"):
             raise ValueError(f"decode must be 'scan' or 'loop', got "
                              f"{decode!r}")
-        if extra is not None:
-            raise NotImplementedError(f"not ported yet: extra= "
-                                      f"({UNPORTED['memory']})")
         prompts = torch.as_tensor(np.array(prompts, np.int64)
                                   if isinstance(prompts, np.ndarray)
                                   else prompts).to(self.device).long()
@@ -290,15 +302,24 @@ class Server:
         state = (sampling.sample_state(sample, b, self.device)
                  if sample is not None else None)
         cache = self._take_cache(b)
+        batch = {"tokens": prompts, **{
+            k: None if v is None else torch.as_tensor(v).to(self.device)
+            for k, v in (extra or {}).items()}}
         with kops.execution_plan(self.plan):
+            memory = None
+            if self.cfg.family == "audio":
+                memory = whisper.encode(self.params, self.cfg,
+                                        batch["frames"])
+            elif self.cfg.family == "vlm":
+                memory = batch.get("image_embeds")
             if prefill_chunk is not None and s > prefill_chunk:
                 for c0 in range(0, s, prefill_chunk):
-                    chunk = {"tokens": prompts[:, c0:c0 + prefill_chunk]}
+                    chunk = dict(batch,
+                                 tokens=prompts[:, c0:c0 + prefill_chunk])
                     nxt, cache = self._prefill(self.params, chunk, cache,
                                                state, c0)
             else:
-                nxt, cache = self._prefill(self.params, {"tokens": prompts},
-                                           cache, state)
+                nxt, cache = self._prefill(self.params, batch, cache, state)
             pieces = [prompts.to(torch.int32), nxt]
             steps = num_tokens - 1
             if steps > 0 and decode == "scan":
@@ -306,11 +327,11 @@ class Server:
                                  device=self.device)
                 pieces.append(self._decode_scan(steps)(
                     (self.params, cache), tok=nxt.long(), pos=pos,
-                    sample=state))
+                    sample=state, memory=memory))
             elif steps > 0:
                 for i in range(steps):
                     nxt, cache = self._decode(self.params, nxt.long(), cache,
-                                              s + i, state)
+                                              s + i, state, memory=memory)
                     pieces.append(nxt)
         self._return_cache(b, cache)
         return ServeResult(tokens=torch.cat(pieces, dim=1), prompt_len=s,

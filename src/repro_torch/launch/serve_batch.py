@@ -2,7 +2,10 @@
 ``examples/serve_batch.py``), on the card unless ``--device cpu``.
 
 Static-batch mode: prefill once, then decode N tokens as one captured
-program (``--decode loop`` keeps one eager step a token).
+program (``--decode loop`` keeps one eager step a token). The audio and
+VLM families (``--arch whisper-medium``, ``llama-3.2-vision-90b``) get
+seeded standard-normal ``frames`` or ``image_embeds`` as ``extra``;
+only this mode serves them.
 ``--pipeline-depths 2,4`` builds a per-layer ``ExecutionPlan`` (layer i
 gets depth[i % len]).
 
@@ -40,6 +43,7 @@ at the smoke size of ``--arch``.
 Run: python -m repro_torch.launch.serve_batch --arch nemotron-4-15b \\
          --batch 4 --prompt-len 32 --gen 16 \\
          --execution-mode sidebar_pipelined --pipeline-depth 4
+     python -m repro_torch.launch.serve_batch --arch whisper-medium
      python -m repro_torch.launch.serve_batch --continuous --paged \\
          --requests 8 --slots 4 --segment 8 --temperature 0.8
      python -m repro_torch.launch.serve_batch --continuous --paged \\
@@ -60,6 +64,7 @@ import torch
 
 from repro_torch import configs as cfglib
 from repro_torch.core.modes import ExecutionMode, ExecutionPlan, LayerPlan
+from repro_torch.data.pipeline import memory_input
 from repro_torch.device import resolve_device
 from repro_torch.launch.faults import FaultInjector
 from repro_torch.launch.sampling import SamplingParams
@@ -137,8 +142,23 @@ def build_plan(args, cfg):
                      depth=args.pipeline_depth)
 
 
+def build_extra(args, cfg, device) -> dict:
+    """The encoder input of the audio and VLM families: ``frames``
+    (batch, encoder_seq, D) or ``image_embeds`` (batch, num_image_tokens,
+    D), standard normal from seed 2 in ``cfg.dtype``; nothing for the
+    other families."""
+    memory = memory_input(cfg)
+    if memory is None:
+        return {}
+    name, t = memory
+    x = np.random.RandomState(2).standard_normal(
+        (args.batch, t, cfg.d_model)).astype(np.float32)
+    return {name: torch.from_numpy(x).to(device=device, dtype=cfg.dtype)}
+
+
 def run_static(args, cfg, params, plan, device) -> None:
     sample = build_sampling(args)
+    extra = build_extra(args, cfg, device)
     server = Server(cfg, params, max_len=args.prompt_len + args.gen,
                     plan=plan, device=device)
     print(f"arch={cfg.arch_id}, batch={args.batch}, prompt="
@@ -149,11 +169,12 @@ def run_static(args, cfg, params, plan, device) -> None:
         0, cfg.vocab_size, (args.batch, args.prompt_len))
     # the first call builds (and, on the card, captures) the program;
     # the timed one replays it
-    server.generate(prompts, args.gen, decode=args.decode, sample=sample)
+    server.generate(prompts, args.gen, extra, decode=args.decode,
+                    sample=sample)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     t0 = time.perf_counter()
-    result = server.generate(prompts, args.gen, decode=args.decode,
+    result = server.generate(prompts, args.gen, extra, decode=args.decode,
                              sample=sample)
     tokens = result.tokens.cpu()
     dt = time.perf_counter() - t0

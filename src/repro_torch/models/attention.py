@@ -33,6 +33,12 @@ a multiple of it — the chunked form whose peak logits are O(CHUNK_Q x T)
 all of k otherwise: the JAX module's unrolled and scanned forms). The
 JAX module reads ``REPRO_ATTN_CHUNK_Q``/``REPRO_ATTN_UNROLL``; the port
 keeps their defaults as module constants.
+
+Cross-attention (``gqa_attention(memory=)``, whisper's decoder and the
+VLM's gated blocks): K and V are projected from the encoder or image
+``memory`` (B, T, D) at every call, as in the JAX module; no rope, no
+cache write, and the attend is non-causal (whisper's encoder passes
+``causal=False`` itself).
 """
 
 from __future__ import annotations
@@ -210,14 +216,14 @@ def _decode_lengths(cache_pos, b: int, device) -> Tensor:
     return (pos.expand(b) + 1).to(torch.int32).contiguous()
 
 
-def _attend(q: Tensor, k: Tensor, v: Tensor, *, cfg: ModelConfig,
-            offset=None) -> Tensor:
-    """Causal q (B, H, S, Dh) against k/v (B, Hkv, T, Dh): flash,
-    chunked or direct. ``offset`` is the global position of query row 0,
-    scalar or per row (B,); None — the cache-free forward — puts the
-    queries at the sequence end (T - S), the only static offset. A
-    prefill with a cache always passes its ``cache_pos`` (the JAX
-    package's is a traced int32), so it never reaches the kernel."""
+def _attend(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
+            cfg: ModelConfig, offset=None) -> Tensor:
+    """q (B, H, S, Dh) against k/v (B, Hkv, T, Dh): flash, chunked or
+    direct. ``offset`` is the global position of query row 0, scalar or
+    per row (B,); None — the cache-free forward — puts the queries at the
+    sequence end (T - S), the only static offset. A prefill with a cache
+    always passes its ``cache_pos`` (the JAX package's is a traced
+    int32), so it never reaches the kernel."""
     s, dh = q.shape[2], q.shape[3]
     t = k.shape[2]
     static = offset is None
@@ -225,12 +231,12 @@ def _attend(q: Tensor, k: Tensor, v: Tensor, *, cfg: ModelConfig,
         offset = t - s
     if cfg.use_pallas and s % 128 == 0 and t % 128 == 0 and static:
         return kops.flash_attention(q.contiguous(), k.contiguous(),
-                                    v.contiguous(), causal=True)
+                                    v.contiguous(), causal=causal)
     group = q.shape[1] // k.shape[1]
     scale = 1.0 / math.sqrt(dh)
     if s <= CHUNK_Q or s % CHUNK_Q:
-        return attend_direct_offset(q, k, v, group, scale, True, offset)
-    return _attend_chunked(q, k, v, group, scale, True, offset, static)
+        return attend_direct_offset(q, k, v, group, scale, causal, offset)
+    return _attend_chunked(q, k, v, group, scale, causal, offset, static)
 
 
 def _attend_chunked(q, k, v, group: int, scale: float, causal: bool,
@@ -261,24 +267,28 @@ def gqa_attention(
     x: Tensor,                       # (B, S, D)
     positions: Tensor,               # (B, S)
     *,
+    causal: bool = True,
     cache: dict | None = None,       # one layer's cache (slab or pool)
     cache_pos=None,                  # int / 0-d tensor, or (B,) per row
+    memory: Tensor | None = None,    # cross-attention memory (B, T, D)
     block_tables: Tensor | None = None,  # (B, nb) paged-KV mapping
 ) -> tuple[Tensor, dict | None]:
     b, s, _ = x.shape
     h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
 
     q = linear(x, params["wq"]).reshape(b, s, h, dh)
-    k = linear(x, params["wk"]).reshape(b, s, hkv, dh)
-    v = linear(x, params["wv"]).reshape(b, s, hkv, dh)
+    kv_src = x if memory is None else memory
+    k = linear(kv_src, params["wk"]).reshape(b, kv_src.shape[1], hkv, dh)
+    v = linear(kv_src, params["wv"]).reshape(b, kv_src.shape[1], hkv, dh)
 
     if cfg.qk_norm:  # qk-RMSNorm over the head dim (qwen3), before rope
         q = rms_norm(q, params["q_norm"], cfg.norm_eps)
         k = rms_norm(k, params["k_norm"], cfg.norm_eps)
 
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, _key_positions(positions, cache, cache_pos, s,
-                                     x.device), cfg.rope_theta)
+    if memory is None:  # rope only for self-attention
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, _key_positions(positions, cache, cache_pos, s,
+                                         x.device), cfg.rope_theta)
 
     q, k, v = (t.transpose(1, 2) for t in (q, k, v))   # (B, heads, S, Dh)
 
@@ -345,7 +355,8 @@ def gqa_attention(
 
     offset = None if cache is None else (
         cache_pos if rowwise_pos(cache_pos) else int(cache_pos))
-    out = _attend(q, k, v, cfg=cfg, offset=offset)
+    out = _attend(q, k, v, causal=causal and memory is None, cfg=cfg,
+                  offset=offset)
     out = out.transpose(1, 2).reshape(b, s, h * dh)
     return linear(out, params["wo"]), cache
 

@@ -1,6 +1,6 @@
 """Model registry: family -> model API (mirror of
-``repro.models.registry``, for the ported families): the transformer
-for dense and moe, RWKV6 for ssm, the Mamba2 hybrid for hybrid. Serving
+``repro.models.registry``): the transformer for dense, moe and vlm,
+RWKV6 for ssm, the Mamba2 hybrid for hybrid, whisper for audio. Serving
 (``prefill``, ``decode_step``) and training (``forward``, ``loss``)."""
 
 from __future__ import annotations
@@ -9,7 +9,7 @@ import dataclasses
 from typing import Callable
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import rwkv_model, transformer, zamba
+from repro_torch.models import rwkv_model, transformer, whisper, zamba
 
 
 @dataclasses.dataclass(frozen=True)
@@ -24,7 +24,8 @@ class ModelApi:
     loss: Callable
     # decode_step takes a per-row (B,) position vector (the schedulers'
     # batched segments over unaligned slots need it); the recurrent
-    # stacks carry one state a row and take the batch's one position
+    # stacks carry one state a row and the audio decoder takes the
+    # batch's one position
     rowwise_decode_pos: bool = False
 
 
@@ -47,5 +48,7 @@ def get_model(cfg: ModelConfig) -> ModelApi:
         return _api(zamba)
     if cfg.family == "ssm":
         return _api(rwkv_model)
+    if cfg.family == "audio":
+        return _api(whisper)
     transformer.check_family(cfg)
     return _api(transformer, rowwise_decode_pos=True)

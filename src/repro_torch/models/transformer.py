@@ -1,7 +1,8 @@
-"""Decoder-only transformer LM (mirror of the dense and MoE branches of
-``repro.models.transformer``): GQA or MLA attention, then a dense MLP or
-a MoE block, by the layer plan (``first_dense_layers`` dense blocks, then
-MoE blocks, for a config with experts).
+"""Decoder-only transformer LM (mirror of ``repro.models.transformer``):
+GQA or MLA attention, then a dense MLP or a MoE block, by the layer plan
+(``first_dense_layers`` dense blocks, then MoE blocks, for a config with
+experts; for the VLM, ``num_layers // cross_attn_every`` groups of
+``cross_attn_every - 1`` dense blocks and one gated cross block).
 
 Model API (see ``registry.py``):
 
@@ -16,11 +17,22 @@ Model API (see ``registry.py``):
 
 Layout: ``params["layers"]`` and the cache are LISTS of per-layer dicts
 in layer order (the JAX package stacks each kind of layer on a leading
-L axis for its scan, ``blocks["dense"]`` then ``blocks["moe"]``;
-``repro_torch.bridge`` converts). A dense layer's dict holds ``mlp``, a
-MoE layer's ``moe``. Every layer runs under
-``kops.layer_scope(i)``, so a layer-indexed ``ExecutionPlan`` resolves
-per layer. Cache updates are in place.
+L axis for its scan, ``blocks["dense"]`` then ``blocks["moe"]``, and
+the VLM's groups as ``blocks["vlm_group"]`` {"self" [G][n_self],
+"cross" [G]}; ``repro_torch.bridge`` converts). A dense layer's dict
+holds ``mlp``, a MoE layer's ``moe``; a cross layer's also holds
+``xattn``, ``xattn_norm`` and the fp32 (1,) gates ``xattn_gate`` and
+``xmlp_gate``. Every layer runs under ``kops.layer_scope(i)``, so a
+layer-indexed ``ExecutionPlan`` resolves per layer (the Server takes one
+for dense and MoE only, as the JAX package's, whose VLM groups always
+scan). Cache updates are in place.
+
+Image memory (the VLM): ``forward`` and ``prefill`` read
+``batch.get("image_embeds")`` (B, T_img, D), ``decode_step`` takes it as
+``memory``. With it, a cross layer adds tanh(xattn_gate) x the
+cross-attention to that memory after its self-attention and scales its
+MLP by tanh(xmlp_gate) (both gates cast to x's type); without it the
+layer is a plain dense block, as in the JAX package.
 
 Rematerialisation (``cfg.remat``, the JAX package's ``_remat`` per
 layer): when gradients are on and no cache is carried, "full" wraps
@@ -51,20 +63,23 @@ from repro_torch.models.moe import moe, moe_param_shapes
 Tensor = torch.Tensor
 
 
-FAMILIES = ("dense", "moe")
+FAMILIES = ("dense", "moe", "vlm")
 
 
 def check_family(cfg: ModelConfig) -> None:
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (the port serves "
-            f"{', '.join(FAMILIES)})")
+            f"family {cfg.family!r} has its own stack "
+            f"(``registry.get_model``); the transformer serves "
+            f"{', '.join(FAMILIES)}")
 
 
 def layer_plan(cfg: ModelConfig) -> list[tuple[str, int]]:
     """[(kind, count)] in layer order (``_layer_plan`` of the JAX
-    package): with experts, ``first_dense_layers`` dense blocks, then
-    MoE blocks."""
+    package): the VLM's ``vlm_group``s; with experts,
+    ``first_dense_layers`` dense blocks, then MoE blocks."""
+    if cfg.family == "vlm" and cfg.cross_attn_every:
+        return [("vlm_group", cfg.num_layers // cfg.cross_attn_every)]
     if cfg.num_experts:
         plan = []
         if cfg.first_dense_layers:
@@ -75,8 +90,16 @@ def layer_plan(cfg: ModelConfig) -> list[tuple[str, int]]:
 
 
 def layer_kinds(cfg: ModelConfig) -> list[str]:
-    """The kind of each layer, by global layer index."""
-    return [kind for kind, n in layer_plan(cfg) for _ in range(n)]
+    """The kind of each layer, by global layer index (a VLM group: its
+    dense layers, then "cross")."""
+    kinds = []
+    for kind, n in layer_plan(cfg):
+        if kind == "vlm_group":
+            kinds += (["dense"] * (cfg.cross_attn_every - 1)
+                      + ["cross"]) * n
+        else:
+            kinds += [kind] * n
+    return kinds
 
 
 def param_shapes(cfg: ModelConfig) -> dict:
@@ -94,6 +117,12 @@ def param_shapes(cfg: ModelConfig) -> dict:
             out["moe"] = moe_param_shapes(cfg)
         else:
             out["mlp"] = mlp_param_shapes(cfg)
+        if kind == "cross":
+            # gated cross-attention (llama-3.2-vision style: tanh gates)
+            out["xattn"] = attn_lib.gqa_param_shapes(cfg)
+            out["xattn_norm"] = ((d,), "ones")
+            out["xattn_gate"] = ((1,), "zeros", torch.float32)
+            out["xmlp_gate"] = ((1,), "zeros", torch.float32)
         return out
 
     return {
@@ -113,7 +142,7 @@ def init(cfg: ModelConfig, *, seed: int = 0, device=None) -> dict:
 def cache_shapes(cfg: ModelConfig, batch: int, max_len: int) -> list:
     check_family(cfg)
     return [attn_lib.kv_cache_shapes(cfg, batch, max_len)
-            for _ in range(cfg.num_layers)]
+            for _ in layer_kinds(cfg)]
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
@@ -122,7 +151,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 
 
 def _block(i, p, cfg, x, positions, *, table, cache, cache_pos,
-           block_tables):
+           block_tables, memory=None):
     """Decoder layer ``i``, under its ``layer_scope``."""
     with kops.layer_scope(i):
         h = L.rms_norm(x, p["attn_norm"], cfg.norm_eps)
@@ -130,19 +159,29 @@ def _block(i, p, cfg, x, positions, *, table, cache, cache_pos,
                                   cache_pos=cache_pos,
                                   block_tables=block_tables)
         x = x + a
+        cross = memory is not None and "xattn" in p
+        if cross:
+            h = L.rms_norm(x, p["xattn_norm"], cfg.norm_eps)
+            xa, _ = attn_lib.gqa_attention(p["xattn"], cfg, h, positions,
+                                           causal=False, memory=memory)
+            x = x + torch.tanh(p["xattn_gate"]).to(x.dtype) * xa
         h = L.rms_norm(x, p["mlp_norm"], cfg.norm_eps)
         if "moe" in p:
             return x + moe(p["moe"], cfg, h, table=table)
-        return x + mlp(p["mlp"], cfg, h, table=table)
+        y = mlp(p["mlp"], cfg, h, table=table)
+        if cross:
+            y = torch.tanh(p["xmlp_gate"]).to(x.dtype) * y
+        return x + y
 
 
 def _run_stack(params, cfg, x, positions, *, table, caches=None,
-               cache_pos=None, block_tables=None):
+               cache_pos=None, block_tables=None, memory=None):
     remat = L.remat_kwargs(cfg) if caches is None else None
     for i, p in enumerate(params["layers"]):
         kw = dict(table=table,
                   cache=caches[i] if caches is not None else None,
-                  cache_pos=cache_pos, block_tables=block_tables)
+                  cache_pos=cache_pos, block_tables=block_tables,
+                  memory=memory)
         if remat is None:
             x = _block(i, p, cfg, x, positions, **kw)
         else:
@@ -153,8 +192,8 @@ def _run_stack(params, cfg, x, positions, *, table, caches=None,
 
 def forward(params, cfg: ModelConfig, batch: dict, *,
             table=DEFAULT_TABLE) -> Tensor:
-    """Training forward (no cache): batch {"tokens": (B, S)} -> fp32
-    logits (B, S, V_pad). With ``cfg.use_pallas`` and S a multiple of
+    """Training forward (no cache): batch {"tokens": (B, S) [,
+    "image_embeds"]} -> fp32 logits (B, S, V_pad). With ``cfg.use_pallas`` and S a multiple of
     128 the attention goes through the flash kernel and the MLP through
     its Sidebar kernel; neither has a backward, so on the card that
     forward runs under ``torch.no_grad()`` (the kernels raise
@@ -163,7 +202,8 @@ def forward(params, cfg: ModelConfig, batch: dict, *,
     b, s = tokens.shape
     x = L.embed_lookup(params["embed"], tokens)
     positions = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
-    x = _run_stack(params, cfg, x, positions, table=table)
+    x = _run_stack(params, cfg, x, positions, table=table,
+                   memory=batch.get("image_embeds"))
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return L.unembed(x, params["embed"])
 
@@ -203,7 +243,8 @@ def prefill(params, cfg: ModelConfig, batch: dict, cache: list, *,
     else:
         positions = (int(cache_pos) + ar)[None, :].expand(b, s)
     x = _run_stack(params, cfg, x, positions, table=table, caches=cache,
-                   cache_pos=cache_pos, block_tables=block_tables)
+                   cache_pos=cache_pos, block_tables=block_tables,
+                   memory=batch.get("image_embeds"))
     if not all_logits:
         x = x[:, -1:, :]
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -211,10 +252,12 @@ def prefill(params, cfg: ModelConfig, batch: dict, cache: list, *,
 
 
 def decode_step(params, cfg: ModelConfig, tokens: Tensor, cache: list,
-                pos, *, table=DEFAULT_TABLE, block_tables=None):
+                pos, *, table=DEFAULT_TABLE, block_tables=None,
+                memory: Tensor | None = None):
     """One token per row: tokens (B, 1); ``pos`` an int (whole batch at
     one length) or a per-row ``(B,)`` tensor. With ``block_tables`` the
-    cache is the paged pool and decode attention runs in place on it."""
+    cache is the paged pool and decode attention runs in place on it.
+    ``memory`` is the VLM's image embeddings (B, T_img, D)."""
     b = tokens.shape[0]
     x = L.embed_lookup(params["embed"], tokens)
     if attn_lib.rowwise_pos(pos):
@@ -223,6 +266,6 @@ def decode_step(params, cfg: ModelConfig, tokens: Tensor, cache: list,
         positions = torch.full((b, 1), int(pos), dtype=torch.int64,
                                device=tokens.device)
     x = _run_stack(params, cfg, x, positions, table=table, caches=cache,
-                   cache_pos=pos, block_tables=block_tables)
+                   cache_pos=pos, block_tables=block_tables, memory=memory)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return L.unembed(x, params["embed"]), cache

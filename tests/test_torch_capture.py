@@ -17,7 +17,12 @@ to 2 layers (bf16 weights from a seed), captured == eager
 (``disable_capture()``) bit for bit, greedy and sampled, under SIDEBAR
 and SIDEBAR_PIPELINED at depth 2 (and FLEXIBLE_DMA on the paged server),
 with equal launch counts and dispatch records; and a capture with a
-host sync raises.
+host sync raises. The recurrent families and the encoder-memory ones
+(whisper-medium, llama-3.2-vision-90b) at their published widths cut to
+2 or 3 layers: ``Server`` captured == eager, one capture across two
+``generate``s, and for the memory families a ``generate`` on new frames
+or image embeddings replays the graph and equals an eager run on them;
+and ``_attend``'s non-causal flash route against the plain version.
 """
 
 import contextlib
@@ -157,14 +162,15 @@ def test_servers_capture_only_models_without_a_host_sync():
     """No ported model syncs with the host any more (the MoE layer keeps
     its routing on the card), so every config's servers capture on the
     card and run eagerly on the CPU or under ``disable_capture()``. The
-    recurrent families (ssm, hybrid) are served by ``Server`` only: both
-    schedulers refuse them, as the JAX package's do."""
+    recurrent families (ssm, hybrid) and the encoder-memory ones (audio,
+    vlm) are served by ``Server`` only: both schedulers refuse them, as
+    the JAX package's do."""
     assert not hasattr(graphs, "syncs_with_host")
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
     assert graphs.captures(cuda) and not graphs.captures(cpu)
     with graphs.disable_capture():
         assert not graphs.captures(cuda)
-    assert len(configs.ARCH_IDS) == 8
+    assert len(configs.ARCH_IDS) == 10
     for arch in configs.ARCH_IDS:
         cfg = configs.get_smoke_config(arch)
         params = get_model(cfg).init(cfg, device="cpu")
@@ -172,7 +178,7 @@ def test_servers_capture_only_models_without_a_host_sync():
         kw = (dict(device="cpu", num_slots=1, max_len=32),
               dict(device="cpu", num_slots=1, max_len=32, block_size=8))
         classes = (ContinuousBatchingServer, PagedContinuousBatchingServer)
-        if cfg.family in ("ssm", "hybrid"):
+        if cfg.family in ("ssm", "hybrid", "audio", "vlm"):
             for cls, k in zip(classes, kw):
                 with pytest.raises(ValueError, match="continuous batching"):
                     cls(cfg, params, **k)
@@ -359,3 +365,93 @@ def test_recurrent_server_captured_equals_eager(cuda, arch, sample):
     assert {k: v for k, v in counts.items() if v} == want
     prog = srv._decode_scans[(7, None)]
     assert (prog.captures, prog.replays) == (1, 1)
+
+
+def _memory_model(arch):
+    """``arch`` at its published widths cut to 2 decoder layers
+    (whisper-medium also to 2 encoder layers; llama-3.2-vision-90b to one
+    group of a dense and a cross layer, its gates at 0.5: at init they
+    are 0 and hide the cross path), bf16 weights from seed 0, the MLP
+    through its kernel."""
+    cfg = configs.get_config(arch)
+    cut = (dict(num_layers=2, encoder_layers=2) if cfg.family == "audio"
+           else dict(num_layers=2, cross_attn_every=2))
+    cfg = dataclasses.replace(cfg, use_pallas=True, **cut)
+    params = get_model(cfg).init(cfg, seed=0, device="cuda")
+    for layer in params.get("layers", ()):
+        for gate in ("xattn_gate", "xmlp_gate"):
+            if gate in layer:
+                layer[gate].fill_(0.5)
+    return cfg, params
+
+
+def _memory(cfg, seed: int, b: int = 4) -> dict:
+    """Seeded ``extra`` of the family: frames or image embeddings."""
+    from repro_torch.data.pipeline import memory_input
+
+    name, t = memory_input(cfg)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return {name: torch.randn(b, t, cfg.d_model, generator=g,
+                              device="cuda").to(cfg.dtype)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sample", [None, SP], ids=["greedy", "sampled"])
+@pytest.mark.parametrize("arch", ["whisper-medium", "llama-3.2-vision-90b"])
+def test_memory_server_captured_equals_eager(cuda, arch, sample):
+    """Captured == eager bit for bit with exact launches (whisper: the
+    server's encode, prefill's own encode and decoder, one MLP a decoder
+    layer a step; the VLM: one gated MLP a layer a forward call); the
+    second ``generate`` replays (one capture); a third on new memory
+    replays too and equals an eager run on that memory."""
+    cfg, params = _memory_model(arch)
+    srv = Server(cfg, params, max_len=64, device=cuda)
+    prompts = np.random.RandomState(1).randint(0, cfg.vocab_size, (4, 16))
+    extra = _memory(cfg, 1)
+    runs = _both(lambda: [srv.generate(prompts, 8, extra, sample=sample)
+                          .tokens.cpu().numpy()])
+    _assert_same(runs, f"Server {arch}")
+    counts = runs[0][1]
+    want = ({"sidebar_mlp": 2 * cfg.encoder_layers + 8 * cfg.num_layers}
+            if cfg.family == "audio"
+            else {"sidebar_gated_mlp": 8 * cfg.num_layers})
+    assert {k: v for k, v in counts.items() if v} == want
+    prog = srv._decode_scans[(7, None)]
+    assert (prog.captures, prog.replays) == (1, 1)
+    new = _memory(cfg, 2)
+    got = srv.generate(prompts, 8, new, sample=sample).tokens
+    with graphs.disable_capture():
+        eager = srv.generate(prompts, 8, new, sample=sample).tokens
+    assert torch.equal(got, eager)
+    assert (prog.captures, prog.replays) == (1, 2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_attend_non_causal_takes_the_flash_route(cuda, dtype):
+    """``_attend(causal=False)`` at S = T = 256 with ``use_pallas``: one
+    ``flash_attention`` launch, each output row within 1e-5 (fp32) or
+    2e-2 (bf16) of its own largest |ref| (the plain version on the same
+    values), and not the causal result."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import attention
+
+    cfg = dataclasses.replace(configs.get_config("whisper-medium"),
+                              use_pallas=True)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v = (torch.randn(2, 16, 256, 64, generator=g, device="cuda"
+                           ).to(dtype) for _ in range(3))
+    recs = []
+    kops.reset_launch_counts()
+    with kops.record_dispatches(recs):
+        out = attention._attend(q, k, v, causal=False, cfg=cfg)
+    assert [r.op for r in recs] == ["flash_attention"]
+    assert kops.launch_counts()["flash_attention"] == 1
+    ref = fa.flash_attention_plain(q, k, v, causal=False)
+    o, r = out.float().flatten(0, -2), ref.float().flatten(0, -2)
+    rel = ((o - r).abs().amax(-1) / r.abs().amax(-1).clamp_min(1e-30)
+           ).max().item()
+    assert rel <= (1e-5 if dtype == torch.float32 else 2e-2), rel
+    causal = fa.flash_attention_plain(q, k, v, causal=True)
+    assert (causal.float() - ref.float()).abs().max() > 1e-2

@@ -261,25 +261,37 @@ RECURRENT_FIELDS = ("ssm_state", "ssm_head_dim", "ssm_expand", "ssm_chunk",
                     "subquadratic")
 
 
+MEMORY_FIELDS = ("encoder_layers", "encoder_seq", "cross_attn_every",
+                 "num_image_tokens", "is_encoder_decoder")
+
+
 @pytest.mark.parametrize("get", ["get_config", "get_smoke_config"])
 def test_config_mirrors_jax(get):
     """Every ported config of the JAX package, field for field (the
     dtypes by name), with its layer plan for the transformer families;
-    the recurrent families are served by their own stacks."""
+    the recurrent families and whisper are served by their own
+    stacks."""
     assert set(tcfg.ARCH_IDS) == {
         "nemotron-4-15b", "deepseek-7b", "deepseek-v3-671b", "qwen3-14b",
-        "llama3-405b", "llama4-scout-17b-a16e", "rwkv6-7b", "zamba2-7b"}
+        "llama3-405b", "llama4-scout-17b-a16e", "rwkv6-7b", "zamba2-7b",
+        "whisper-medium", "llama-3.2-vision-90b"}
+    assert set(tcfg.ARCH_IDS) == set(jcfg.ARCH_IDS)
     for arch in tcfg.ARCH_IDS:
         cj = getattr(jcfg, get)(arch)
         ct = getattr(tcfg, get)(arch)
-        for f in FIELDS + RECURRENT_FIELDS:
+        for f in FIELDS + RECURRENT_FIELDS + MEMORY_FIELDS:
             assert getattr(ct, f) == getattr(cj, f), (arch, get, f)
         for f in ("dtype", "kv_cache_dtype"):
             assert str(getattr(ct, f)).split(".")[-1] == jnp.dtype(
                 getattr(cj, f)).name, (arch, get, f)
-        if ct.family in ("ssm", "hybrid"):
+        if ct.family in ("ssm", "hybrid", "audio"):
             with pytest.raises(NotImplementedError, match="family"):
                 T.param_shapes(ct)
+            continue
+        if ct.family == "vlm":
+            n_self = ct.cross_attn_every - 1
+            assert T.layer_kinds(ct) == (["dense"] * n_self + ["cross"]) * (
+                ct.num_layers // ct.cross_attn_every)
             continue
         assert T.layer_kinds(ct) == (
             ["dense"] * ct.first_dense_layers
