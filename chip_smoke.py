@@ -258,7 +258,29 @@ exits non-zero):
      decode step scan beside loop and the step's bound, whisper's encode
      ms, TTFT, tokens/s, capture s, peak memory of each part, one eager
      step's device time by op; (17c) both fp32 smoke configs with their
-     memory: ``Server`` scan == loop and logits within 1e-4 of the CPU's.
+     memory: ``Server`` scan == loop and logits within 1e-4 of the CPU's;
+ 18. tensor-parallel serving over ``torch.distributed`` (``mesh=``):
+     (18a) tp=1 over NCCL (``make_host_mesh()``, a one-rank group) at
+     nemotron-4-15b's full width cut to 2 layers: the paged server on
+     8 requests (16 tokens each), greedy and half sampled, and ``Server``
+     with its captured scan (an NCCL all-reduce in the graph), bit for
+     bit equal to the meshless servers on the same weights, captured ==
+     eager, exact ``sidebar_mlp`` / ``paged_gqa`` launches, the counted
+     collective bytes equal to ``tp_step_collectives(tp=1)`` (zeros), a
+     captured step's ms beside the meshless one's; (18b) tp=2 on the one
+     card: two spawned ranks on ``cuda:0``, their collectives over gloo
+     staged through the host, serve the fp32 smoke configs of
+     nemotron-4-15b, its int8 KV and deepseek-v3 (kernels on, no-drop
+     capacity) on the paged server: tokens equal to the solo ``Server``
+     of this process, every decode step's logits within 1e-4 of the
+     meshless paged server's, and ``paged_gqa`` / ``paged_mla``, the MLP
+     kernel and ``moe_grouped_mm`` launched by each rank at its shard
+     shapes; (18c) the same world at nemotron-4-15b's full width (bf16,
+     2 layers, 4 prompts of 128 tokens, 16 greedy steps): the first
+     step's logits within a row-relative 3e-2 of solo's, the count of
+     equal greedy tokens, each rank's peak memory and step ms (gloo on
+     one card: not a tensor-parallel speed). Each spawned world has its
+     own deadline (``parallel.ranks``).
 
 The lines before the last hold the host seconds a phase, then the
 kernel table, then the card's name and power limit; the last line
@@ -2194,17 +2216,23 @@ def _capture(cfg, params, prompts, gen: int, drains: int = 1, **kw
     """Serve ``prompts`` eagerly ``drains`` times on one server (the
     later drains warm: the prompts published by the first), recording
     every decode step's logits; returns (logits per step, tokens per
-    request, prefix blocks spliced) of each drain."""
+    request, prefix blocks spliced) of each drain. A ``mesh`` in ``kw``
+    runs the steps on its rank's shard (the gathered logits recorded)."""
     from repro_torch.launch import graphs
     from repro_torch.launch import scheduler
     from repro_torch.models import layers as L
+    from repro_torch.parallel import tp as tplib
 
     seen = []
 
-    def make_step(cfg, api):
+    def make_step(cfg, api, tp=None):
+        mcfg = cfg if tp is None else tp.cfg_local
+
         def step(p, tok, cache, pos, sample=None, block_tables=None):
-            logits, cache = api.decode_step(p, cfg, tok, cache, pos,
-                                            block_tables=block_tables)
+            with (tplib.tensor_parallel(tp.ctx) if tp is not None
+                  else contextlib.nullcontext()):
+                logits, cache = api.decode_step(p, mcfg, tok, cache, pos,
+                                                block_tables=block_tables)
             logits = L.mask_pad_logits(logits, cfg.vocab_size)[:, -1]
             seen.append(logits.clone())
             return torch.argmax(logits, -1).to(torch.int32)[:, None], cache
@@ -4672,10 +4700,282 @@ def memory_smoke(arch: str) -> None:
     check(rel <= 1e-4, f"phase 17c {arch}: logits {rel} off the CPU's")
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: tensor-parallel serving over torch.distributed
+# ---------------------------------------------------------------------------
+
+TP_LAYERS = 2            # 18a / 18c: nemotron-4-15b's full width, 2 layers
+TP_GEN = 16              # 18a's paged drains, 18c's greedy steps
+TP_WORLD_TIMEOUT = 300   # seconds the spawned (1, 2) world may take
+TP_SMOKE = (("nemotron-4-15b", False), ("nemotron-4-15b", True),
+            ("deepseek-v3-671b", False))
+
+
+def _tp_name(arch: str, int8: bool) -> str:
+    return f"{arch}{'-int8' if int8 else ''}"
+
+
+def _step_ms(srv, prompts, gen: int, **kw) -> float:
+    """ms a decode step: (generate(gen) - generate(1)) / (gen - 1)."""
+    full, _ = _timed(lambda: srv.generate(prompts, gen, **kw))
+    pre, _ = _timed(lambda: srv.generate(prompts, 1, **kw))
+    return (full - pre) / (gen - 1) * 1e3
+
+
+def first_step_logits(srv, prompts) -> torch.Tensor:
+    """The fp32 logits (B, V) that pick ``srv``'s first new token (the
+    prefill's last position), under its TP context when it has one."""
+    from repro_torch.models import layers as L
+    from repro_torch.parallel import tp as tplib
+
+    toks = torch.as_tensor(np.asarray(prompts), device=srv.device).long()
+    cfg = srv.cfg if srv.tp is None else srv.tp.cfg_local
+    cache = srv._take_cache(toks.shape[0])
+    with torch.no_grad(), (tplib.tensor_parallel(srv.tp.ctx)
+                           if srv.tp is not None
+                           else contextlib.nullcontext()):
+        logits, cache = srv.api.prefill(srv.params, cfg, {"tokens": toks},
+                                        cache)
+    srv._return_cache(toks.shape[0], cache)
+    return L.mask_pad_logits(logits[:, -1].float(), srv.cfg.vocab_size)
+
+
+def tp1_nccl(cfg, params, smi: str) -> dict:
+    """18a: tp=1 over NCCL (a host mesh) at full width: the paged server
+    greedy and half sampled, and ``Server`` with the captured scan,
+    against the meshless servers on the same weights."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import graphs, roofline
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.scheduler import PagedContinuousBatchingServer
+    from repro_torch.launch.serve import Server
+    from repro_torch.parallel import tp as tplib
+
+    mesh = make_host_mesh()
+    check(mesh.transport == "nccl", f"phase 18a: transport {mesh.transport}")
+    prompts = traffic(18, 8, cfg.vocab_size, shared=128, lo=32, hi=256)
+    tplib.reset_coll_bytes()
+    rows, toks = {}, {}
+    for name, m in (("mesh", mesh), ("meshless", None)):
+        rows[name], toks[name] = serve(cfg, params, prompts, TP_GEN,
+                                       phase=18, mode=f"tp1_{name}",
+                                       mesh=m, **FULL_SERVER)
+    paged_greedy = all(np.array_equal(a, b)
+                       for a, b in zip(toks["mesh"], toks["meshless"]))
+    sampled = {}
+    for name, m in (("mesh", mesh), ("meshless", None)):
+        srv = PagedContinuousBatchingServer(cfg, params, mesh=m,
+                                            **FULL_SERVER)
+        _, sampled[name], _ = _drain(srv, prompts,
+                                     _sampled_every_other(len(prompts)),
+                                     TP_GEN)
+        del srv
+    paged_sampled = all(np.array_equal(a, b) for a, b in
+                        zip(sampled["mesh"], sampled["meshless"]))
+    # Server: the captured scan (an NCCL all-reduce in its graph)
+    srv = Server(cfg, params, max_len=256, mesh=mesh)
+    solo = Server(cfg, params, max_len=256, device="cuda")
+    sp = np.random.RandomState(18).randint(0, cfg.vocab_size, (4, 128))
+    first = srv.generate(sp, 32).tokens.cpu().numpy()   # warm-up, capture
+    kops.reset_launch_counts()
+    captured = srv.generate(sp, 32).tokens.cpu().numpy()    # replay
+    counts = kops.launch_counts()
+    with graphs.disable_capture():
+        eager = srv.generate(sp, 32).tokens.cpu().numpy()
+    meshless = solo.generate(sp, 32).tokens.cpu().numpy()
+    prog = srv._decode_scans[(31, srv.tp.mesh_key)]
+    want = dict.fromkeys(KERNELS, 0)
+    want["sidebar_mlp"] = cfg.num_layers * 32
+    coll = tplib.collective_bytes()
+    model = roofline.tp_step_collectives(cfg, batch=4, tp=1, steps=31)
+    times = {"mesh": [], "meshless": []}
+    for name in ("mesh", "meshless", "meshless", "mesh"):
+        times[name].append(_step_ms(srv if name == "mesh" else solo, sp,
+                                    32))
+    row = {"phase": 18, "part": "18a", "arch": cfg.arch_id,
+           "layers": cfg.num_layers,
+           "reduced": {"num_layers": f"{D_LAYERS} -> {cfg.num_layers}"},
+           "transport": mesh.transport, "mesh": list(mesh.shape),
+           "paged_greedy_equal": paged_greedy,
+           "paged_half_sampled_equal": paged_sampled,
+           "paged_launches": rows["mesh"]["launches"],
+           # cold drains, mesh first: the phase's first drain pays the
+           # one-time loads (its staging rounds' host seconds show it)
+           "paged_tokens_per_s_cold": {k: r["tokens_per_s"]
+                                       for k, r in rows.items()},
+           "server_captured_equals_eager": bool(
+               np.array_equal(captured, eager)
+               and np.array_equal(first, captured)),
+           "server_equals_meshless": bool(np.array_equal(captured,
+                                                         meshless)),
+           "server_launches": counts, "captures": prog.captures,
+           "replays": prog.replays,
+           "collective_bytes": coll, "model_bytes": model,
+           "order": "M N N M", "step_ms_captured": times,
+           "step_ms_mesh_median": float(np.median(times["mesh"])),
+           "step_ms_meshless_median": float(np.median(times["meshless"])),
+           "card": smi}
+    emit(row)
+    check(paged_greedy and paged_sampled,
+          "phase 18a: the host-mesh paged server's tokens differ from the "
+          "meshless server's")
+    check(row["server_captured_equals_eager"]
+          and row["server_equals_meshless"],
+          "phase 18a: Server(mesh=) captured != eager or != meshless")
+    check(counts == want, f"phase 18a: launches {counts} != {want}")
+    check(srv.captured and prog.captures == 1 and prog.replays > 0,
+          f"phase 18a: the scan was not captured and replayed "
+          f"({prog.captures}, {prog.replays})")
+    check(coll == model, f"phase 18a: counted bytes {coll} != the model "
+                         f"{model}")
+    del srv, solo
+    return row
+
+
+def tp2_rank(rank: int, smoke: list, full: dict) -> dict:
+    """One rank of the (1, 2) world of 18b and 18c: both ranks on
+    ``cuda:0``, their collectives over gloo (staged through the host)."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import graphs
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.launch.serve import Server
+
+    torch.cuda.set_device(0)
+    mesh = make_serving_mesh((1, 2), device="cuda:0", backend="gloo")
+    out = {"rank": mesh.rank, "transport": mesh.transport, "smoke": {}}
+    for arch, int8, prompts in smoke:
+        cfg, params = smoke_model(arch, int8=int8)
+        kops.reset_launch_counts()
+        ((logits, toks, _),) = _capture(cfg, params, prompts, 12,
+                                        mesh=mesh)
+        out["smoke"][_tp_name(arch, int8)] = {
+            "logits": [lg.cpu().numpy() for lg in logits],
+            "tokens": [t.tolist() for t in toks],
+            "launches": kops.launch_counts()}
+        del params
+        torch.cuda.empty_cache()
+    # 18c: full width, bf16, the rank's shard only
+    torch.cuda.reset_peak_memory_stats()
+    cfg, params, _ = full_width_params(TP_LAYERS)
+    srv = Server(cfg, params, max_len=full["max_len"], mesh=mesh)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    init_peak = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    prompts = full["prompts"]
+    with graphs.disable_capture():
+        logits = first_step_logits(srv, prompts)
+        kops.reset_launch_counts()
+        toks = srv.generate(prompts, TP_GEN, decode="loop").tokens
+        launches = kops.launch_counts()
+        ms = [_step_ms(srv, prompts, TP_GEN, decode="loop")
+              for _ in range(2)]
+    out["full"] = {"logits": logits.cpu().numpy(),
+                   "tokens": toks.cpu().numpy(), "step_ms": ms,
+                   "launches": launches,
+                   "local_heads": srv.tp.cfg_local.num_heads,
+                   # the full weights drawn from the seed, then the shard
+                   "peak_mem_gb_init": init_peak,
+                   "peak_mem_gb_serving": torch.cuda.max_memory_allocated()
+                   / 1e9}
+    return out
+
+
+def tp2_one_card(cfg, params, smi: str) -> dict:
+    """18b and 18c: a (1, 2) world of two spawned ranks on the one card
+    (gloo), against the meshless servers of this process."""
+    from repro_torch.launch.serve import Server
+    from repro_torch.parallel import ranks
+
+    smoke, refs = [], {}
+    for arch, int8 in TP_SMOKE:
+        scfg, sparams = smoke_model(arch, int8=int8)
+        prompts = traffic(4, 6, scfg.vocab_size, shared=16, lo=4, hi=30)
+        ((logits, toks, _),) = _capture(scfg, sparams, prompts, 12)
+        solo = Server(scfg, sparams, max_len=64, device="cuda")
+        solo_toks = [solo.generate(p[None], 12, decode="loop")
+                     .tokens[0, len(p):].cpu().numpy() for p in prompts]
+        refs[_tp_name(arch, int8)] = (logits, toks, solo_toks, scfg)
+        smoke.append((arch, int8, prompts))
+        del sparams, solo
+    fprompts = np.random.RandomState(18).randint(0, cfg.vocab_size,
+                                                 (4, 128))
+    full = {"prompts": fprompts, "max_len": 128 + TP_GEN}
+    solo = Server(cfg, params, max_len=full["max_len"], device="cuda")
+    ref_logits = first_step_logits(solo, fprompts).cpu()
+    ref_toks = solo.generate(fprompts, TP_GEN, decode="loop").tokens.cpu()
+    solo_ms = [_step_ms(solo, fprompts, TP_GEN, decode="loop")
+               for _ in range(2)]
+    del solo
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = ranks.run_ranks(tp2_rank, 2, timeout=TP_WORLD_TIMEOUT,
+                          args=(smoke, full))
+    world_s = time.perf_counter() - t0
+    for name, (logits, toks, solo_toks, scfg) in refs.items():
+        attn = "paged_mla" if scfg.use_mla else "paged_gqa"
+        mlp = "sidebar_gated_mlp" if scfg.gated_mlp else "sidebar_mlp"
+        need = [attn, mlp] + (["moe_grouped_mm"] if scfg.num_experts
+                              else [])
+        for r in res:
+            got = r["smoke"][name]
+            same = (len(got["tokens"]) == len(solo_toks) and all(
+                np.array_equal(a, b)
+                for a, b in zip(got["tokens"], solo_toks)))
+            err = (max(float(np.abs(a - b.cpu().numpy()).max())
+                       for a, b in zip(got["logits"], logits))
+                   if len(got["logits"]) == len(logits) else float("nan"))
+            emit({"phase": 18, "part": "18b", "arch": name,
+                  "rank": r["rank"], "transport": r["transport"],
+                  "tp": 2, "dtype": "float32",
+                  "tokens_equal_solo": same, "steps": len(got["logits"]),
+                  "max_abs_logit_err_vs_meshless": err, "tol": 1e-4,
+                  "launches": got["launches"]})
+            check(same, f"phase 18b {name} rank {r['rank']}: tp=2 tokens "
+                        "differ from the solo Server's")
+            check(err <= 1e-4, f"phase 18b {name} rank {r['rank']}: "
+                               f"logits off by {err}")
+            check(all(got["launches"][k] > 0 for k in need),
+                  f"phase 18b {name} rank {r['rank']}: launched "
+                  f"{got['launches']}, wants each of {need}")
+    gen0 = ref_toks[:, 128:].numpy()
+    for r in res:
+        f = r["full"]
+        v = cfg.vocab_size
+        _, rel = row_rel_err(torch.from_numpy(f["logits"])[:, :v],
+                             ref_logits[:, :v])
+        emit({"phase": 18, "part": "18c", "arch": cfg.arch_id,
+              "layers": cfg.num_layers,
+              "reduced": {"num_layers": f"{D_LAYERS} -> {cfg.num_layers}"},
+              "rank": r["rank"], "tp": 2, "transport": r["transport"],
+              "local_heads": f["local_heads"],
+              "dtype": str(cfg.dtype).replace("torch.", ""),
+              "first_step_logits_row_rel_err": rel, "tol": 3e-2,
+              "greedy_tokens_equal_solo": int(
+                  (f["tokens"][:, 128:] == gen0).sum()),
+              "greedy_tokens": int(gen0.size),
+              # a generate of 16: the prefill and 15 steps, each layer's
+              # MLP on the rank's (6144, 12288) d_ff shard
+              "launches": f["launches"],
+              "peak_mem_gb_init": f["peak_mem_gb_init"],
+              "peak_mem_gb_serving": f["peak_mem_gb_serving"],
+              "step_ms_eager_loop": f["step_ms"],
+              "solo_step_ms_eager_loop": solo_ms,
+              "step_ms_measures": "two ranks sharing one card, their "
+                                  "collectives staged through the host "
+                                  "by gloo: not a tensor-parallel speed",
+              "world_s": world_s, "card": smi})
+        check(rel <= 3e-2, f"phase 18c rank {r['rank']}: first-step "
+                           f"logits {rel} off solo's")
+    return {"world_s": world_s}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default="0,1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17",
+                    default="0,1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,"
+                            "18",
                     help="comma-separated subset of phases to run")
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the depth of the full-width phases 2, 5, "
@@ -4903,6 +5203,21 @@ def main() -> None:
         host_s["17c"] = time.perf_counter() - t17
         emit({"phase": 17, "host_s": host_s})
         lap("17")
+    if 18 in phases:
+        from repro_torch.launch import mesh as mesh_lib
+
+        t18 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        cfg, params, _ = full_width_params(TP_LAYERS)
+        tp1_nccl(cfg, params, smi)
+        t18a = time.perf_counter()
+        tp2_one_card(cfg, params, smi)
+        del params
+        mesh_lib.destroy()
+        torch.cuda.empty_cache()
+        emit({"phase": 18, "host_s": {"18a": t18a - t18,
+                                      "18b_18c": time.perf_counter() - t18a}})
+        lap("18")
     # launches: the drain of the main path (phase 2), of the mode (phase
     # 5) or of the model (phases 6, 7 and 12) that runs the kernel
     run_of = {"sidebar_mlp": "sidebar", "paged_gqa": "sidebar",

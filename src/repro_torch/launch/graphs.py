@@ -24,11 +24,15 @@ work, a Python loop of eager steps, into a CUDA graph and replays it:
   * one graph memory pool is shared by a server's programs (``pool``):
     their outputs stay alive in the programs, and replays run in order
     on one stream, so intermediates may share memory;
-  * kernel launch counts (``kops.launch_counts``) and dispatch records
-    (``kops.record_dispatches``) are counted in Python at call time, so a
-    replay would count nothing: a graph keeps the counts and records its
-    capture made, takes them back out of the ambient ones, and adds them
-    again at each replay. A captured run counts exactly as an eager one.
+  * kernel launch counts (``kops.launch_counts``), dispatch records
+    (``kops.record_dispatches``) and the collective bytes of tensor-
+    parallel steps (``parallel.tp.coll_bytes``) are counted in Python at
+    call time, so a replay would count nothing: a graph keeps the counts,
+    records and bytes its capture made, takes them back out of the
+    ambient ones, and adds them again at each replay. A captured run
+    counts exactly as an eager one. A step of a tensor-parallel server
+    on NCCL captures its collectives with it (the mesh ran one eagerly,
+    so the communicator exists before any capture).
 
 ``disable_capture()`` runs the same step functions eagerly (the
 counterpart of ``jax.disable_jit``): tests and ``chip_smoke.py`` hold
@@ -54,6 +58,7 @@ import torch
 from repro_torch import tree
 from repro_torch.kernels import build
 from repro_torch.kernels import ops as kops
+from repro_torch.parallel import tp as tplib
 
 _STATE = threading.local()
 
@@ -155,20 +160,25 @@ class _Graph:
         self.static = _clone(inputs)
         self.graph = torch.cuda.CUDAGraph()
         before = build.launches.copy()
+        bytes_before = tplib.coll_bytes.copy()
         self.records: list = []
         try:
             with kops.record_dispatches(self.records):
                 with _capturing(self.graph, pool, device):
                     self.out = fn(fixed, **self.static)
         finally:
-            # the capture launched nothing: its counts belong to replays
+            # the capture launched and moved nothing: its counts belong
+            # to replays
             self.launches = build.launches - before
             build.launches.subtract(self.launches)
+            self.coll_bytes = tplib.coll_bytes - bytes_before
+            tplib.coll_bytes.subtract(self.coll_bytes)
 
     def replay(self, inputs: dict) -> Any:
         _copy_into(self.static, inputs)
         self.graph.replay()
         build.launches.update(self.launches)
+        tplib.coll_bytes.update(self.coll_bytes)
         kops.extend_dispatches(self.records)
         return tree.map_leaves(lambda t: t.clone(), self.out)
 

@@ -325,12 +325,16 @@ class KVPool:
     (``length_axes``)."""
 
     def __init__(self, api, cfg, *, num_blocks: int, block_size: int,
-                 device) -> None:
+                 device, place=None) -> None:
         self.num_blocks = int(num_blocks)
         self.block_size = int(block_size)
         self.pos_axes = length_axes(api, cfg)
         self.cache = api.init_cache(cfg, self.num_blocks + 1,
                                     self.block_size, device=device)
+        if place is not None:
+            # tensor-parallel serving: the rank's shard of the KV heads;
+            # block and position axes replicate
+            self.cache = place(self.cache)
 
     def copy_blocks(self, dst: list[int], src: list[int]) -> None:
         """pool[src] -> pool[dst] on every leaf (copy-on-write)."""
@@ -480,13 +484,14 @@ class PagedKVManager:
     included, so captured programs keep their addresses."""
 
     def __init__(self, api, cfg, *, num_blocks: int, block_size: int,
-                 device, spare_blocks: int = 0) -> None:
+                 device, place=None, spare_blocks: int = 0) -> None:
         self.block_size = int(block_size)
         self.spare_blocks = int(spare_blocks)
         self.alloc = BlockAllocator(num_blocks)
         self.pool = KVPool(api, cfg,
                            num_blocks=num_blocks + self.spare_blocks,
-                           block_size=block_size, device=device)
+                           block_size=block_size, device=device,
+                           place=place)
 
     @property
     def spare_ids(self) -> range:

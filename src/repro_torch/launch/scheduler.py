@@ -90,8 +90,15 @@ that program's tokens, so retrieval hides behind the card's decode;
 assembled prompt then takes the plain submit path; its retrieved-chunk
 blocks are counted against the prefix index's hits.
 
-Differences from the JAX servers: tensor parallelism is not ported:
-``mesh=`` raises (``serve.UNPORTED``).
+**Tensor parallelism** — ``mesh=`` (a ``launch.mesh.Mesh``): every rank
+runs the same scheduler on the same traffic, its programs on the
+rank's shard of the params and of the slot cache or pool
+(``serve.TpSpec``), the collectives inside the steps. Tables, positions
+and tokens are replicated host metadata; the gathered logits give every
+rank the same tokens, so the ranks' host schedules stay in step. Every
+executable-cache key ends in the mesh ((shape, axis names), None
+without one). The speculative verify step under a mesh is not ported
+(ROADMAP Queue 1 item 6).
 
 On the CPU the plain paths accumulate in a fixed order (see
 ``kernels.ref``), so slot == paged == slab == solo ``serve.generate``
@@ -118,7 +125,6 @@ from repro_torch.core.modes import (
     coerce_layer_plan,
 )
 from repro_torch.core.sidebar import SidebarSpillRegion
-from repro_torch.device import resolve_device
 from repro_torch.ft.watchdog import SegmentWatchdog
 from repro_torch.kernels import ops as kops
 from repro_torch.launch import graphs
@@ -128,10 +134,11 @@ from repro_torch.launch.faults import FaultInjector
 from repro_torch.launch.sampling import SamplingParams
 from repro_torch.launch.serve import (
     PER_LAYER_PLAN_FAMILIES,
-    UNPORTED,
     make_prefill_step,
     make_serve_step,
+    make_tp_spec,
     make_verify_step,
+    server_device,
 )
 from repro_torch.launch.spec import (
     SpecConfig,
@@ -147,14 +154,6 @@ _SUPPORTED_FAMILIES = PER_LAYER_PLAN_FAMILIES
 DEFAULT_BUCKETS = (16, 32, 64, 128)
 
 probe_batch_axes = kvp.probe_batch_axes
-
-
-def _reject_unported(kw: dict) -> None:
-    if kw:
-        raise NotImplementedError(
-            "not ported yet: " + "; ".join(
-                f"{k}= ({UNPORTED.get(k, 'unknown argument')})"
-                for k in sorted(kw)))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -382,15 +381,14 @@ class ContinuousBatchingServer:
     >>> done = srv.run()          # drain pending + active
     """
 
-    def __init__(self, cfg: ModelConfig, params, *, device=None,
-                 num_slots: int = 4, max_len: int = 256,
+    def __init__(self, cfg: ModelConfig, params, *, mesh=None,
+                 device=None, num_slots: int = 4, max_len: int = 256,
                  buckets: Sequence[int] = DEFAULT_BUCKETS,
                  segment: int = 8, admit_batch: int = 2,
                  scheduling: str = "edf",
                  faults: FaultInjector | None = None,
                  plan: LayerPlan | ExecutionPlan | ExecutionMode | str |
-                 None = None, **kw) -> None:
-        _reject_unported(kw)
+                 None = None) -> None:
         if scheduling not in ("edf", "fifo"):
             raise ValueError(
                 f"scheduling must be 'edf' or 'fifo', got {scheduling!r}")
@@ -399,7 +397,7 @@ class ContinuousBatchingServer:
                 f"continuous batching supports families {_SUPPORTED_FAMILIES}"
                 f", got {cfg.family!r} (encoder-memory families need "
                 "per-request memory plumbing)")
-        self.device = resolve_device(device)
+        self.device = server_device(device, mesh)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, "
                              f"the server on {self.device}")
@@ -414,6 +412,15 @@ class ContinuousBatchingServer:
         self.params = params
         self.plan = plan
         self.api = get_model(cfg)
+        # mesh => tensor-parallel serving: every program below runs on
+        # this rank's shard of the params and of the slot cache / pool
+        self.tp = (make_tp_spec(cfg, self.api, mesh) if mesh is not None
+                   else None)
+        # folded into EVERY executable-cache key by _compiled: a server
+        # on another mesh (or none) never reuses a program
+        self._mesh_key = self.tp.mesh_key if self.tp is not None else None
+        if self.tp is not None:
+            self.params = self.tp.place_params(params)
         self.num_slots = num_slots
         self.max_len = max_len
         # a bucket longer than the KV cache could never be prefilled into
@@ -448,6 +455,9 @@ class ContinuousBatchingServer:
         self.axes = probe_batch_axes(self.api, self.cfg, self.max_len)
         self.cache = self.api.init_cache(self.cfg, self.num_slots,
                                          self.max_len, device=self.device)
+        if self.tp is not None:
+            # KV heads on the model axis; everything else replicates
+            self.cache = self.tp.place_cache(self.cache)
 
     # -- executable cache --------------------------------------------------
     @property
@@ -462,8 +472,10 @@ class ContinuousBatchingServer:
 
     def _compiled(self, key: tuple, builder: Callable[[], Callable]):
         """(kind, shape-key..., plan) + (mesh,) -> program: a new key is
-        a recorded compile, a known one a hit."""
-        key = key + (None,)
+        a recorded compile, a known one a hit. The (mesh shape, axis
+        names) tail means a server rebuilt on another mesh never replays
+        a program of this one."""
+        key = key + (self._mesh_key,)
         fn = self._exec.get(key)
         if fn is None:
             fn = self._exec[key] = builder()
@@ -545,8 +557,9 @@ class ContinuousBatchingServer:
         positions, the scatter back, and the merge of the first tokens
         into the running token vector. The gathered rows still hold
         retired requests' KV, overwritten or masked before it is read."""
-        prefill_step = make_prefill_step(self.cfg, self.api)
-        serve_step = make_serve_step(self.cfg, self.api)
+        prefill_step = make_prefill_step(self.cfg, self.api,
+                                         tp=self.tp)
+        serve_step = make_serve_step(self.cfg, self.api, tp=self.tp)
         axes = self.axes
 
         def admit(fixed, padded, toks, pos, slots, sample):
@@ -698,7 +711,7 @@ class ContinuousBatchingServer:
         positions; free slots idle at the clamped last position (their
         writes land on a dead row, overwritten at the next admission).
         The final token goes back into the running token vector."""
-        step = make_serve_step(self.cfg, self.api)
+        step = make_serve_step(self.cfg, self.api, tp=self.tp)
         max_pos = self.max_len - 1
 
         def segment(fixed, pos, sample):
@@ -986,8 +999,13 @@ class PagedContinuousBatchingServer(ContinuousBatchingServer):
         self._stage_ahead_arg = stage_ahead
         self.stage_capture_after = int(stage_capture_after)
         self._spill_region_arg = spill_region
+        if self._spec_on and kw.get("mesh") is not None:
+            raise NotImplementedError(
+                "the speculative verify step under a mesh is not ported "
+                "(ROADMAP Queue 1 item 6)")
         super().__init__(cfg, params, **kw)
-        self._prefill_step = make_prefill_step(self.cfg, self.api)
+        self._prefill_step = make_prefill_step(self.cfg, self.api,
+                                               tp=self.tp)
         if self.faults is not None:
             # the allocation-failure site: every alloc consults it
             self.mgr.alloc.fault_hook = lambda: self.faults.fire("alloc")
@@ -1010,6 +1028,7 @@ class PagedContinuousBatchingServer(ContinuousBatchingServer):
         self.mgr = kvp.PagedKVManager(
             self.api, self.cfg, num_blocks=nb, block_size=self.block_size,
             device=self.device,
+            place=self.tp.place_cache if self.tp is not None else None,
             spare_blocks=self.num_slots * self._n_scratch)
         if self._spec_on:
             spare = list(self.mgr.spare_ids)
@@ -1492,7 +1511,7 @@ class PagedContinuousBatchingServer(ContinuousBatchingServer):
         correction tokens merged into the running tokens, the blocks
         gathered once, every step decoded on the view, the blocks
         scattered back."""
-        step = make_serve_step(self.cfg, self.api)
+        step = make_serve_step(self.cfg, self.api, tp=self.tp)
         max_pos = self.max_len - 1
         pos_axes = self.mgr.pool.pos_axes
 
@@ -1520,7 +1539,7 @@ class PagedContinuousBatchingServer(ContinuousBatchingServer):
         """The slab-free segment: every step decodes IN PLACE on the
         pool, its attention walking the tables (already sliced to the
         active frontier); admission merge as in the slab segment."""
-        step = make_serve_step(self.cfg, self.api)
+        step = make_serve_step(self.cfg, self.api, tp=self.tp)
         max_pos = self.max_len - 1
 
         def segment(fixed, pos, tables, admit_slots, admit_toks, sample):

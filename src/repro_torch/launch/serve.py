@@ -1,5 +1,5 @@
 """Serving: batched prefill and captured decode (mirror of
-``repro.launch.serve`` without tensor parallelism).
+``repro.launch.serve``).
 
 ``make_serve_step`` builds the single-token decode and
 ``make_prefill_step`` the (chunked) prompt-KV writer; both take a
@@ -28,10 +28,25 @@ prefill gets the whole batch (tokens and ``extra``), each decode step
 the memory. A captured scan takes the memory as an input, copied into
 its static buffer at every replay, so a later ``generate`` with new
 frames or images replays the graph on them.
+
+Tensor-parallel serving (``mesh=``, the JAX package's shard_map'ped
+steps): each rank of a ``launch.mesh`` runs the same steps on its shard
+(``TpSpec``: the params and caches sliced along the dims their sharding
+description names, ``cfg_local`` with the rank's heads) under the
+ambient ``parallel.tp`` context, which reduces the row-parallel
+partials and gathers the logits over the mesh's "model" group. Tokens,
+positions, tables and sampling state are replicated host metadata: all
+ranks sample the same token from the same gathered logits. The steps
+are built with ``tp=``; their executable-cache keys end in the mesh.
+The transformer's families (dense, moe, vlm) carry a sharding
+description; the other families, training on a mesh and the
+speculative verify step under a mesh are not ported (ROADMAP Queue 1
+item 6).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable
 
@@ -53,6 +68,7 @@ from repro_torch.launch.sampling import SamplingParams
 from repro_torch.models import layers as L
 from repro_torch.models import whisper
 from repro_torch.models.registry import ModelApi, get_model
+from repro_torch.parallel import tp as tplib
 
 # Families whose caches are pure position-masked KV: a reused buffer's
 # stale tail is invisible (decode attends kpos <= pos), so prefill can
@@ -68,25 +84,149 @@ _CACHE_REUSE_FAMILIES = ("dense", "moe", "vlm")
 # schedulers reuse it as their supported-family set.
 PER_LAYER_PLAN_FAMILIES = ("dense", "moe")
 
-# features of the JAX servers that are not ported, by ROADMAP item
-UNPORTED = {
-    "mesh": "tensor parallelism (ROADMAP Queue 1 item 6)",
-}
+# ---------------------------------------------------------------------------
+# Tensor-parallel serving: every rank runs the whole step on its shard.
+# ---------------------------------------------------------------------------
+
+def _walk(tree, specs, fn, path: str = ""):
+    """``fn(path, leaf, spec)`` over a params / cache tree (dicts and
+    lists) and its sharding description, driven by the tree."""
+    if isinstance(tree, dict):
+        return {k: _walk(v, specs[k], fn, f"{path}[{k!r}]")
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_walk(v, specs[i], fn, f"{path}[{i}]")
+                for i, v in enumerate(tree)]
+    return fn(path, tree, specs)
 
 
-def make_serve_step(cfg: ModelConfig, api: ModelApi):
+@dataclasses.dataclass(frozen=True, eq=False)
+class TpSpec:
+    """What the step builders need to run a serve / prefill step on one
+    rank of the mesh's "model" axis.
+
+    The partitioning is Megatron TP driven by the model's sharding
+    description (``api.param_pspecs`` / ``cache_pspecs``): every param or
+    cache dim whose description names "model" is split (column-parallel
+    wq / wk / wv / w_up / w_gate and the vocab-row-sharded embedding,
+    row-parallel wo / w_down, the KV heads of slab and pool, expert
+    stacks over experts); everything else is replicated.
+
+    ``cfg_local`` is the rank's view: ONLY the head counts change. Every
+    other shape the forward derives from the (already sliced) tensors,
+    and global quantities (the vocab size of the pad mask, the expert
+    count of routing and capacity) stay global.
+    """
+
+    mesh: Any
+    axis: str                  # "model"
+    size: int                  # ranks on that axis
+    rank: int                  # this rank's index on it
+    cfg_local: ModelConfig
+    minfo: L.MeshInfo          # mesh axes with sizes
+    param_pspecs: Any          # description tree matching the params
+    cache_pspecs: Any          # ... matching a cache or pool
+
+    @property
+    def mesh_key(self) -> tuple:
+        """Hashable mesh identity for executable-cache keys."""
+        return (tuple(self.mesh.shape), tuple(self.mesh.axis_names))
+
+    @property
+    def ctx(self) -> tplib.TpContext:
+        return self.mesh.tp_context()
+
+    def _place(self, tree, specs):
+        def shard(path, t, spec):
+            d = tplib.model_dim(spec)
+            if d is None or self.size == 1:
+                return t
+            n = t.shape[d] // self.size
+            return t.narrow(d, self.rank * n, n).clone()
+
+        return _walk(tree, specs, shard)
+
+    def place_params(self, params):
+        """This rank's shard of a full params tree (at one rank: the
+        same tensors)."""
+        return self._place(params, self.param_pspecs)
+
+    def place_cache(self, cache):
+        """This rank's shard of a full cache or pool."""
+        return self._place(cache, self.cache_pspecs)
+
+
+def make_tp_spec(cfg: ModelConfig, api: ModelApi, mesh) -> TpSpec:
+    """Validate ``cfg`` against the mesh and build the serving TpSpec.
+
+    Head-axis sharding only: num_heads (and num_kv_heads for GQA) must
+    divide by the model-axis size, since the paged kernels and the
+    absorbed MLA products want whole heads a rank. Every model-sharded
+    param dim is checked for divisibility, so a bad (config, mesh)
+    pairing fails at construction."""
+    from repro_torch.launch.mesh import mesh_info
+
+    minfo = mesh_info(mesh)  # asserts the canonical axis names
+    if api.param_pspecs is None:
+        raise NotImplementedError(
+            f"tensor-parallel serving of family {cfg.family!r} is not "
+            "ported (the transformer's dense, moe and vlm carry a "
+            "sharding description; ROADMAP Queue 1 item 6)")
+    size = minfo.size("model")
+    problems = []
+    if cfg.num_heads % size:
+        problems.append(f"num_heads {cfg.num_heads} % tp {size} != 0")
+    if not cfg.use_mla and cfg.num_kv_heads % size:
+        problems.append(f"num_kv_heads {cfg.num_kv_heads} % tp {size} != 0")
+    specs = api.param_pspecs(cfg)
+
+    def check(path, shape_leaf, spec):
+        shape = shape_leaf[0]
+        d = tplib.model_dim(spec)
+        if d is not None and shape[d] % size:
+            problems.append(f"param{path}: model-sharded dim {shape[d]} "
+                            f"% tp {size} != 0")
+
+    _walk(api.param_shapes(cfg), specs, check)
+    if problems:
+        raise ValueError(
+            f"config {cfg.arch_id!r} cannot tensor-parallel over "
+            f"{dict(minfo.sizes)}: " + "; ".join(problems))
+    cfg_local = cfg
+    if size > 1:
+        kw = {"num_heads": cfg.num_heads // size}
+        if not cfg.use_mla:
+            kw["num_kv_heads"] = cfg.num_kv_heads // size
+        cfg_local = dataclasses.replace(cfg, **kw)
+    return TpSpec(mesh=mesh, axis="model", size=size, rank=mesh.rank,
+                  cfg_local=cfg_local, minfo=minfo, param_pspecs=specs,
+                  cache_pspecs=api.cache_pspecs(cfg))
+
+
+def _tp_scope(tp: TpSpec | None):
+    return (tplib.tensor_parallel(tp.ctx) if tp is not None
+            else contextlib.nullcontext())
+
+
+def make_serve_step(cfg: ModelConfig, api: ModelApi,
+                    tp: TpSpec | None = None):
     """decode one token: (params, tokens (B, 1), cache, pos[, sample,
     block_tables, memory]) -> (next tokens (B, 1) int32, cache). ``pos``
     is an int or a per-row (B,) tensor; the token emitted sits at ``pos +
     1`` and is keyed there. ``block_tables`` makes ``cache`` the paged
     pool, decoded in place. ``memory`` is the encoder output or the image
-    embeddings (B, T, D) the step attends."""
+    embeddings (B, T, D) the step attends. ``tp`` runs the model on this
+    rank's shard (params and cache placed by ``tp``) under the ambient
+    TP context; the logits leave it gathered, so every rank samples the
+    same token."""
+    mcfg = cfg if tp is None else tp.cfg_local
 
     def serve_step(params, tokens, cache, pos, sample=None,
                    block_tables=None, memory=None):
         kw = {} if memory is None else {"memory": memory}
-        logits, cache = api.decode_step(params, cfg, tokens, cache, pos,
-                                        block_tables=block_tables, **kw)
+        with _tp_scope(tp):
+            logits, cache = api.decode_step(params, mcfg, tokens, cache, pos,
+                                            block_tables=block_tables, **kw)
         logits = L.mask_pad_logits(logits, cfg.vocab_size)
         nxt = sampling.sample_tokens(logits[:, -1, :], sample, pos + 1)
         return nxt[:, None], cache
@@ -94,18 +234,22 @@ def make_serve_step(cfg: ModelConfig, api: ModelApi):
     return serve_step
 
 
-def make_prefill_step(cfg: ModelConfig, api: ModelApi):
+def make_prefill_step(cfg: ModelConfig, api: ModelApi,
+                      tp: TpSpec | None = None):
     """prompt-KV writer: (params, batch, cache[, sample, cache_pos,
     block_tables]) -> (next tokens (B, 1), cache). ``cache_pos`` (int or
     per-row (B,)) makes the step chunked; a prefill of S tokens from p
     emits (and keys) the token at index p + S. ``block_tables`` routes
-    the writes through the paged pool."""
+    the writes through the paged pool. ``tp`` as in
+    ``make_serve_step``."""
+    mcfg = cfg if tp is None else tp.cfg_local
 
     def prefill_step(params, batch, cache, sample=None, cache_pos=None,
                      block_tables=None):
-        logits, cache = api.prefill(params, cfg, batch, cache,
-                                    cache_pos=cache_pos,
-                                    block_tables=block_tables)
+        with _tp_scope(tp):
+            logits, cache = api.prefill(params, mcfg, batch, cache,
+                                        cache_pos=cache_pos,
+                                        block_tables=block_tables)
         logits = L.mask_pad_logits(logits, cfg.vocab_size)
         idx = batch["tokens"].shape[1]
         if cache_pos is not None:
@@ -141,15 +285,15 @@ def make_verify_step(cfg: ModelConfig, api: ModelApi):
     return verify_step
 
 
-def make_decode_scan(cfg: ModelConfig, api: ModelApi,
-                     num_steps: int) -> Callable:
+def make_decode_scan(cfg: ModelConfig, api: ModelApi, num_steps: int,
+                     tp: TpSpec | None = None) -> Callable:
     """``num_steps`` decode steps as one program:
     ``decode_scan(params, tok (B, 1), cache, pos, sample=None,
     memory=None) -> (tokens (B, num_steps) int32, cache)``; ``pos`` (int
     or (B,)) is the first step's position. Sampling keys fold (request
     key, position) inside each step, so the scan matches the loop
-    decode."""
-    step = make_serve_step(cfg, api)
+    decode. Under ``tp`` each step is the rank's sharded step."""
+    step = make_serve_step(cfg, api, tp=tp)
 
     def decode_scan(params, tok, cache, pos, sample=None, memory=None):
         buf = torch.empty((tok.shape[0], num_steps), dtype=torch.int32,
@@ -162,6 +306,21 @@ def make_decode_scan(cfg: ModelConfig, api: ModelApi,
         return buf, cache
 
     return decode_scan
+
+
+def server_device(device, mesh) -> torch.device:
+    """A server's device: the mesh's when one is given (``device``, if
+    also given, must name the same), else ``cuda`` unless the caller
+    asks for another."""
+    if mesh is None:
+        return resolve_device(device)
+    dev = getattr(mesh, "device", None)
+    if dev is None:
+        return resolve_device(device)       # mesh_info refuses it later
+    if device is not None and resolve_device(device).type != dev.type:
+        raise ValueError(f"the mesh lives on {dev}, the server was asked "
+                         f"for {device}")
+    return dev
 
 
 @dataclasses.dataclass
@@ -181,10 +340,7 @@ class Server:
                  execution_mode: ExecutionMode | str | None = None,
                  plan: LayerPlan | ExecutionPlan | ExecutionMode | str |
                  None = None, device=None) -> None:
-        if mesh is not None:
-            raise NotImplementedError(f"not ported yet: mesh= "
-                                      f"({UNPORTED['mesh']})")
-        self.device = resolve_device(device)
+        self.device = server_device(device, mesh)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, "
                              f"the server on {self.device}")
@@ -216,8 +372,15 @@ class Server:
         self.api = get_model(cfg)
         self.plan = plan
         self.execution_mode = base.mode
-        self._prefill = make_prefill_step(cfg, self.api)
-        self._decode = make_serve_step(cfg, self.api)
+        # mesh => tensor-parallel serving: the steps run on this rank's
+        # shard of the params and caches
+        self.tp = (make_tp_spec(cfg, self.api, mesh) if mesh is not None
+                   else None)
+        self._mesh_key = self.tp.mesh_key if self.tp is not None else None
+        if self.tp is not None:
+            self.params = self.tp.place_params(params)
+        self._prefill = make_prefill_step(cfg, self.api, tp=self.tp)
+        self._decode = make_serve_step(cfg, self.api, tp=self.tp)
         # executable cache: one decode program per (step count, mesh
         # identity), as the JAX server keys it; a program captures one
         # graph per batch shape and cache buffer
@@ -237,8 +400,10 @@ class Server:
         it in place); a new one at a batch size's first request."""
         pooled = self._cache_pool.pop(b, None)
         if pooled is None:
-            return self.api.init_cache(self.cfg, b, self.max_len,
-                                       device=self.device)
+            cache = self.api.init_cache(self.cfg, b, self.max_len,
+                                        device=self.device)
+            return (self.tp.place_cache(cache) if self.tp is not None
+                    else cache)
         if self.cfg.family not in _CACHE_REUSE_FAMILIES:
             for leaf in tree.leaves(pooled):
                 leaf.zero_()
@@ -248,10 +413,11 @@ class Server:
         self._cache_pool[b] = cache
 
     def _decode_scan(self, num_steps: int) -> graphs.Program:
-        key = (num_steps, None)
+        key = (num_steps, self._mesh_key)
         prog = self._decode_scans.get(key)
         if prog is None:
-            scan = make_decode_scan(self.cfg, self.api, num_steps)
+            scan = make_decode_scan(self.cfg, self.api, num_steps,
+                                    tp=self.tp)
 
             def run(fixed, tok, pos, sample, memory):
                 params, cache = fixed

@@ -40,6 +40,15 @@ empty and the spill region holds nothing, and with ``--num-blocks``
 that preemption and restore happened. Weights are random, from seed 0,
 at the smoke size of ``--arch``.
 
+Tensor parallelism (``--mesh DATAxMODEL``, static, continuous and RAG
+modes): the steps run on each rank's shard of the weights and caches
+over the mesh's "model" group (``launch.mesh``). ``--mesh 1x1`` runs in
+this one process (a one-rank group: gloo on the CPU, NCCL on the card).
+A larger mesh needs one process a rank with ``RANK`` and ``WORLD_SIZE``
+set, as ``python -m torch.distributed.run --nproc-per-node N`` sets them
+(NCCL on the card, one card a rank; gloo with ``--device cpu``);
+without such a world it raises. Rank 0 prints.
+
 Run: python -m repro_torch.launch.serve_batch --arch nemotron-4-15b \\
          --batch 4 --prompt-len 32 --gen 16 \\
          --execution-mode sidebar_pipelined --pipeline-depth 4
@@ -51,16 +60,23 @@ Run: python -m repro_torch.launch.serve_batch --arch nemotron-4-15b \\
      python -m repro_torch.launch.serve_batch --continuous --paged \\
          --spec-k 4
      python -m repro_torch.launch.serve_batch --continuous --paged --rag
+     python -m torch.distributed.run --nproc-per-node 2 \\
+         -m repro_torch.launch.serve_batch --device cpu --mesh 1x2 \\
+         --arch nemotron-4-15b --continuous --paged
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import io
+import os
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import configs as cfglib
 from repro_torch.core.modes import ExecutionMode, ExecutionPlan, LayerPlan
@@ -72,7 +88,9 @@ from repro_torch.launch.scheduler import (
     ContinuousBatchingServer,
     PagedContinuousBatchingServer,
 )
-from repro_torch.launch.serve import UNPORTED, Server
+from repro_torch.launch.mesh import destroy as destroy_mesh
+from repro_torch.launch.mesh import make_host_mesh, make_serving_mesh
+from repro_torch.launch.serve import Server
 from repro_torch.launch.spec import SpecConfig
 from repro_torch.models.registry import get_model
 from repro_torch.retrieval import (
@@ -82,8 +100,31 @@ from repro_torch.retrieval import (
     make_toy_corpus,
 )
 
-# flags of the JAX driver whose features are not ported
-_UNPORTED_FLAGS = {"mesh": UNPORTED["mesh"]}
+
+def build_mesh(args, device):
+    """``--mesh RxC`` (or RxCxP) -> a canonical serving mesh; the
+    "model" (last) axis is the tensor-parallel degree. A mesh of one
+    runs in this process; a larger one joins the world of ``RANK`` /
+    ``WORLD_SIZE`` (``torch.distributed.run``) and raises without it."""
+    if not args.mesh:
+        return None
+    shape = tuple(int(d) for d in args.mesh.lower().split("x"))
+    n = int(np.prod(shape))
+    if n == 1 and len(shape) in (2, 3):
+        return make_host_mesh(multi_pod=len(shape) == 3, device=device)
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world != n and not dist.is_initialized():
+        raise ValueError(
+            f"--mesh {args.mesh} needs a world of {n} ranks and this "
+            f"process is one of {world}: start it with python -m "
+            f"torch.distributed.run --nproc-per-node {n} -m "
+            "repro_torch.launch.serve_batch ...")
+    if not dist.is_initialized():
+        dist.init_process_group(
+            "nccl" if device.type == "cuda" else "gloo",
+            init_method="env://")
+    return make_serving_mesh(shape, device=None if device.type == "cuda"
+                             else device)
 
 
 def build_sampling(args) -> SamplingParams | None:
@@ -156,11 +197,11 @@ def build_extra(args, cfg, device) -> dict:
     return {name: torch.from_numpy(x).to(device=device, dtype=cfg.dtype)}
 
 
-def run_static(args, cfg, params, plan, device) -> None:
+def run_static(args, cfg, params, plan, device, mesh=None) -> None:
     sample = build_sampling(args)
     extra = build_extra(args, cfg, device)
     server = Server(cfg, params, max_len=args.prompt_len + args.gen,
-                    plan=plan, device=device)
+                    plan=plan, device=device, mesh=mesh)
     print(f"arch={cfg.arch_id}, batch={args.batch}, prompt="
           f"{args.prompt_len}, gen={args.gen}, plan={plan}, decode="
           f"{args.decode}, sample={sample}, device={device}, captured="
@@ -185,7 +226,7 @@ def run_static(args, cfg, params, plan, device) -> None:
           tokens[0, args.prompt_len:args.prompt_len + 8].tolist())
 
 
-def run_continuous(args, cfg, params, plan, device) -> None:
+def run_continuous(args, cfg, params, plan, device, mesh=None) -> None:
     sample = build_sampling(args)
     max_len = args.prompt_len + args.gen
     faults = build_faults(args)
@@ -199,7 +240,8 @@ def run_continuous(args, cfg, params, plan, device) -> None:
             cfg, params, device=device, num_slots=args.slots,
             max_len=max_len, block_size=bs, num_blocks=args.num_blocks,
             prefill_chunk=args.prefill_chunk, segment=args.segment,
-            plan=plan, kernel=args.kernel, faults=faults, spec=spec)
+            plan=plan, kernel=args.kernel, faults=faults, spec=spec,
+            mesh=mesh)
         kind = f"paged (block_size={bs}, kernel={args.kernel}"
         if spec is not None:
             kind += (f", spec k={spec.k} draft={spec.draft_cfg.arch_id}"
@@ -210,8 +252,11 @@ def run_continuous(args, cfg, params, plan, device) -> None:
             cfg, params, device=device, num_slots=args.slots,
             max_len=max_len,
             buckets=(args.prompt_len // 2, args.prompt_len),
-            segment=args.segment, plan=plan)
+            segment=args.segment, plan=plan, mesh=mesh)
         kind = "slot cache"
+    if mesh is not None:
+        kind += (f", mesh={'x'.join(map(str, mesh.shape))} "
+                 f"{mesh.axis_names} over {mesh.transport}")
     print(f"arch={cfg.arch_id} continuous [{kind}]: requests="
           f"{args.requests}, slots={args.slots}, segment={args.segment}, "
           f"plan={plan}, sample={sample}, device={device}, captured="
@@ -264,7 +309,7 @@ def run_continuous(args, cfg, params, plan, device) -> None:
                 f"{sched.stats.spec_acceptance_rate:.2f}")
 
 
-def run_rag(args, cfg, params, plan, device) -> None:
+def run_rag(args, cfg, params, plan, device, mesh=None) -> None:
     """Shared-corpus queries through ``submit_query`` (see the module
     docstring); raises unless every query was retrieved and drained,
     distinct queries spliced each other's chunk blocks and the pool
@@ -287,7 +332,8 @@ def run_rag(args, cfg, params, plan, device) -> None:
     sched = PagedContinuousBatchingServer(
         cfg, params, device=device, num_slots=args.slots, max_len=max_len,
         block_size=bs, prefill_chunk=args.prefill_chunk,
-        segment=args.segment, plan=plan, kernel=args.kernel, rag=rag)
+        segment=args.segment, plan=plan, kernel=args.kernel, rag=rag,
+        mesh=mesh)
     print(f"arch={cfg.arch_id} rag [paged, block_size={bs}, kernel="
           f"{args.kernel}]: corpus={args.corpus_size} docs x "
           f"{len(corpus.chunks)} chunks ({chunk_tokens} tok), top_k="
@@ -458,29 +504,35 @@ def main(argv=None) -> None:
     ap.add_argument("--chunk-tokens", type=int, default=None,
                     help="with --rag: corpus chunk length, a multiple of "
                          "the block size (default: one block)")
-    # the JAX driver's flags of features that are not ported: they raise
-    ap.add_argument("--mesh", default=None)
+    ap.add_argument("--mesh", default=None,
+                    help="serving mesh shape 'DATAxMODEL' (e.g. 1x2): "
+                         "tensor-parallel over the mesh's 'model' axis; "
+                         "beyond 1x1 one process a rank "
+                         "(torch.distributed.run)")
     args = ap.parse_args(argv)
-    asked = [k for k in _UNPORTED_FLAGS if getattr(args, k)]
-    if asked:
-        raise NotImplementedError("not ported yet: " + "; ".join(
-            f"--{k.replace('_', '-')} ({_UNPORTED_FLAGS[k]})"
-            for k in asked))
 
     device = resolve_device(args.device)
+    mesh = build_mesh(args, device)
+    if mesh is not None:
+        device = mesh.device
     cfg = cfglib.get_smoke_config(args.arch)
     if args.use_pallas:
         cfg = dataclasses.replace(cfg, use_pallas=True)
     plan = build_plan(args, cfg)
     params = get_model(cfg).init(cfg, seed=0, device=device)
-    if args.rag:
-        run_rag(args, cfg, params, plan, device)
-    elif args.overload:
-        run_overload(args, cfg, params, plan, device)
-    elif args.continuous:
-        run_continuous(args, cfg, params, plan, device)
-    else:
-        run_static(args, cfg, params, plan, device)
+    quiet = mesh is not None and dist.get_rank() != 0   # rank 0 prints
+    with (contextlib.redirect_stdout(io.StringIO()) if quiet
+          else contextlib.nullcontext()):
+        if args.rag:
+            run_rag(args, cfg, params, plan, device, mesh)
+        elif args.overload:
+            run_overload(args, cfg, params, plan, device)
+        elif args.continuous:
+            run_continuous(args, cfg, params, plan, device, mesh)
+        else:
+            run_static(args, cfg, params, plan, device, mesh)
+    if mesh is not None:
+        destroy_mesh()
 
 
 if __name__ == "__main__":

@@ -39,6 +39,13 @@ VLM's gated blocks): K and V are projected from the encoder or image
 ``memory`` (B, T, D) at every call, as in the JAX module; no rope, no
 cache write, and the attend is non-causal (whisper's encoder passes
 ``causal=False`` itself).
+
+Under the ambient TP context (``parallel.tp``) the config holds the
+rank's heads (``TpSpec.cfg_local``), wq / wk / wv (MLA: w_uq, w_uk,
+w_uv) are column-parallel over whole heads and wo row-parallel: every
+exit reduces wo's partial over the model axis. The GQA pool and slab
+shard their KV heads, so the paged kernels walk the rank's heads and no
+KV moves; MLA's latent cache is replicated.
 """
 
 from __future__ import annotations
@@ -61,6 +68,7 @@ from repro_torch.kernels.ref import (
     rowwise_pos,
 )
 from repro_torch.models.layers import apply_rope, linear, rms_norm
+from repro_torch.parallel import tp
 
 Tensor = torch.Tensor
 
@@ -101,6 +109,46 @@ def mla_param_shapes(cfg: ModelConfig) -> dict:
 
 def attn_param_shapes(cfg: ModelConfig) -> dict:
     return mla_param_shapes(cfg) if cfg.use_mla else gqa_param_shapes(cfg)
+
+
+# The sharding description beside each shape tree: a leaf is the
+# model-only partition of its tensor (``parallel.tp.model_only_pspec`` of
+# the JAX package's spec), a tuple naming "model" at the sharded dim, or
+# () for a replicated leaf.
+
+def gqa_param_pspecs(cfg: ModelConfig) -> dict:
+    """Column-parallel q / k / v over whole heads, row-parallel wo."""
+    specs = {"wq": (None, "model"), "wk": (None, "model"),
+             "wv": (None, "model"), "wo": ("model",)}
+    if cfg.qk_norm:
+        specs["q_norm"] = ()
+        specs["k_norm"] = ()
+    return specs
+
+
+def mla_param_pspecs(cfg: ModelConfig) -> dict:
+    """The latent projections replicated, the per-head ups column-
+    parallel, wo row-parallel."""
+    return {"w_dq": (), "q_norm": (), "w_uq": (None, "model"),
+            "w_dkv": (), "kv_norm": (), "w_kr": (),
+            "w_uk": (None, "model"), "w_uv": (None, "model"),
+            "wo": ("model",)}
+
+
+def attn_param_pspecs(cfg: ModelConfig) -> dict:
+    return mla_param_pspecs(cfg) if cfg.use_mla else gqa_param_pspecs(cfg)
+
+
+def kv_cache_pspecs(cfg: ModelConfig) -> dict:
+    """One layer's cache (slab or pool: the same leaves): GQA shards its
+    KV heads (axis 1 of both layouts), MLA's latent is replicated."""
+    if cfg.use_mla:
+        return {"c_kv": (), "k_rope": ()}
+    specs = {"k": (None, "model"), "v": (None, "model")}
+    if cfg.kv_cache_dtype == torch.int8:
+        specs["k_scale"] = (None, "model")
+        specs["v_scale"] = (None, "model")
+    return specs
 
 
 def kv_cache_shapes(cfg: ModelConfig, batch: int, max_len: int) -> dict:
@@ -334,7 +382,8 @@ def gqa_attention(
                 v_scale=cache["v_scale"] if int8 else None,
                 compute_dtype=cfg.dtype,
             )
-            return linear(ctx.reshape(b, 1, h * dh), params["wo"]), cache
+            return tp.psum_partial(linear(ctx.reshape(b, 1, h * dh),
+                                          params["wo"])), cache
         if block_tables is not None:
             # prefill chunks: dense view gathered through the table; junk
             # in padded/unwritten blocks sits behind the causal mask
@@ -358,7 +407,7 @@ def gqa_attention(
     out = _attend(q, k, v, causal=causal and memory is None, cfg=cfg,
                   offset=offset)
     out = out.transpose(1, 2).reshape(b, s, h * dh)
-    return linear(out, params["wo"]), cache
+    return tp.psum_partial(linear(out, params["wo"])), cache
 
 
 def _per_head_dot(x: Tensor, wh: Tensor) -> Tensor:
@@ -444,7 +493,7 @@ def mla_attention(
         w_uv = params["w_uv"].reshape(kvr, h, vdh).permute(1, 0, 2)
         out = _per_head_dot(ctx[:, None], w_uv)               # (B,1,H,vdh)
         out = out.reshape(b, 1, h * vdh).to(cfg.dtype)
-        return linear(out, params["wo"]), cache
+        return tp.psum_partial(linear(out, params["wo"])), cache
 
     # prefill: expand per-head keys and values from the latent (naive MLA)
     t = c_kv.shape[1]
@@ -464,7 +513,7 @@ def mla_attention(
         out = attend_direct_offset(q_full, k_full, v.transpose(1, 2), 1,
                                    scale, True, offset)
     out = out.transpose(1, 2).reshape(b, s, h * vdh)
-    return linear(out, params["wo"]), cache
+    return tp.psum_partial(linear(out, params["wo"])), cache
 
 
 def attention(params: dict, cfg: ModelConfig, x: Tensor, positions: Tensor,

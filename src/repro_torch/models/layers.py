@@ -11,6 +11,7 @@ through ``repro_torch.bridge``.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 
@@ -21,8 +22,39 @@ from torch.utils.checkpoint import (
 )
 
 from repro_torch.kernels.ref import dot
+from repro_torch.parallel import tp
 
 Tensor = torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshInfo:
+    """Which mesh axes exist, how they are used, and how big they are
+    (``repro.models.layers.MeshInfo``)."""
+
+    axis_names: tuple[str, ...]
+    fsdp: tuple[str, ...]   # parameter sharding axes ("pod", "data")
+    tp: str = "model"       # tensor-parallel axis
+    sizes: tuple[tuple[str, int], ...] = ()
+
+    @classmethod
+    def from_axes(cls, axis_names: tuple[str, ...],
+                  sizes: dict[str, int] | None = None) -> "MeshInfo":
+        fsdp = tuple(a for a in ("pod", "data") if a in axis_names)
+        return cls(tuple(axis_names), fsdp,
+                   sizes=tuple(sorted((sizes or {}).items())))
+
+    def size(self, axes) -> int:
+        """Product of the sizes of ``axes`` (1 for unknown axes)."""
+        if axes is None:
+            return 1
+        if isinstance(axes, str):
+            axes = (axes,)
+        m = dict(self.sizes)
+        n = 1
+        for a in axes:
+            n *= m.get(a, 1)
+        return n
 
 
 def init_leaf(shape: tuple[int, ...], init: str, dtype: torch.dtype, *,
@@ -148,8 +180,22 @@ def padded_vocab(v: int) -> int:
     return -(-v // VOCAB_PAD) * VOCAB_PAD
 
 
-def embed_lookup(table: Tensor, tokens: Tensor) -> Tensor:
-    return table[tokens]
+def embed_lookup(table: Tensor, tokens: Tensor, *,
+                 sharded: bool = False) -> Tensor:
+    """Embedding lookup. Sharded (under the ambient TP context) the local
+    table holds vocab rows [offset, offset + V_local): ids are rebased,
+    off-shard ids take zero rows, and the fp32 partials are summed over
+    the model axis BEFORE the cast — exact zeros plus one exact row, so
+    the lookup equals the unsharded one bit for bit at any shard
+    count."""
+    if not sharded:
+        return table[tokens]
+    n = table.shape[0]
+    ids = tokens - tp.shard_offset(n)
+    inside = (ids >= 0) & (ids < n)
+    rows = table[ids.clamp(0, n - 1)].float()
+    out = torch.where(inside[..., None], rows, 0.0)
+    return tp.psum_partial(out).to(table.dtype)
 
 
 class _UnembedMM(torch.autograd.Function):
@@ -178,11 +224,15 @@ def unembed(x: Tensor, table: Tensor) -> Tensor:
     """Logits = x @ E^T (tied), fp32 out, width = padded vocab. bf16
     operands on the card go through one GEMM with an fp32 output (and
     its two GEMMs under autograd): the 256000 x 6144 table is never
-    copied to fp32."""
+    copied to fp32. Under the ambient TP context the table is a vocab
+    shard, so the local product is a column slice of the logits (exact
+    per column: d is never split), gathered to full width once."""
     if x.is_cuda and x.dtype != torch.float32:
         out = _UnembedMM.apply(x.reshape(-1, x.shape[-1]), table)
-        return out.reshape(*x.shape[:-1], table.shape[0])
-    return dot(x, table.t())
+        out = out.reshape(*x.shape[:-1], table.shape[0])
+    else:
+        out = dot(x, table.t())
+    return tp.all_gather_cols(out)
 
 
 def mask_pad_logits(logits: Tensor, vocab: int) -> Tensor:

@@ -24,6 +24,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.function_table import DEFAULT_TABLE, FunctionTable
 from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import linear
+from repro_torch.parallel import tp
 
 
 def mlp_param_shapes(cfg: ModelConfig) -> dict:
@@ -32,6 +33,15 @@ def mlp_param_shapes(cfg: ModelConfig) -> dict:
     if cfg.gated_mlp:
         shapes["w_gate"] = ((d, f), "normal")
     return shapes
+
+
+def mlp_param_pspecs(cfg: ModelConfig) -> dict:
+    """Model-only partitions (``attention.gqa_param_pspecs``): the up /
+    gate products column-parallel over d_ff, the down one row-parallel."""
+    specs = {"w_up": (None, "model"), "w_down": ("model",)}
+    if cfg.gated_mlp:
+        specs["w_gate"] = (None, "model")
+    return specs
 
 
 def mlp(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
@@ -49,11 +59,12 @@ def mlp(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
         else:
             y = kops.sidebar_mlp(x2, params["w_up"], params["w_down"],
                                  act_name, table=table)
-        return y.reshape(x.shape)
+        return tp.psum_partial(y.reshape(x.shape))
     act = table.lookup(act_name)
     if cfg.gated_mlp:
         g = act(linear(x, params["w_gate"]))
         u = linear(x, params["w_up"])
-        return linear((g * u).to(x.dtype), params["w_down"])
+        return tp.psum_partial(
+            linear((g * u).to(x.dtype), params["w_down"]))
     h = act(linear(x, params["w_up"]))
-    return linear(h.to(x.dtype), params["w_down"])
+    return tp.psum_partial(linear(h.to(x.dtype), params["w_down"]))

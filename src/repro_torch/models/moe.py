@@ -47,9 +47,15 @@ the same result run to run. The sum is rounded once to the activation
 type before the shared experts are added (the JAX package sums the
 experts' parts in that type).
 
-Tensor parallelism (``tp.active()``) and the ``shard_map`` expert-
-parallel branch of the JAX module are not ported (ROADMAP Queue 1 item
-6).
+Tensor-parallel serving (``tp.active()``, the JAX module's branch of
+the same name): the router stays replicated, so routing and capacity
+are decided over GLOBAL expert ids; the expert stacks hold the rank's
+E_local experts, run at its offset (``tp.shard_offset(E_local)``): a
+pair of another rank's expert is not kept here. The shared experts'
+column / row slices add their own partial, and ONE reduction over the
+model axis reassembles the layer's output. Only the training
+``shard_map`` expert dispatch of the JAX module is not ported (ROADMAP
+Queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -62,6 +68,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.function_table import DEFAULT_TABLE, FunctionTable
 from repro_torch.kernels.moe_experts import grouped_mm
 from repro_torch.kernels.ref import dot, softmax
+from repro_torch.parallel import tp
 
 Tensor = torch.Tensor
 
@@ -82,6 +89,18 @@ def moe_param_shapes(cfg: ModelConfig) -> dict:
             "w_down": ((fs, d), "normal"),
         }
     return shapes
+
+
+def moe_param_pspecs(cfg: ModelConfig) -> dict:
+    """Model-only partitions (``attention.gqa_param_pspecs``): the router
+    replicated, the expert stacks over experts, the shared experts as a
+    column / row-parallel MLP."""
+    specs = {"router": (), "w_gate": ("model",), "w_up": ("model",),
+             "w_down": ("model",)}
+    if cfg.num_shared_experts:
+        specs["shared"] = {"w_gate": (None, "model"),
+                           "w_up": (None, "model"), "w_down": ("model",)}
+    return specs
 
 
 def _capacity(tokens: int, cfg: ModelConfig) -> int:
@@ -149,16 +168,20 @@ def _route(x: Tensor, router_w: Tensor, cfg: ModelConfig
     return weights.float(), ids
 
 
-def _pairs(weights: Tensor, ids: Tensor, cap: int, e: int
+def _pairs(weights: Tensor, ids: Tensor, cap: int, e: int,
+           e_offset: int = 0, e_local: int | None = None
            ) -> tuple[Tensor, Tensor, Tensor]:
     """The T·k routed (token, expert) pairs, flattened token-major, and
     which of them an expert keeps: a pair is kept when its token ranks
     below ``cap`` in the expert's descending stable order of routed
-    weight (``_top``: ties to the lower token) and its weight is not 0.
-    Returns (order, offsets, kept): ``order`` (T·k,) the pairs sorted
-    stably by expert id, dropped pairs last; ``offsets`` (E + 1,) int32
-    the expert groups in that order; ``kept`` (T, k)."""
+    weight (``_top``: ties to the lower token), its weight is not 0 and
+    its expert is one of the ``e_local`` local experts from
+    ``e_offset`` (default: all E). Returns (order, offsets, kept):
+    ``order`` (T·k,) the pairs sorted stably by local expert id,
+    dropped pairs last; ``offsets`` (E_local + 1,) int32 the local
+    expert groups in that order; ``kept`` (T, k)."""
     t, k = ids.shape
+    e_local = e if e_local is None else e_local
     # score[t, e]: the weight token t routed to expert e, else 0 (a
     # token's k ids are distinct, so each entry gets at most one weight)
     score = torch.zeros((t, e), dtype=weights.dtype, device=ids.device)
@@ -168,55 +191,64 @@ def _pairs(weights: Tensor, ids: Tensor, cap: int, e: int
     rank = torch.empty_like(by_weight)
     rank.scatter_(1, by_weight, torch.arange(
         t, device=ids.device).expand(e, t).contiguous())
-    kept = (torch.gather(rank.t(), 1, ids) < cap) & (weights != 0)
-    key = torch.where(kept, ids, torch.full_like(ids, e)).reshape(-1)
+    local = ids - e_offset
+    kept = ((torch.gather(rank.t(), 1, ids) < cap) & (weights != 0)
+            & (local >= 0) & (local < e_local))
+    key = torch.where(kept, local,
+                      torch.full_like(ids, e_local)).reshape(-1)
     order = torch.sort(key, stable=True).indices
-    counts = torch.zeros((e + 1,), dtype=torch.int32, device=ids.device)
+    counts = torch.zeros((e_local + 1,), dtype=torch.int32,
+                         device=ids.device)
     counts.scatter_add_(0, key, torch.ones_like(key, dtype=torch.int32))
     offsets = torch.cat([counts.new_zeros(1),
-                         torch.cumsum(counts[:e], 0, dtype=torch.int32)])
+                         torch.cumsum(counts[:e_local], 0,
+                                      dtype=torch.int32)])
     return order, offsets, kept
 
 
 def _local_expert_pass(x: Tensor, weights: Tensor, ids: Tensor,
                        w_gate: Tensor, w_up: Tensor, w_down: Tensor,
-                       cfg: ModelConfig, act) -> Tensor:
-    """Every expert over the T tokens, each on its top-``cap`` tokens by
-    routed weight; returns the (T, D) routed sum, fp32. Every shape
+                       cfg: ModelConfig, act, e_offset: int = 0) -> Tensor:
+    """The E_local experts of the stacks (global ids from ``e_offset``)
+    over the T tokens, each on its top-``cap`` tokens by routed weight;
+    returns the (T, D) routed sum of those experts, fp32. Every shape
     depends on T and the config alone: no host read. The kernel form
     with ``cfg.use_pallas``, else the plain one (module docstring)."""
     pass_ = _grouped_pass if cfg.use_pallas else _plain_pass
     return pass_(x, weights, ids, w_gate, w_up, w_down,
-                 _capacity(x.shape[0], cfg), act)
+                 _capacity(x.shape[0], cfg), act, e_offset, cfg.num_experts)
 
 
 def _plain_pass(x: Tensor, weights: Tensor, ids: Tensor, w_gate: Tensor,
-                w_up: Tensor, w_down: Tensor, cap: int, act) -> Tensor:
+                w_up: Tensor, w_down: Tensor, cap: int, act,
+                e_offset: int, e: int) -> Tensor:
     """The JAX package's form: each expert's top-``cap`` tokens through
     one batched product a weight, each expert's part added in ascending
     id (an expert's ``cap`` token indices are distinct)."""
-    t, e = x.shape[0], w_gate.shape[0]
+    t, e_local = x.shape[0], w_gate.shape[0]
     # score[t, e]: the weight token t routed to expert e, else 0 (a
     # token's k ids are distinct, so each entry gets at most one weight)
     score = torch.zeros((t, e), dtype=weights.dtype, device=x.device)
     score.scatter_(1, ids, weights)
-    top_w, top_idx = _top(score.t(), cap)                     # (E, cap)
+    score = score[:, e_offset:e_offset + e_local]
+    top_w, top_idx = _top(score.t(), cap)               # (E_local, cap)
     ye = _expert_mlp(x[top_idx], w_gate, w_up, w_down, act)  # (E, cap, D)
     ye = (ye * top_w[..., None].to(ye.dtype)).float()
     acc = torch.zeros((t, x.shape[1]), dtype=torch.float32, device=x.device)
-    for j in range(e):
+    for j in range(e_local):
         acc.index_add_(0, top_idx[j], ye[j])
     return acc
 
 
 def _grouped_pass(x: Tensor, weights: Tensor, ids: Tensor, w_gate: Tensor,
-                  w_up: Tensor, w_down: Tensor, cap: int, act) -> Tensor:
-    """The kernel form: the kept pairs grouped by expert through
-    ``grouped_mm``, each token's pairs gathered back in ascending
-    expert id."""
+                  w_up: Tensor, w_down: Tensor, cap: int, act,
+                  e_offset: int, e: int) -> Tensor:
+    """The kernel form: the kept pairs of the local experts grouped by
+    expert through ``grouped_mm``, each token's pairs gathered back in
+    ascending expert id."""
     t, k = ids.shape
-    e = w_gate.shape[0]
-    order, offsets, kept = _pairs(weights, ids, cap, e)
+    order, offsets, kept = _pairs(weights, ids, cap, e, e_offset,
+                                  w_gate.shape[0])
     xs = x.index_select(0, order // k)                        # (T·k, D)
     g = act(grouped_mm(xs, w_gate, offsets))
     u = grouped_mm(xs, w_up, offsets)
@@ -243,10 +275,12 @@ def moe(params: dict, cfg: ModelConfig, x: Tensor, *,
     b, s, d = x.shape
     x2 = x.reshape(b * s, d)
     weights, ids = _route(x2, params["router"], cfg)
+    # under TP: the rank's experts at its offset, a partial sum
     y = _local_expert_pass(x2, weights, ids, params["w_gate"],
-                           params["w_up"], params["w_down"], cfg,
-                           act).to(x.dtype)
+                           params["w_up"], params["w_down"], cfg, act,
+                           tp.shard_offset(params["w_gate"].shape[0])
+                           ).to(x.dtype)
     if cfg.num_shared_experts:
         sh = params["shared"]
         y = y + _expert_mlp(x2, sh["w_gate"], sh["w_up"], sh["w_down"], act)
-    return y.reshape(b, s, d)
+    return tp.psum_partial(y).reshape(b, s, d)

@@ -27,6 +27,11 @@ class ModelApi:
     # stacks carry one state a row and the audio decoder takes the
     # batch's one position
     rowwise_decode_pos: bool = False
+    # the sharding descriptions of the params and of a cache
+    # (``transformer.param_pspecs`` / ``cache_pspecs``): None for the
+    # families whose tensor-parallel serving is not ported
+    param_pspecs: Callable | None = None
+    cache_pspecs: Callable | None = None
 
 
 def _api(mod, *, rowwise_decode_pos: bool = False) -> ModelApi:
@@ -40,6 +45,8 @@ def _api(mod, *, rowwise_decode_pos: bool = False) -> ModelApi:
         forward=mod.forward,
         loss=mod.loss,
         rowwise_decode_pos=rowwise_decode_pos,
+        param_pspecs=getattr(mod, "param_pspecs", None),
+        cache_pspecs=getattr(mod, "cache_pspecs", None),
     )
 
 

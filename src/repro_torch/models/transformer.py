@@ -57,8 +57,9 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as L
-from repro_torch.models.mlp import mlp, mlp_param_shapes
-from repro_torch.models.moe import moe, moe_param_shapes
+from repro_torch.models.mlp import mlp, mlp_param_pspecs, mlp_param_shapes
+from repro_torch.models.moe import moe, moe_param_pspecs, moe_param_shapes
+from repro_torch.parallel import tp
 
 Tensor = torch.Tensor
 
@@ -132,6 +133,35 @@ def param_shapes(cfg: ModelConfig) -> dict:
     }
 
 
+def param_pspecs(cfg: ModelConfig) -> dict:
+    """The sharding description of ``param_shapes``, leaf for leaf: the
+    model-only partition of each tensor (the vocab-row-sharded embedding,
+    column / row-parallel attention and MLPs, experts over "model";
+    norms and gates replicated)."""
+    check_family(cfg)
+
+    def block(kind):
+        out = {"attn_norm": (), "mlp_norm": (),
+               "attn": attn_lib.attn_param_pspecs(cfg)}
+        if kind == "moe":
+            out["moe"] = moe_param_pspecs(cfg)
+        else:
+            out["mlp"] = mlp_param_pspecs(cfg)
+        if kind == "cross":
+            out["xattn"] = attn_lib.gqa_param_pspecs(cfg)
+            out.update(xattn_norm=(), xattn_gate=(), xmlp_gate=())
+        return out
+
+    return {"embed": ("model",), "final_norm": (),
+            "layers": [block(kind) for kind in layer_kinds(cfg)]}
+
+
+def cache_pspecs(cfg: ModelConfig) -> list:
+    """The sharding description of a cache (slab or pool), per layer."""
+    check_family(cfg)
+    return [attn_lib.kv_cache_pspecs(cfg) for _ in layer_kinds(cfg)]
+
+
 def init(cfg: ModelConfig, *, seed: int = 0, device=None) -> dict:
     """Random weights at the JAX package's scales, from a seeded
     ``torch.Generator`` on the target device."""
@@ -200,7 +230,8 @@ def forward(params, cfg: ModelConfig, batch: dict, *,
     otherwise)."""
     tokens = batch["tokens"]
     b, s = tokens.shape
-    x = L.embed_lookup(params["embed"], tokens)
+    x = L.embed_lookup(params["embed"], tokens,
+                       sharded=tp.active() is not None)
     positions = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
     x = _run_stack(params, cfg, x, positions, table=table,
                    memory=batch.get("image_embeds"))
@@ -234,7 +265,8 @@ def prefill(params, cfg: ModelConfig, batch: dict, cache: list, *,
     ``block_tables`` (B, nb) routes the writes through the paged pool."""
     tokens = batch["tokens"]
     b, s = tokens.shape
-    x = L.embed_lookup(params["embed"], tokens)
+    x = L.embed_lookup(params["embed"], tokens,
+                       sharded=tp.active() is not None)
     if cache_pos is None:
         cache_pos = 0
     ar = torch.arange(s, device=tokens.device)
@@ -259,7 +291,8 @@ def decode_step(params, cfg: ModelConfig, tokens: Tensor, cache: list,
     cache is the paged pool and decode attention runs in place on it.
     ``memory`` is the VLM's image embeddings (B, T_img, D)."""
     b = tokens.shape[0]
-    x = L.embed_lookup(params["embed"], tokens)
+    x = L.embed_lookup(params["embed"], tokens,
+                       sharded=tp.active() is not None)
     if attn_lib.rowwise_pos(pos):
         positions = pos.to(tokens.device)[:, None]
     else:

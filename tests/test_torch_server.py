@@ -32,6 +32,7 @@ from repro_torch import bridge
 from repro_torch import configs as tcfg
 from repro_torch.core.modes import ExecutionMode, ExecutionPlan, LayerPlan
 from repro_torch.kernels import ops as kops
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.launch.sampling import SamplingParams
 from repro_torch.launch.scheduler import (
     ContinuousBatchingServer,
@@ -204,8 +205,15 @@ def test_server_rejections(served):
     with pytest.raises(ValueError, match="heterogeneous"):
         Server(dataclasses.replace(ct, family="rwkv"), pt, plan=hetero,
                device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
+    # tensor parallelism is ported (ROADMAP Queue 1 item 6): an object
+    # that is no mesh is refused by mesh_info's check, as in the JAX
+    # package; a host mesh serves the meshless tokens
+    with pytest.raises(ValueError, match="canonical"):
         Server(ct, pt, mesh=object(), device="cpu")
+    meshed = Server(ct, pt, mesh=make_host_mesh(device="cpu"))
+    hp = np.random.RandomState(4).randint(0, ct.vocab_size, (2, 6))
+    np.testing.assert_array_equal(meshed.generate(hp, 4).tokens.numpy(),
+                                  server.generate(hp, 4).tokens.numpy())
     prompts = _prompts(ct.vocab_size)
     # encoder memory is the audio and VLM families': a dense server
     # ignores ``extra``, as the JAX server does
@@ -282,8 +290,8 @@ def test_solo_generate_samples_like_the_server(served):
 
 def test_serve_batch_driver(capsys):
     """``python -m repro_torch.launch.serve_batch``: the static server
-    and the two schedulers on the CPU, sampled; unported flags raise
-    naming their ROADMAP item."""
+    and the two schedulers on the CPU, sampled; ``--mesh 1x1`` serves in
+    one process, a larger mesh wants a world of its ranks."""
     from repro_torch.launch import serve_batch
 
     common = ["--device", "cpu", "--arch", "nemotron-4-15b",
@@ -322,6 +330,9 @@ def test_serve_batch_driver(capsys):
     out = capsys.readouterr().out
     assert "spec k=3 draft=nemotron-4-15b-smoke (oracle)" in out
     assert "speculative:" in out and "retrieval: 6 queries" in out
-    for flag, item in ((["--mesh", "1x2"], "item 6"),):
-        with pytest.raises(NotImplementedError, match=item):
-            serve_batch.main(common + flag)
+    # tensor parallelism is ported (ROADMAP Queue 1 item 6): a 1x1 mesh
+    # serves in this process; 1x2 needs a world of two ranks
+    serve_batch.main(common + ["--batch", "2", "--mesh", "1x1"])
+    assert "generated 10 tokens" in capsys.readouterr().out
+    with pytest.raises(ValueError, match="world of 2 ranks"):
+        serve_batch.main(common + ["--mesh", "1x2"])

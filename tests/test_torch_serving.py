@@ -29,6 +29,7 @@ from repro_torch.core.modes import ExecutionMode, LayerPlan
 from repro_torch.kernels import ops as kops
 from repro_torch.launch import kvpool as kvp
 from repro_torch.launch.faults import FaultInjector
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.launch.sampling import SamplingParams
 from repro_torch.launch.scheduler import PagedContinuousBatchingServer
 from repro_torch.launch.serve import generate
@@ -200,7 +201,9 @@ def test_unsupported_server_arguments_raise(kw, models):
     tokens and leaves the pool empty. ``spec=`` and ``rag=`` are ported
     (ROADMAP Queue 1 item 5): they raise the JAX server's validation
     errors, a draft of another vocabulary and a pipeline of another
-    block size."""
+    block size. ``mesh=`` is ported (ROADMAP Queue 1 item 6): an object
+    that is no mesh is refused by ``mesh_info``'s check, as in the JAX
+    package, and a host mesh drains with the meshless tokens."""
     cj, ct, pj, pt = models["fp32"]
     if "spec" in kw or "rag" in kw:
         from repro import retrieval as jret
@@ -250,8 +253,18 @@ def test_unsupported_server_arguments_raise(kw, models):
         mlps = {(r.mode, r.depth) for r in recs if r.op == "sidebar_mlp"}
         assert mlps == {(ExecutionMode.SIDEBAR_PIPELINED, 2)}
         return
-    err = ValueError if "kernel" in kw else NotImplementedError
-    with pytest.raises(err):
+    if "mesh" in kw:
+        with pytest.raises(ValueError, match="canonical"):
+            PagedContinuousBatchingServer(ct, pt, **{**SERVER, **kw})
+        reqs = _traffic(11, n=3)
+        srv, got, _ = _serve(ct, pt, reqs,
+                             mesh=make_host_mesh(device="cpu"))
+        _, want, _ = _serve(ct, pt, reqs)
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a.tokens, b.tokens)
+        assert srv.tp.size == 1
+        return
+    with pytest.raises(ValueError, match="kernel"):
         PagedContinuousBatchingServer(ct, pt, **{**SERVER, **kw})
 
 

@@ -33,6 +33,7 @@ from repro.models.registry import get_model as jget
 from repro_torch import bridge
 from repro_torch import configs as tcfg
 from repro_torch.launch import kvpool as kvp
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.launch.sampling import SamplingParams
 from repro_torch.launch.scheduler import (
     ContinuousBatchingServer,
@@ -318,8 +319,19 @@ def test_scheduler_rejects_unsupported_family_and_bad_requests(served):
     with pytest.raises(ValueError, match="scheduling"):
         _slots(ct, pt, scheduling="bogus")
     assert _slots(ct, pt, scheduling="fifo").scheduling == "fifo"
-    with pytest.raises(NotImplementedError, match="item 6"):
+    # tensor parallelism is ported (ROADMAP Queue 1 item 6): an object
+    # that is no mesh is refused by mesh_info's check, as in the JAX
+    # package; a host mesh serves the meshless tokens
+    with pytest.raises(ValueError, match="canonical"):
         _slots(ct, pt, mesh=object())
+    meshed = _slots(ct, pt, mesh=make_host_mesh(device="cpu"))
+    plain = _slots(ct, pt)
+    for srv in (meshed, plain):
+        srv.submit(np.arange(1, 7, dtype=np.int32), 4)
+    (a,), (b,) = meshed.run(), plain.run()
+    np.testing.assert_array_equal(a.tokens, b.tokens)
+    assert all(k[-1] == ((1, 1), ("data", "model"))
+               for k in meshed.executable_cache_keys())
 
 
 # ---------------------------------------------------------------------------
