@@ -223,16 +223,18 @@ exits non-zero):
      request finishes, exact launches, every MLP dispatch on its layer's
      planned route, greedy tokens equal to phase 2's SIDEBAR drain (and
      to phase 5's arm of the same plan when phase 5 ran);
- 16. the recurrent families, each at full width and depth (bf16 weights
-     from seed 0, the kernels on; one model on the card at a time):
-     (16a) rwkv6-7b (32 layers, attention-free) and (16b) zamba2-7b (81
-     Mamba2 layers, the shared attention + gated MLP block after each
-     of 13 groups of 6) served by ``Server`` on 4 prompts of 128 tokens,
+ 16. the recurrent families, each at full width, their depth cut
+     (``RECURRENT_LAYERS``; bf16 weights from seed 0, the kernels on; one
+     model on the card at a time): (16a) rwkv6-7b (16 of 32 layers,
+     attention-free) and (16b) zamba2-7b (39 of 81 Mamba2 layers, the
+     shared attention + gated MLP block after each of 6 of 13 groups of
+     6, then the 3 tail layers) served by ``Server`` on 4 prompts of 128 tokens,
      32 new, as 9a: ``decode="scan"`` (a graph captured on the server's
      state buffer, zeroed before each request; the second ``generate``
      replays it) == ``"loop"`` bit for bit, greedy and sampled,
-     temperature 0 == greedy, exact launches (none for rwkv6-7b; 13
-     ``sidebar_gated_mlp`` a prefill and a decode step for zamba2-7b),
+     temperature 0 == greedy, exact launches (none for rwkv6-7b; a
+     ``sidebar_gated_mlp`` a group, a prefill and a decode step for
+     zamba2-7b),
      prefill + 4 decode steps against the no-cache forward on the
      weights cast to fp32 (2e-3; bf16 printed); ms a decode step scan
      beside loop and the step's bound, TTFT, tokens/s, capture s, peak
@@ -280,7 +282,29 @@ exits non-zero):
      step's logits within a row-relative 3e-2 of solo's, the count of
      equal greedy tokens, each rank's peak memory and step ms (gloo on
      one card: not a tensor-parallel speed). Each spawned world has its
-     own deadline (``parallel.ranks``).
+     own deadline (``parallel.ranks``);
+ 19. training on a mesh (FSDP x TP over ``torch.distributed``,
+     ``make_jitted_train_step``; no kernel runs, as none runs in the JAX
+     trainer): (19a) tp=1 / dp=1 over NCCL (``make_host_mesh()``) at 8b's
+     set-up (nemotron-4-15b's full width, 2 layers, 2 strided
+     microbatches of one 4096-token sequence, remat "full", bf16 weights
+     from seed 0): three steps bit for bit equal to the meshless
+     ``make_train_step`` (losses, grad norms, every parameter after the
+     last step), 0 bytes counted, no launch; step s, tokens/s and peak
+     memory beside 8b's when phase 8 ran; (19b) a (2, 2) mesh of four
+     spawned gloo ranks on ``cuda:0`` (host-staged) on the fp32 smoke
+     configs of qwen3-14b, nemotron-4-15b and deepseek-v3-671b (no-drop
+     capacity): three steps, losses, grad norms and lr within 1e-5 of
+     this process's meshless step, the gathered parameters after two
+     steps within 1e-5 (the bound of ``tests/test_torch_train.py``),
+     each rank's resident parameter bytes equal to its shards' bytes
+     (elements whose gradient sits at AdamW's noise level, under
+     ``NOISE_GRAD``, are counted, not gated: the bound's own exception);
+     (19c) then the (1, 2) mesh of two of those ranks at full width
+     (bf16, 2 layers, the sequence cut to ``MESH_FULL_SEQ``): two steps,
+     losses within 1e-2 relative of meshless, each rank's peak memory
+     and step s (gloo on one card: not a parallel speed). 19b and 19c
+     share one spawned world: a rank's start-up is paid once.
 
 The lines before the last hold the host seconds a phase, then the
 kernel table, then the card's name and power limit; the last line
@@ -3588,6 +3612,7 @@ def train_steps_full(steps: int = 3) -> dict:
     from repro_torch.kernels import build
     from repro_torch.launch.train import make_train_step, value_and_grad
     from repro_torch.models import transformer
+    from repro_torch.models.layers import HOST
     from repro_torch.models.registry import get_model
     from repro_torch.optim.optimizer import init_state
 
@@ -3600,7 +3625,8 @@ def train_steps_full(steps: int = 3) -> dict:
     params = transformer.init(cfg, seed=0, device="cuda")
     n_params = sum(p.numel() for p in tree.leaves(params))
     opt = init_state(params, tcfg)
-    step_fn, n_micro, _ = make_train_step(cfg, tcfg, get_model(cfg), cell)
+    step_fn, n_micro, _ = make_train_step(cfg, tcfg, get_model(cfg),
+                                          HOST, None, cell)
     check(n_micro == 2, f"phase 8b: n_micro {n_micro}")
     rows = []
     for step in range(steps):
@@ -4103,6 +4129,11 @@ def engine_kernel_rows(engine15: dict, planned: dict, rows: dict,
 # ---------------------------------------------------------------------------
 
 RECURRENT_ARCHS = ("rwkv6-7b", "zamba2-7b")
+# phase 16's depths (cut from 32 and 81 to make room for phase 19 inside
+# half of the script's 1200 s; the gates hold scan against loop,
+# launches and the forward check, which depth does not change: 16a took
+# ~34 s and 16b ~65 s at full depth)
+RECURRENT_LAYERS = {"rwkv6-7b": 16, "zamba2-7b": 39}   # 39: 6 groups + 3
 # prefill then decode against the no-cache forward at full width and
 # depth, on the bf16 weights cast to fp32 (2e-3, the bound of
 # tests/test_decode_consistency.py). In bf16 the two paths round
@@ -4119,7 +4150,7 @@ def recurrent_launches(cfg, steps: int) -> dict:
     """Exact launches of one ``Server.generate`` with ``steps`` decode
     steps after its prefill: the hybrid's shared block runs its gated MLP
     once an invocation (n_groups a forward call: 13 at zamba2-7b's 81
-    layers); nothing else of either family launches a kernel."""
+    layers, 6 at phase 16's 39); nothing else of either family launches a kernel."""
     want = dict.fromkeys(KERNELS, 0)
     if cfg.family == "hybrid":
         want["sidebar_gated_mlp"] = (cfg.num_layers // cfg.attn_every
@@ -4185,8 +4216,8 @@ def recurrent_vs_forward(cfg, api, params, prompts, steps: int = 4):
 
 
 def phase16_server(arch: str, smi: str) -> dict:
-    """16a / 16b: ``arch`` at full width and depth (bf16 weights from
-    seed 0, the kernels on) served by ``Server`` on 4 prompts of 128
+    """16a / 16b: ``arch`` at full width, its depth cut to
+    ``RECURRENT_LAYERS`` (bf16 weights from seed 0, the kernels on) served by ``Server`` on 4 prompts of 128
     seeded tokens, 32 new, max_len 256, as 9a: ``decode="scan"`` (a
     graph, replayed by the second ``generate``: one capture) == ``"loop"``
     bit for bit, greedy and sampled (two graphs, and no third:
@@ -4203,7 +4234,9 @@ def phase16_server(arch: str, smi: str) -> dict:
     from repro_torch.launch.serve import Server
     from repro_torch.models.registry import get_model
 
-    cfg = dataclasses.replace(configs.get_config(arch), use_pallas=True)
+    published = configs.get_config(arch)
+    cfg = dataclasses.replace(published, use_pallas=True,
+                              num_layers=RECURRENT_LAYERS[arch])
     api = get_model(cfg)
     torch.cuda.reset_peak_memory_stats()
     init_s, params = _timed(lambda: api.init(cfg, seed=0, device="cuda"))
@@ -4275,6 +4308,8 @@ def phase16_server(arch: str, smi: str) -> dict:
     scan_ms = float(np.median(times["scan"]))
     row = {"phase": 16, "part": part, "arch": cfg.arch_id,
            "nvidia_smi": smi, "layers": cfg.num_layers,
+           "reduced": {"num_layers": f"{published.num_layers} -> "
+                                     f"{cfg.num_layers}"},
            "d_model": cfg.d_model, "dtype": "bfloat16", "init_s": init_s,
            "batch": 4, "prompt": 128, "gen": 32, "max_len": 256,
            "scan_equals_loop": True, "greedy_equals_t0": True,
@@ -4971,11 +5006,478 @@ def tp2_one_card(cfg, params, smi: str) -> dict:
     return {"world_s": world_s}
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: training on a mesh (FSDP x TP over torch.distributed)
+# ---------------------------------------------------------------------------
+
+MESH_SMOKE_ARCHS = ("qwen3-14b", "nemotron-4-15b", "deepseek-v3-671b")
+MESH_STEPS = 3
+MESH_WORLD_TIMEOUT = 240  # seconds a spawned world of 19b / 19c may take
+NOISE_GRAD = 1e-7         # 19b: |gradient| at AdamW's noise level
+MESH_FULL_SEQ = 512       # 19c's sequence (TRAIN_4K's 4096 cut: a step's
+                          # host-staged gathers of a rank's 128000 fp32
+                          # logit columns a token, 3.8 s at 1024 tokens,
+                          # would not fit phase 19's 60 s budget)
+
+
+def _mesh_cell(seq: int, batch: int):
+    from repro_torch.configs.base import ShapeCell
+
+    return ShapeCell("mesh", seq_len=seq, global_batch=batch, kind="train")
+
+
+def _peak_gb(device) -> float | None:
+    return (torch.cuda.max_memory_allocated() / 1e9
+            if torch.device(device).type == "cuda" else None)
+
+
+def _reset_peak(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _timed_steps(step_fn, params, opt, batches, device):
+    """Run ``step_fn`` over ``batches``: each step's loss, grad norm, lr
+    and host seconds (synchronized); the params and moments after."""
+    rows = []
+    for batch in batches:
+        _sync(device)
+        t0 = time.perf_counter()
+        params, opt, _, m = step_fn(params, opt, None, batch)
+        loss = float(m["loss"])
+        _sync(device)
+        dt = time.perf_counter() - t0
+        rows.append({"loss": loss, "grad_norm": float(m["grad_norm"]),
+                     "lr": float(m["lr"]), "step_s": dt})
+    return rows, params, opt
+
+
+def train_mesh_host(cfg, smi: str, row8b: dict | None,
+                    device="cuda") -> dict:
+    """19a: three ``make_jitted_train_step`` steps on a (1, 1) mesh over
+    NCCL (``make_host_mesh()``) at 8b's set-up, bit for bit equal to the
+    meshless ``make_train_step`` on the same weights and batches."""
+    from repro_torch import tree
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import pipeline
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch.mesh import make_host_mesh, mesh_info
+    from repro_torch.launch.train import make_jitted_train_step, \
+        make_train_step
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import HOST
+    from repro_torch.models.registry import get_model
+    from repro_torch.optim.optimizer import init_state
+    from repro_torch.parallel import tp as tplib
+
+    api, tcfg = get_model(cfg), TrainConfig(microbatch_per_device=1)
+    cell = _mesh_cell(cfg_seq(cfg), 2)
+    mesh = make_host_mesh(device=device)
+    minfo = mesh_info(mesh)
+    batches = [pipeline.make_batch(cfg, cell, s, batch_override=2,
+                                   device=device)
+               for s in range(MESH_STEPS)]
+    out = {}
+    for name in ("meshless", "mesh"):
+        _reset_peak(device)
+        params = transformer.init(cfg, seed=0, device=device)
+        if name == "mesh":
+            step_fn, _, p_shard, _, n_micro, _ = make_jitted_train_step(
+                cfg, tcfg, api, mesh, cell)
+            params = p_shard.place(params)
+            steps_in = [pipeline.shard_batch(b, mesh, minfo)
+                        for b in batches]
+        else:
+            step_fn, n_micro, _ = make_train_step(cfg, tcfg, api, HOST, None,
+                                                  cell)
+            steps_in = batches
+        opt = init_state(params, tcfg)
+        tplib.reset_coll_bytes()
+        kops.reset_launch_counts()
+        rows, params, opt = _timed_steps(step_fn, params, opt, steps_in,
+                                         device)
+        out[name] = {"rows": rows, "n_micro": n_micro,
+                     "peak_mem_gb": _peak_gb(device),
+                     "bytes": tplib.collective_bytes(),
+                     "launches": kops.launch_counts()}
+        if name == "meshless":
+            ref = tree.map_leaves(lambda t: t.clone(), params)
+            ref_gb = sum(t.numel() * t.element_size()
+                         for t in tree.leaves(ref)) / 1e9
+        else:
+            equal = all(torch.equal(a, b) for a, b in zip(
+                tree.leaves(params), tree.leaves(ref)))
+        del params, opt
+        gc.collect()
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+    del ref
+    seq = cell.seq_len
+    same = all(a["loss"] == b["loss"] and a["grad_norm"] == b["grad_norm"]
+               for a, b in zip(out["mesh"]["rows"], out["meshless"]["rows"]))
+    row = {"phase": 19, "part": "19a", "arch": cfg.arch_id,
+           "layers": cfg.num_layers, "mesh": list(mesh.shape),
+           "transport": mesh.transport,
+           "reduced": {"num_layers": f"{D_LAYERS} -> {cfg.num_layers}",
+                       "global_batch": "256 -> 2"},
+           "seq": seq, "n_micro": out["mesh"]["n_micro"], "remat": cfg.remat,
+           "losses_and_grad_norms_equal": same, "params_equal": equal,
+           "collective_bytes": out["mesh"]["bytes"],
+           "launches": out["mesh"]["launches"],
+           # the mesh run's peak holds the meshless run's final params
+           "mesh_peak_includes_reference_gb": ref_gb}
+    for name in ("mesh", "meshless"):
+        r = out[name]
+        row[name] = {"steps": r["rows"],
+                     "tokens_per_s": [2 * seq / x["step_s"]
+                                      for x in r["rows"]],
+                     "peak_mem_gb": r["peak_mem_gb"]}
+    if row8b is not None:
+        row["8b"] = {"step_s": [x["step_s"] for x in row8b["steps"]],
+                     "tokens_per_s": [x["tokens_per_s"]
+                                      for x in row8b["steps"]],
+                     "peak_mem_gb": row8b["peak_mem_gb"]}
+    row["card"] = smi
+    emit(row)
+    check(same and equal, "phase 19a: the (1, 1) mesh's steps differ from "
+                          "the meshless step")
+    check(not any(row["collective_bytes"].values()),
+          f"phase 19a: counted bytes {row['collective_bytes']}")
+    check(not any(row["launches"].values()),
+          f"phase 19a: a kernel ran in training {row['launches']}")
+    check(all(np.isfinite(x["loss"]) for x in out["mesh"]["rows"]),
+          "phase 19a: a loss is not finite")
+    return row
+
+
+def cfg_seq(cfg) -> int:
+    """19a's sequence: TRAIN_4K's, as 8b's (the smoke dry run: 32)."""
+    from repro_torch.configs.base import TRAIN_4K
+
+    return TRAIN_4K.seq_len if cfg.d_model == D_MODEL else 32
+
+
+def _mesh_smoke_cfg(arch: str):
+    """19b's fp32 smoke config: MoE at no-drop capacity, kernels off."""
+    from repro_torch import configs
+
+    cfg = configs.get_smoke_config(arch)
+    if cfg.num_experts:
+        cfg = dataclasses.replace(cfg, capacity_factor=float(cfg.num_experts))
+    return cfg
+
+
+def _mesh_run(rank_cfg, mesh, cell, tcfg, steps: int, device,
+              keep_after: int | None = None) -> dict:
+    """``steps`` of ``make_jitted_train_step`` on this rank: the metrics,
+    resident and shard bytes, peaks, and with ``keep_after`` (rank 0)
+    the gathered params after that step and after the last."""
+    from repro_torch import tree
+    from repro_torch.data import pipeline
+    from repro_torch.launch.mesh import mesh_info
+    from repro_torch.launch.train import make_jitted_train_step
+    from repro_torch.models.layers import shard_leaf
+    from repro_torch.models.registry import get_model
+    from repro_torch.optim.optimizer import init_state
+
+    api = get_model(rank_cfg)
+    step_fn, _, p_shard, _, n_micro, _ = make_jitted_train_step(
+        rank_cfg, tcfg, api, mesh, cell)
+    _reset_peak(device)
+    full = api.init(rank_cfg, seed=0, device=device)
+    shard_bytes = sum(shard_leaf(t, s, mesh).numel() * t.element_size()
+                      for t, s in zip(tree.leaves(full), tree.leaf_specs(
+                          full, p_shard.specs)))
+    params = p_shard.place(full)
+    del full
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    init_peak = _peak_gb(device)
+    _reset_peak(device)
+    opt = init_state(params, tcfg)
+    rank0 = mesh.fsdp_rank == 0 and mesh.rank == 0
+    rows, kept = [], None
+    minfo = mesh_info(mesh)
+    for s in range(steps):
+        batch = pipeline.shard_batch(pipeline.make_batch(
+            rank_cfg, cell, s, device=device), mesh, minfo)
+        r, params, opt = _timed_steps(step_fn, params, opt, [batch], device)
+        rows += r
+        if keep_after is not None and s + 1 == keep_after:
+            kept = p_shard.gather(params)
+            kept = _host_tree(kept) if rank0 else None
+    out = {"rows": rows, "n_micro": n_micro,
+           "resident_bytes": sum(t.numel() * t.element_size()
+                                 for t in tree.leaves(params)),
+           "shard_bytes": shard_bytes, "peak_mem_gb_init": init_peak,
+           "peak_mem_gb": _peak_gb(device)}
+    if keep_after is not None:
+        final = p_shard.gather(params)
+        if rank0:
+            out["params_kept"] = kept
+            out["params"] = _host_tree(final)
+    return out
+
+
+def _host_tree(t):
+    """numpy fp32 copies of a tree's leaves (what a spawned rank returns:
+    tensors would travel as shared memory its exit revokes)."""
+    from repro_torch import tree
+
+    return tree.map_leaves(
+        lambda x: x.detach().float().cpu().numpy().copy(), t)
+
+
+def _pair_mesh(rank: int, device):
+    """The (1, 2) mesh of world ranks 0 and 1 (its groups made by those
+    two alone), as ``make_serving_mesh((1, 2))`` makes it in a world of
+    two."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import CANONICAL_AXES, Mesh
+
+    def group(ranks):
+        return dist.new_group(ranks, backend="gloo",
+                              timeout=datetime.timedelta(seconds=600),
+                              use_local_synchronization=True)
+
+    row, own = group([0, 1]), group([rank])
+    return Mesh(shape=(1, 2), axis_names=CANONICAL_AXES[2],
+                device=torch.device(device), group=row, rank=rank,
+                backend="gloo", fsdp_group=own, fsdp_rank=0)
+
+
+def mesh_world_rank(rank: int, seq: int, device: str) -> dict:
+    """One rank of phase 19's world of four on the one card, collectives
+    over gloo staged through the host: 19b on a (2, 2) mesh, then 19c on
+    the (1, 2) mesh of ranks 0 and 1 (one world: a rank's start-up, ~20
+    s of the budget, is paid once)."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.launch.mesh import make_serving_mesh
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.set_device(0)
+    mesh = make_serving_mesh((2, 2), device=device, backend="gloo")
+    tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=2,
+                       microbatch_per_device=2)
+    out = {"coords": (mesh.fsdp_rank, mesh.rank),
+           "transport": mesh.transport, "archs": {}}
+    for arch in MESH_SMOKE_ARCHS:
+        out["archs"][arch] = _mesh_run(_mesh_smoke_cfg(arch), mesh,
+                                       _mesh_cell(32, 8), tcfg, MESH_STEPS,
+                                       device, keep_after=2)
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    if rank < 2:
+        pair = _pair_mesh(rank, device)
+        cfg = _train_full_cfg(device)
+        full = _mesh_run(cfg, pair, _mesh_cell(seq, 2),
+                         TrainConfig(microbatch_per_device=1), 2, device)
+        full.update(rank=pair.rank, transport=pair.transport,
+                    local_heads=cfg.num_heads // 2)
+        out["full"] = full
+    return out
+
+
+def _train_full_cfg(device):
+    """8b's config: nemotron-4-15b's full width cut to 2 layers, remat
+    "full", kernels off (the smoke config on the dry run's CPU)."""
+    from repro_torch import configs
+
+    name = "nemotron-4-15b"
+    full = (configs.get_config(name) if torch.device(device).type == "cuda"
+            else configs.get_smoke_config(name))
+    return dataclasses.replace(full, num_layers=2, remat="full",
+                               use_pallas=False)
+
+
+def _smoke_refs(device) -> dict:
+    """19b's meshless references: three steps of each smoke config, the
+    parameters after two and three, and the gradients AdamW saw."""
+    from repro_torch import tree
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import pipeline
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models.layers import HOST
+    from repro_torch.models.registry import get_model
+    from repro_torch.optim.optimizer import init_state
+
+    # one device: the world's 2 strided global microbatches of 4 rows
+    tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=2,
+                       microbatch_per_device=4)
+    cell = _mesh_cell(32, 8)
+    refs = {}
+    for arch in MESH_SMOKE_ARCHS:
+        cfg = _mesh_smoke_cfg(arch)
+        api = get_model(cfg)
+        step_fn, n_micro, _ = make_train_step(cfg, tcfg, api, HOST, None,
+                                              cell)
+        params = api.init(cfg, seed=0, device=device)
+        opt = init_state(params, tcfg)
+        rows, kept, mus = [], None, []
+        for s in range(MESH_STEPS):
+            r, params, opt = _timed_steps(step_fn, params, opt, [
+                pipeline.make_batch(cfg, cell, s, device=device)], device)
+            rows += r
+            if s < 2:
+                mus.append(_host_tree(opt.mu))
+            if s == 1:
+                kept = _host_tree(params)
+        # the (clipped) gradients AdamW saw, from its first moment
+        b1 = tcfg.beta1
+        grads = [tree.map_leaves(lambda m: m / (1 - b1), mus[0]),
+                 tree.map_leaves(lambda m1, m2: (m2 - b1 * m1) / (1 - b1),
+                                 mus[0], mus[1])]
+        refs[arch] = (rows, kept, _host_tree(params), n_micro, grads)
+        del params, opt
+    return refs
+
+
+def _full_ref(seq: int, device) -> tuple[list, float | None, int]:
+    """19c's meshless reference: two steps at full width."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import pipeline
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import HOST
+    from repro_torch.models.registry import get_model
+    from repro_torch.optim.optimizer import init_state
+
+    cfg = _train_full_cfg(device)
+    cell = _mesh_cell(seq, 2)
+    tcfg = TrainConfig(microbatch_per_device=1)
+    _reset_peak(device)
+    step_fn, n_micro, _ = make_train_step(cfg, tcfg, get_model(cfg), HOST,
+                                          None, cell)
+    params = transformer.init(cfg, seed=0, device=device)
+    opt = init_state(params, tcfg)
+    rows, params, opt = _timed_steps(step_fn, params, opt, [
+        pipeline.make_batch(cfg, cell, s, device=device) for s in range(2)],
+        device)
+    peak = _peak_gb(device)
+    del params, opt
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    return rows, peak, n_micro
+
+
+def train_mesh_world(smi: str, device="cuda") -> dict:
+    """19b and 19c: one world of four spawned gloo ranks on the card
+    against this process's meshless steps on the same weights and
+    batches. 19b: a (2, 2) mesh on the fp32 smoke configs of qwen3-14b,
+    nemotron-4-15b and deepseek-v3-671b, three steps; 19c: the (1, 2)
+    mesh of ranks 0 and 1 at full width, bf16, two steps."""
+    from repro_torch import tree
+    from repro_torch.parallel import ranks
+
+    seq = MESH_FULL_SEQ if torch.device(device).type == "cuda" else 32
+    refs = _smoke_refs(device)
+    full_rows, full_peak, full_micro = _full_ref(seq, device)
+    t0 = time.perf_counter()
+    res = ranks.run_ranks(mesh_world_rank, 4, timeout=MESH_WORLD_TIMEOUT,
+                          args=(seq, device))
+    world_s = time.perf_counter() - t0
+    for arch in MESH_SMOKE_ARCHS:
+        rows, kept, final, n_micro, grads = refs[arch]
+        rank0 = next(r for r in res if r["coords"] == (0, 0))
+        got = rank0["archs"][arch]
+
+        def max_err(a, b, masks=None):
+            masks = masks or [None] * len(tree.leaves(a))
+            return max(float(np.abs(x - y)[m if m is not None else ...]
+                             .max(initial=0.0))
+                       for x, y, m in zip(tree.leaves(a), tree.leaves(b),
+                                          masks))
+
+        # the bound's own exception: a gradient at the noise level. Under
+        # 10 x AdamW's eps (1e-8) the first steps' lr g / (|g| + eps) turns
+        # the fp32 summation-order noise of g (~1e-9 here) into a visible
+        # fraction of lr; such elements are counted, not gated
+        masks = [(np.abs(g1) > NOISE_GRAD) & (np.abs(g2) > NOISE_GRAD)
+                 for g1, g2 in zip(tree.leaves(grads[0]),
+                                   tree.leaves(grads[1]))]
+        noise = int(sum((~m).sum() for m in masks))
+        err2_all = max_err(got["params_kept"], kept)
+        err2 = max_err(got["params_kept"], kept, masks)
+        err3 = max_err(got["params"], final)
+        for r in res:
+            g = r["archs"][arch]
+            diff = max(max(abs(a[k] - b[k]) / max(1.0, abs(b[k]))
+                           for k in ("loss", "grad_norm", "lr"))
+                       for a, b in zip(g["rows"], rows))
+            emit({"phase": 19, "part": "19b", "arch": arch,
+                  "rank": list(r["coords"]), "mesh": [2, 2],
+                  "transport": r["transport"], "dtype": "float32",
+                  "n_micro": [g["n_micro"], n_micro],
+                  "losses": [x["loss"] for x in g["rows"]],
+                  "grad_norms": [x["grad_norm"] for x in g["rows"]],
+                  "max_metric_diff_vs_meshless": diff, "tol": 1e-5,
+                  "params_max_abs_err_after_2": err2, "params_tol": 1e-5,
+                  "params_at_noise_grad": noise,
+                  "params_max_abs_err_after_2_all": err2_all,
+                  "params_max_abs_err_after_3": err3,
+                  "resident_bytes": g["resident_bytes"],
+                  "shard_bytes": g["shard_bytes"],
+                  "step_s": [x["step_s"] for x in g["rows"]],
+                  "step_s_measures": "four ranks sharing one card, their "
+                                     "collectives staged through the host "
+                                     "by gloo: not a parallel speed",
+                  "world_s": world_s, "card": smi})
+            check(g["n_micro"] == n_micro == 2,
+                  f"phase 19b {arch}: n_micro {g['n_micro']}")
+            check(diff <= 1e-5, f"phase 19b {arch} rank {r['coords']}: "
+                                f"metrics off the meshless step by {diff}")
+            check(g["resident_bytes"] == g["shard_bytes"],
+                  f"phase 19b {arch} rank {r['coords']}: resident "
+                  f"{g['resident_bytes']} != its shards' "
+                  f"{g['shard_bytes']} bytes")
+        # the bound of tests/test_torch_train.py: after two steps
+        check(err2 <= 1e-5, f"phase 19b {arch}: parameters after two steps "
+                            f"off the meshless step's by {err2}")
+    cfg = _train_full_cfg(device)
+    for r in (x["full"] for x in res if "full" in x):
+        rel = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                  for a, b in zip(r["rows"], full_rows))
+        emit({"phase": 19, "part": "19c", "arch": cfg.arch_id,
+              "layers": cfg.num_layers, "mesh": [1, 2], "rank": r["rank"],
+              "transport": r["transport"], "local_heads": r["local_heads"],
+              "dtype": str(cfg.dtype).replace("torch.", ""),
+              "reduced": {"num_layers": f"{D_LAYERS} -> {cfg.num_layers}",
+                          "seq_len": f"4096 -> {seq}",
+                          "global_batch": "256 -> 2"},
+              "n_micro": [r["n_micro"], full_micro],
+              "losses": [x["loss"] for x in r["rows"]],
+              "losses_meshless": [x["loss"] for x in full_rows],
+              "loss_rel_diff": rel, "tol": 1e-2,
+              "resident_bytes": r["resident_bytes"],
+              "shard_bytes": r["shard_bytes"],
+              "peak_mem_gb_init": r["peak_mem_gb_init"],
+              "peak_mem_gb_training": r["peak_mem_gb"],
+              "meshless_peak_mem_gb": full_peak,
+              "step_s": [x["step_s"] for x in r["rows"]],
+              "meshless_step_s": [x["step_s"] for x in full_rows],
+              "step_s_measures": "gloo on one card: not a parallel speed",
+              "world_s": world_s, "card": smi})
+        check(np.isfinite(rel) and rel <= 1e-2,
+              f"phase 19c rank {r['rank']}: losses {r['rows']} off the "
+              f"meshless {full_rows} by {rel}")
+        check(r["resident_bytes"] == r["shard_bytes"],
+              f"phase 19c rank {r['rank']}: resident bytes "
+              f"{r['resident_bytes']} != {r['shard_bytes']}")
+    check(sum("full" in x for x in res) == 2, "phase 19c: not two ranks")
+    return {"world_s": world_s}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
                     default="0,1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,"
-                            "18",
+                            "18,19",
                     help="comma-separated subset of phases to run")
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the depth of the full-width phases 2, 5, "
@@ -5030,6 +5532,7 @@ def main() -> None:
           "device": torch.cuda.get_device_name(0)})
     lap("0")
     rows = {}
+    row8b = None
     if 1 in phases:
         rows["sidebar_mlp"] = mlp_ops()
         whisper_mlp_ops()
@@ -5125,7 +5628,7 @@ def main() -> None:
         served["train_8a"] = train_forward_full(cfg, params)
         params = None
         torch.cuda.empty_cache()
-        train_steps_full()
+        row8b = train_steps_full()
         trainer_resume()
         lap("8")
     if 3 in phases:
@@ -5218,6 +5721,19 @@ def main() -> None:
         emit({"phase": 18, "host_s": {"18a": t18a - t18,
                                       "18b_18c": time.perf_counter() - t18a}})
         lap("18")
+    if 19 in phases:
+        from repro_torch.launch import mesh as mesh_lib
+
+        t19 = time.perf_counter()
+        train_mesh_host(_train_full_cfg("cuda"), smi, row8b)
+        t19a = time.perf_counter()
+        torch.cuda.empty_cache()
+        train_mesh_world(smi)
+        mesh_lib.destroy()
+        torch.cuda.empty_cache()
+        emit({"phase": 19, "host_s": {
+            "19a": t19a - t19, "19b_19c": time.perf_counter() - t19a}})
+        lap("19")
     # launches: the drain of the main path (phase 2), of the mode (phase
     # 5) or of the model (phases 6, 7 and 12) that runs the kernel
     run_of = {"sidebar_mlp": "sidebar", "paged_gqa": "sidebar",

@@ -16,8 +16,15 @@
 Leaves are tensors of a tree of dicts, lists and tuples
 (``repro_torch.tree``), stored per leaf in one ``arrays.npz`` under
 their key paths; bf16 goes to disk as fp32 (a lossless container) and
-comes back in the type of the tree it is restored into. One device: the
-JAX manager's re-sharding onto another mesh is not ported.
+comes back in the type of the tree it is restored into.
+
+Under a mesh (``placement=``, an ``models.layers.Placement`` of the
+state tree) every rank calls ``save`` / ``restore``: the state is
+gathered whole (a collective) and written by rank 0 alone in the
+one-device layout, as the JAX manager writes whole arrays; the other
+ranks wait for it (``wait`` ends in a barrier). ``restore`` reads the
+whole arrays and re-shards them onto the mesh, so a checkpoint written
+on a (2, 2) mesh resumes on one device, and the reverse.
 """
 
 from __future__ import annotations
@@ -31,8 +38,10 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import tree
+from repro_torch.models.layers import shard_leaf
 
 
 def _flatten(state) -> dict[str, np.ndarray]:
@@ -56,24 +65,49 @@ class CheckpointManager:
         self.keep = keep
         os.makedirs(directory, exist_ok=True)
         self._thread: threading.Thread | None = None
+        self._mesh = None      # the mesh of the last save, for the barrier
 
     # -- save ---------------------------------------------------------------
-    def save(self, step: int, state, *, meta: dict | None = None) -> str:
-        self.wait()
-        return self._write(step, _flatten(state), meta or {})
+    def _snapshot(self, state, placement) -> dict | None:
+        """Host copies of the whole state, on the writing rank (None on
+        the others)."""
+        self._mesh = None if placement is None else placement.mesh
+        if placement is not None:
+            state = placement.gather(state)
+            if placement.mesh.fsdp_rank or placement.mesh.rank:
+                return None
+        return _flatten(state)
 
-    def save_async(self, step: int, state, *,
-                   meta: dict | None = None) -> None:
+    def save(self, step: int, state, *, meta: dict | None = None,
+             placement=None) -> str:
         self.wait()
-        flat = _flatten(state)  # host snapshot NOW (device -> host copy)
-        self._thread = threading.Thread(
-            target=self._write, args=(step, flat, meta or {}), daemon=True)
-        self._thread.start()
+        flat = self._snapshot(state, placement)
+        path = os.path.join(self.directory, f"step_{step:010d}")
+        if flat is not None:
+            path = self._write(step, flat, meta or {})
+        self.wait()
+        return path
+
+    def save_async(self, step: int, state, *, meta: dict | None = None,
+                   placement=None) -> None:
+        self.wait()
+        flat = self._snapshot(state, placement)  # host snapshot NOW
+        if flat is not None:
+            self._thread = threading.Thread(
+                target=self._write, args=(step, flat, meta or {}),
+                daemon=True)
+            self._thread.start()
 
     def wait(self) -> None:
+        """Join the writer; under a mesh every rank then waits for rank
+        0's write."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._mesh is not None:
+            self._mesh = None
+            if dist.is_initialized() and dist.get_world_size() > 1:
+                dist.barrier()
 
     def _write(self, step: int, flat: dict, meta: dict) -> str:
         tmp = os.path.join(self.directory, f"tmp.{step}")
@@ -109,10 +143,13 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int, like, *, expect_meta: dict | None = None):
+    def restore(self, step: int, like, *, expect_meta: dict | None = None,
+                placement=None):
         """Restore into the structure of ``like`` (a tree of tensors):
-        each leaf in ``like``'s type, on its device. Raises on a metadata
-        mismatch, a missing key or a shape mismatch."""
+        each leaf in ``like``'s type, on its device; under ``placement``
+        ``like`` holds the rank's shards and each whole array is cut to
+        its shard. Raises on a metadata mismatch, a missing key or a
+        shape mismatch."""
         path = os.path.join(self.directory, f"step_{step:010d}")
         with open(os.path.join(path, "manifest.json")) as f:
             manifest = json.load(f)
@@ -122,15 +159,20 @@ class CheckpointManager:
                 raise ValueError(f"checkpoint meta mismatch for {k!r}: "
                                  f"saved {got!r}, expected {v!r}")
         data = np.load(os.path.join(path, "arrays.npz"))
+        specs = (tree.leaf_specs(like, placement.specs)
+                 if placement is not None
+                 else [None] * len(tree.leaves(like)))
         leaves = []
-        for key, leaf in tree.leaves_with_path(like):
+        for (key, leaf), spec in zip(tree.leaves_with_path(like), specs):
             if key not in data:
                 raise KeyError(f"checkpoint missing {key!r}")
             arr = data[key]
-            if tuple(arr.shape) != tuple(leaf.shape):
+            t = torch.from_numpy(arr)
+            if spec is not None:
+                t = shard_leaf(t, spec, placement.mesh)
+            if tuple(t.shape) != tuple(leaf.shape):
                 raise ValueError(f"shape mismatch for {key!r}: saved "
                                  f"{arr.shape}, model wants "
                                  f"{tuple(leaf.shape)}")
-            leaves.append(torch.from_numpy(arr).to(device=leaf.device,
-                                                   dtype=leaf.dtype))
+            leaves.append(t.to(device=leaf.device, dtype=leaf.dtype))
         return tree.unflatten(like, leaves), manifest

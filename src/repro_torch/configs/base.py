@@ -77,6 +77,8 @@ class ModelConfig:
                                    # (name kept from the JAX config)
     kv_cache_dtype: torch.dtype = torch.bfloat16  # int8 => quantized KV
                                    # (GQA; the MLA cache is in ``dtype``)
+    moe_dispatch: str = "shard_map"  # shard_map | dense: MoE training on
+                                   # a mesh (``models.moe``)
 
     def __post_init__(self):
         if self.head_dim == 0:

@@ -9,7 +9,10 @@
     realistic branching factor) rather than uniform noise.
 
 Batches are made on the host and moved to the device (``cuda`` unless
-the caller passes ``device="cpu"``); one device, no sharding.
+the caller passes ``device="cpu"``) with the global logical shape;
+``shard_batch`` then keeps a mesh rank's rows (a contiguous block of
+the global batch over the batch axes, as ``P(batch_axes)`` lays it
+out).
 """
 
 from __future__ import annotations
@@ -84,3 +87,15 @@ def stream(cfg: ModelConfig, cell: ShapeCell, start_step: int = 0,
         yield step, make_batch(cfg, cell, step, dcfg,
                                batch_override=batch_override, device=device)
         step += 1
+
+
+def shard_batch(batch: dict, mesh, minfo) -> dict:
+    """This rank's rows of a global batch: the batch dim over the mesh's
+    batch axes (``launch.input_specs.batch_pspec``), a contiguous block;
+    every rank keeps all rows where those axes do not divide them."""
+    from repro_torch.launch.input_specs import batch_pspec
+    from repro_torch.models.layers import sanitize_pspec, shard_leaf
+
+    return {k: shard_leaf(x, sanitize_pspec(
+        mesh, batch_pspec(minfo, x.ndim), x.shape), mesh)
+        for k, x in batch.items()}

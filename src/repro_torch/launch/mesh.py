@@ -1,15 +1,20 @@
-"""Serving meshes over ``torch.distributed`` (mirror of
-``repro.launch.mesh``).
+"""Meshes over ``torch.distributed`` for serving and training (mirror
+of ``repro.launch.mesh``).
 
 A JAX mesh is an array of devices with axis names; its sharded programs
 run as one SPMD program over it. The port runs one process per mesh
 position instead (a rank of a ``torch.distributed`` world): a ``Mesh``
 records the mesh's shape and canonical axis names, this rank's device,
-and the process group of the rank's "model" row, over which the
-serving steps reduce their partials (``parallel.tp``). Ranks are laid
-out row-major: rank r sits at column ``r % C`` of row ``r // C``, so
-the "model" group of row i is ranks ``[i * C, (i + 1) * C)``; the other
-axes replicate (each row serves the same requests).
+the process group of the rank's "model" row, over which the steps
+reduce their partials (``parallel.tp``), and its fsdp group: the ranks
+that share its "model" index across "pod" and "data", over which
+training gathers its parameters and reduces its gradients. Ranks are
+laid out row-major: rank r sits at column ``r % C`` of row ``r // C``,
+so the "model" group of row i is ranks ``[i * C, (i + 1) * C)`` and the
+fsdp group of column c is ranks ``c, c + C, ...`` (in a rank-3 mesh the
+row index runs over pod x data). Serving ignores the fsdp group: the
+other axes replicate (each row serves the same requests). The same
+meshes serve training, as the JAX package's ``auto_mesh`` meshes do.
 
 Axes, as in the JAX package:
   * rank 2: ("data", "model")
@@ -71,6 +76,12 @@ class Mesh:
     group: Any          # the "model" row's process group
     rank: int           # this rank's column (its index on "model")
     backend: str        # the group's backend: "nccl" or "gloo"
+    fsdp_group: Any = None  # the ranks sharing this rank's column
+    fsdp_rank: int = 0      # this rank's row (its index over pod x data)
+
+    @property
+    def fsdp_size(self) -> int:
+        return int(np.prod(self.shape[:-1]))
 
     @property
     def devices(self) -> np.ndarray:
@@ -85,9 +96,14 @@ class Mesh:
             return "nccl"
         return "gloo-host-staged" if self.device.type == "cuda" else "gloo"
 
-    def tp_context(self) -> TpContext:
+    def tp_context(self, specs=None) -> TpContext:
+        """The ambient context of a step on this rank. ``specs`` (the
+        sanitized description of the parameters the rank holds) makes it
+        a training context: ZeRO-3 gathers over the fsdp group."""
         return TpContext(axis="model", size=self.shape[-1], rank=self.rank,
-                         group=self.group, transport=self.transport)
+                         group=self.group, transport=self.transport,
+                         fsdp_size=self.fsdp_size, fsdp_rank=self.fsdp_rank,
+                         fsdp_group=self.fsdp_group, specs=specs)
 
 
 def mesh_info(mesh) -> MeshInfo:
@@ -166,14 +182,15 @@ def make_host_mesh(*, multi_pod: bool = False, device=None) -> Mesh:
     _warm(group, dev, backend)
     shape = (1, 1, 1) if multi_pod else (1, 1)
     return Mesh(shape=shape, axis_names=CANONICAL_AXES[len(shape)],
-                device=dev, group=group, rank=0, backend=backend)
+                device=dev, group=group, rank=0, backend=backend,
+                fsdp_group=group)
 
 
 def make_serving_mesh(shape: tuple[int, ...], *, device=None,
                       backend: str | None = None) -> Mesh:
-    """A serving mesh of ``shape`` over the ranks of the current world,
-    with the canonical axis names for its rank — ``(1, 2)`` is data=1 x
-    model=2 tensor parallel. The world must hold exactly
+    """A mesh of ``shape`` over the ranks of the current world, with the
+    canonical axis names for its rank — ``(1, 2)`` is data=1 x model=2
+    tensor parallel, ``(2, 2)`` adds two-way FSDP for training. The world must hold exactly
     ``prod(shape)`` ranks, started by the caller (``python -m
     torch.distributed.run`` or ``init_process_group``); every rank calls
     this. ``device`` defaults to ``cuda:LOCAL_RANK`` (or the rank modulo
@@ -198,14 +215,20 @@ def make_serving_mesh(shape: tuple[int, ...], *, device=None,
     dev = _cuda_device(resolve_device(device))
     backend = _backend(dev, backend)
     cols = shape[-1]
-    group = None
+    group = fsdp_group = None
     for row in range(n // cols):
         g = _group(list(range(row * cols, (row + 1) * cols)), backend)
         if row == rank // cols:
             group = g
+    for col in range(cols):
+        g = _group(list(range(col, n, cols)), backend)
+        if col == rank % cols:
+            fsdp_group = g
     _warm(group, dev, backend)
+    _warm(fsdp_group, dev, backend)
     return Mesh(shape=shape, axis_names=CANONICAL_AXES[len(shape)],
-                device=dev, group=group, rank=rank % cols, backend=backend)
+                device=dev, group=group, rank=rank % cols, backend=backend,
+                fsdp_group=fsdp_group, fsdp_rank=rank // cols)
 
 
 def destroy() -> None:

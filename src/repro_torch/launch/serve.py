@@ -39,7 +39,8 @@ positions, tables and sampling state are replicated host metadata: all
 ranks sample the same token from the same gathered logits. The steps
 are built with ``tp=``; their executable-cache keys end in the mesh.
 The transformer's families (dense, moe, vlm) carry a sharding
-description; the other families, training on a mesh and the
+description (``param_pspecs``, the model-only projection of the
+training description ``param_specs``); the other families and the
 speculative verify step under a mesh are not ported (ROADMAP Queue 1
 item 6).
 """
@@ -136,15 +137,9 @@ class TpSpec:
     def ctx(self) -> tplib.TpContext:
         return self.mesh.tp_context()
 
-    def _place(self, tree, specs):
-        def shard(path, t, spec):
-            d = tplib.model_dim(spec)
-            if d is None or self.size == 1:
-                return t
-            n = t.shape[d] // self.size
-            return t.narrow(d, self.rank * n, n).clone()
-
-        return _walk(tree, specs, shard)
+    def _place(self, tree_, specs):
+        return tree.map_with_spec(
+            lambda t, spec: L.shard_leaf(t, spec, self.mesh), tree_, specs)
 
     def place_params(self, params):
         """This rank's shard of a full params tree (at one rank: the

@@ -45,7 +45,11 @@ rank's heads (``TpSpec.cfg_local``), wq / wk / wv (MLA: w_uq, w_uk,
 w_uv) are column-parallel over whole heads and wo row-parallel: every
 exit reduces wo's partial over the model axis. The GQA pool and slab
 shard their KV heads, so the paged kernels walk the rank's heads and no
-KV moves; MLA's latent cache is replicated.
+KV moves; MLA's latent cache is replicated. Training on a mesh, the
+replicated tensors entering the head-sharded products pass
+``tp.copy_to_model`` (x; MLA's c_q, c_kv and shared rope key; qwen3's
+qk norms), and q / k / v pass the ``hints.constrain`` of the JAX
+module.
 """
 
 from __future__ import annotations
@@ -67,8 +71,15 @@ from repro_torch.kernels.ref import (
     dot,
     rowwise_pos,
 )
-from repro_torch.models.layers import apply_rope, linear, rms_norm
+from repro_torch.models.layers import (
+    MeshInfo,
+    _maybe,
+    apply_rope,
+    linear,
+    rms_norm,
+)
 from repro_torch.parallel import tp
+from repro_torch.parallel.hints import constrain
 
 Tensor = torch.Tensor
 
@@ -111,32 +122,37 @@ def attn_param_shapes(cfg: ModelConfig) -> dict:
     return mla_param_shapes(cfg) if cfg.use_mla else gqa_param_shapes(cfg)
 
 
-# The sharding description beside each shape tree: a leaf is the
-# model-only partition of its tensor (``parallel.tp.model_only_pspec`` of
-# the JAX package's spec), a tuple naming "model" at the sharded dim, or
-# () for a replicated leaf.
+# The sharding description beside each shape tree (the JAX package's
+# ``*_param_specs``, leaf for leaf, without the stacked layer axis): the
+# fsdp axes on the dim the JAX package puts them on, "model" on the
+# head dim; ``transformer.param_pspecs`` projects it onto "model" for
+# serving.
 
-def gqa_param_pspecs(cfg: ModelConfig) -> dict:
-    """Column-parallel q / k / v over whole heads, row-parallel wo."""
-    specs = {"wq": (None, "model"), "wk": (None, "model"),
-             "wv": (None, "model"), "wo": ("model",)}
+def gqa_param_specs(cfg: ModelConfig, m: MeshInfo) -> dict:
+    """Column-parallel q / k / v over whole heads, row-parallel wo, each
+    FSDP-sharded on its other dim."""
+    fsdp = tuple(m.fsdp) or None
+    specs = {"wq": _maybe(m, fsdp, "model"), "wk": _maybe(m, fsdp, "model"),
+             "wv": _maybe(m, fsdp, "model"), "wo": _maybe(m, "model", fsdp)}
     if cfg.qk_norm:
-        specs["q_norm"] = ()
-        specs["k_norm"] = ()
+        specs["q_norm"] = (None,)
+        specs["k_norm"] = (None,)
     return specs
 
 
-def mla_param_pspecs(cfg: ModelConfig) -> dict:
-    """The latent projections replicated, the per-head ups column-
-    parallel, wo row-parallel."""
-    return {"w_dq": (), "q_norm": (), "w_uq": (None, "model"),
-            "w_dkv": (), "kv_norm": (), "w_kr": (),
-            "w_uk": (None, "model"), "w_uv": (None, "model"),
-            "wo": ("model",)}
+def mla_param_specs(cfg: ModelConfig, m: MeshInfo) -> dict:
+    """The latent projections replicated over "model" (FSDP over d), the
+    per-head ups column-parallel, wo row-parallel."""
+    fsdp = tuple(m.fsdp) or None
+    return {"w_dq": _maybe(m, fsdp, None), "q_norm": (None,),
+            "w_uq": _maybe(m, fsdp, "model"), "w_dkv": _maybe(m, fsdp, None),
+            "kv_norm": (None,), "w_kr": _maybe(m, fsdp, None),
+            "w_uk": _maybe(m, fsdp, "model"), "w_uv": _maybe(m, fsdp, "model"),
+            "wo": _maybe(m, "model", fsdp)}
 
 
-def attn_param_pspecs(cfg: ModelConfig) -> dict:
-    return mla_param_pspecs(cfg) if cfg.use_mla else gqa_param_pspecs(cfg)
+def attn_param_specs(cfg: ModelConfig, m: MeshInfo) -> dict:
+    return mla_param_specs(cfg, m) if cfg.use_mla else gqa_param_specs(cfg, m)
 
 
 def kv_cache_pspecs(cfg: ModelConfig) -> dict:
@@ -299,7 +315,8 @@ def _attend_chunked(q, k, v, group: int, scale: float, causal: bool,
     prefix = causal and static and n_chunks <= UNROLL_CHUNKS
     outs = []
     for i in range(n_chunks):
-        qi = q[:, :, i * CHUNK_Q:(i + 1) * CHUNK_Q]
+        qi = constrain(q[:, :, i * CHUNK_Q:(i + 1) * CHUNK_Q],
+                       ("batch", "model", None, None))
         ki, vi = k, v
         if prefix:
             end = offset + (i + 1) * CHUNK_Q
@@ -324,21 +341,26 @@ def gqa_attention(
     b, s, _ = x.shape
     h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
 
+    # the replicated input enters the head-sharded products
+    x = tp.copy_to_model(x)
     q = linear(x, params["wq"]).reshape(b, s, h, dh)
-    kv_src = x if memory is None else memory
+    kv_src = x if memory is None else tp.copy_to_model(memory)
     k = linear(kv_src, params["wk"]).reshape(b, kv_src.shape[1], hkv, dh)
     v = linear(kv_src, params["wv"]).reshape(b, kv_src.shape[1], hkv, dh)
 
     if cfg.qk_norm:  # qk-RMSNorm over the head dim (qwen3), before rope
-        q = rms_norm(q, params["q_norm"], cfg.norm_eps)
-        k = rms_norm(k, params["k_norm"], cfg.norm_eps)
+        # replicated norms applied to the rank's heads: their gradient
+        # sums every rank's heads
+        q = rms_norm(q, tp.copy_to_model(params["q_norm"]), cfg.norm_eps)
+        k = rms_norm(k, tp.copy_to_model(params["k_norm"]), cfg.norm_eps)
 
     if memory is None:  # rope only for self-attention
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, _key_positions(positions, cache, cache_pos, s,
                                          x.device), cfg.rope_theta)
 
-    q, k, v = (t.transpose(1, 2) for t in (q, k, v))   # (B, heads, S, Dh)
+    q, k, v = (constrain(t.transpose(1, 2), ("batch", "model", None, None))
+               for t in (q, k, v))                    # (B, heads, S, Dh)
 
     if cache is not None:
         int8 = cfg.kv_cache_dtype == torch.int8
@@ -437,7 +459,11 @@ def mla_attention(
 
     # queries: low-rank down + norm + up
     c_q = rms_norm(linear(x, params["w_dq"]), params["q_norm"], cfg.norm_eps)
-    q = linear(c_q, params["w_uq"]).reshape(b, s, h, nope + rope)
+    # the replicated latents (and the shared rope key below) enter the
+    # head-sharded products through copy_to_model: otherwise w_dq, w_dkv,
+    # w_kr and the two norms get partial gradients on each rank
+    q = linear(tp.copy_to_model(c_q), params["w_uq"]).reshape(
+        b, s, h, nope + rope)
     q_nope, q_rope = q[..., :nope], q[..., nope:]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
 
@@ -497,9 +523,10 @@ def mla_attention(
 
     # prefill: expand per-head keys and values from the latent (naive MLA)
     t = c_kv.shape[1]
+    c_kv = tp.copy_to_model(c_kv)
     k_nope = linear(c_kv, params["w_uk"]).reshape(b, t, h, nope)
     v = linear(c_kv, params["w_uv"]).reshape(b, t, h, vdh)
-    k_rope_h = k_rope[:, :, None, :].expand(b, t, h, rope)
+    k_rope_h = tp.copy_to_model(k_rope)[:, :, None, :].expand(b, t, h, rope)
     q_full = torch.cat([q_nope, q_rope], dim=-1).transpose(1, 2)
     k_full = torch.cat([k_nope, k_rope_h], dim=-1).transpose(1, 2)
     static = cache is None

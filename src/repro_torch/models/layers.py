@@ -1,5 +1,6 @@
 """Shared building blocks (mirror of ``repro.models.layers``): norms,
-rope, linears, embeddings and the seeded initializer.
+rope, linears, embeddings, the seeded initializer and the sharding
+descriptions' helpers.
 
 Parameters are plain dicts of tensors. ``init_leaf`` draws one with the
 scales of the JAX package's ``materialize`` (``1/sqrt(fan_in)`` for
@@ -7,6 +8,14 @@ matrices, fan-in the second-to-last axis, 0.02 for the embedding, ones
 for norms) from a ``torch.Generator``; the numbers differ from
 ``jax.random``'s, so tests that compare the two load JAX's weights
 through ``repro_torch.bridge``.
+
+Sharding descriptions (the JAX package's ``ParamSpec.pspec`` trees):
+each leaf is a tuple with one entry a dim, an axis name ("model"), a
+tuple of fsdp axes (("pod", "data")) or None, built by ``_maybe`` from
+the axes a ``MeshInfo`` has. ``sanitize_pspec`` drops an entry whose
+axes' size does not divide its dim; ``Placement`` cuts a rank's shards
+from full tensors and gathers them back (the port's ``NamedSharding``
+tree: ``shardings``).
 """
 
 from __future__ import annotations
@@ -14,13 +23,16 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
+from typing import Any
 
+import numpy as np
 import torch
 from torch.utils.checkpoint import (
     CheckpointPolicy,
     create_selective_checkpoint_contexts,
 )
 
+from repro_torch import tree
 from repro_torch.kernels.ref import dot
 from repro_torch.parallel import tp
 
@@ -55,6 +67,107 @@ class MeshInfo:
         for a in axes:
             n *= m.get(a, 1)
         return n
+
+    @property
+    def batch_axes(self) -> tuple[str, ...]:
+        return self.fsdp  # data parallel over the same axes
+
+
+SINGLE_POD = MeshInfo.from_axes(("data", "model"))
+HOST = MeshInfo.from_axes(())  # one device: fully replicated
+
+
+def _maybe(minfo: MeshInfo, *axes) -> tuple:
+    """A description leaf, dropping axes absent from the mesh (an entry:
+    None, an axis name, or a tuple of names kept if any is present)."""
+    out = []
+    for a in axes:
+        if isinstance(a, tuple):
+            present = tuple(x for x in a if x in minfo.axis_names)
+            out.append(present or None)
+        else:
+            out.append(a if a in minfo.axis_names else None)
+    return tuple(out)
+
+
+def _axes(entry) -> tuple[str, ...]:
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def sanitize_pspec(mesh, pspec, shape) -> tuple:
+    """Drop the entries whose axes' size does not divide their dim (e.g.
+    batch 1 on a 2-way data axis): one entry per dim of ``shape``."""
+    sizes = dict(zip(mesh.axis_names, mesh.shape))
+    entries = list(pspec) + [None] * (len(shape) - len(pspec))
+    return tuple(e if e is None or dim % math.prod(
+        sizes.get(a, 1) for a in _axes(e)) == 0 else None
+        for dim, e in zip(shape, entries))
+
+
+def shard_leaf(full: Tensor, spec, mesh) -> Tensor:
+    """This rank's block of ``full`` under its sanitized ``spec``: each
+    sharded dim split into the product of its axes' sizes, the block at
+    the rank's row-major index over those axes. A leaf sharded nowhere
+    comes back as the same tensor."""
+    sizes = dict(zip(mesh.axis_names, mesh.shape))
+    coords = dict(zip(mesh.axis_names, np.unravel_index(
+        mesh.fsdp_rank * mesh.shape[-1] + mesh.rank, mesh.shape)))
+    out = full
+    for d, e in enumerate(spec):
+        idx, n = 0, 1
+        for a in _axes(e):
+            idx, n = idx * sizes[a] + int(coords[a]), n * sizes[a]
+        if n > 1:
+            k = out.shape[d] // n
+            out = out.narrow(d, idx * k, k)
+    return full if out is full else out.clone()
+
+
+def gather_leaf(shard: Tensor, spec, mesh) -> Tensor:
+    """The full tensor of ``shard`` under its sanitized ``spec``: its
+    fsdp dim gathered over the mesh's fsdp group, its "model" dim over
+    the "model" group (every rank of the mesh calls this)."""
+    out = shard
+    for d, e in enumerate(spec):
+        if e is None:
+            continue
+        if e == "model":
+            out = tp.gather_along(out, mesh.group, mesh.shape[-1],
+                                  mesh.transport, d)
+        else:
+            out = tp.gather_along(out, mesh.fsdp_group, mesh.fsdp_size,
+                                  mesh.transport, d)
+    return out
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Placement:
+    """Where each leaf of a parameter tree lives on a mesh (the port's
+    ``NamedSharding`` tree): the mesh and the sanitized description."""
+
+    mesh: Any
+    specs: Any
+
+    def place(self, params):
+        """This rank's shards of a full tree (at one rank: the same
+        tensors)."""
+        return tree.map_with_spec(
+            lambda t, s: shard_leaf(t, s, self.mesh), params, self.specs)
+
+    def gather(self, shards):
+        """The full tree of this rank's shards (a collective)."""
+        return tree.map_with_spec(
+            lambda t, s: gather_leaf(t, s, self.mesh), shards, self.specs)
+
+
+def shardings(mesh, specs, shapes) -> Placement:
+    """The placement of a description on ``mesh``, each leaf sanitized
+    against its shape (``shapes``: ``param_shapes``' ``(shape, init[,
+    dtype])`` leaves): ``repro.models.layers.shardings``."""
+    return Placement(mesh, tree.map_with_spec(
+        lambda sh, s: sanitize_pspec(mesh, s, sh[0]), shapes, specs))
 
 
 def init_leaf(shape: tuple[int, ...], init: str, dtype: torch.dtype, *,
@@ -226,7 +339,10 @@ def unembed(x: Tensor, table: Tensor) -> Tensor:
     its two GEMMs under autograd): the 256000 x 6144 table is never
     copied to fp32. Under the ambient TP context the table is a vocab
     shard, so the local product is a column slice of the logits (exact
-    per column: d is never split), gathered to full width once."""
+    per column: d is never split), gathered to full width once; under
+    autograd x enters it through ``tp.copy_to_model``, so x's gradient
+    sums every rank's vocab columns."""
+    x = tp.copy_to_model(x)
     if x.is_cuda and x.dtype != torch.float32:
         out = _UnembedMM.apply(x.reshape(-1, x.shape[-1]), table)
         out = out.reshape(*x.shape[:-1], table.shape[0])

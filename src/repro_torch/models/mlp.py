@@ -23,7 +23,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.function_table import DEFAULT_TABLE, FunctionTable
 from repro_torch.kernels import ops as kops
-from repro_torch.models.layers import linear
+from repro_torch.models.layers import MeshInfo, _maybe, linear
 from repro_torch.parallel import tp
 
 
@@ -35,12 +35,15 @@ def mlp_param_shapes(cfg: ModelConfig) -> dict:
     return shapes
 
 
-def mlp_param_pspecs(cfg: ModelConfig) -> dict:
-    """Model-only partitions (``attention.gqa_param_pspecs``): the up /
-    gate products column-parallel over d_ff, the down one row-parallel."""
-    specs = {"w_up": (None, "model"), "w_down": ("model",)}
+def mlp_param_specs(cfg: ModelConfig, m: MeshInfo) -> dict:
+    """The description (``attention.gqa_param_specs``): the up / gate
+    products column-parallel over d_ff, the down one row-parallel, each
+    FSDP-sharded over d."""
+    fsdp = tuple(m.fsdp) or None
+    specs = {"w_up": _maybe(m, fsdp, "model"),
+             "w_down": _maybe(m, "model", fsdp)}
     if cfg.gated_mlp:
-        specs["w_gate"] = (None, "model")
+        specs["w_gate"] = _maybe(m, fsdp, "model")
     return specs
 
 
@@ -50,6 +53,7 @@ def mlp(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
     """x (..., D) -> (..., D)."""
     act_name = activation or cfg.activation
     d = x.shape[-1]
+    x = tp.copy_to_model(x)      # replicated x into the d_ff-sharded products
     if cfg.use_pallas and x.ndim >= 2:
         x2 = x.reshape(math.prod(x.shape[:-1]), d).contiguous()
         if cfg.gated_mlp:

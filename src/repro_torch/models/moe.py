@@ -53,9 +53,21 @@ are decided over GLOBAL expert ids; the expert stacks hold the rank's
 E_local experts, run at its offset (``tp.shard_offset(E_local)``): a
 pair of another rank's expert is not kept here. The shared experts'
 column / row slices add their own partial, and ONE reduction over the
-model axis reassembles the layer's output. Only the training
-``shard_map`` expert dispatch of the JAX module is not ported (ROADMAP
-Queue 1 item 6).
+model axis reassembles the layer's output.
+
+Training on a mesh (the JAX module's ``shard_map`` dispatch,
+``cfg.moe_dispatch == "shard_map"``, the default): the layer's experts
+arrive gathered over fsdp by the stack's ZeRO-3 gather (at model size 1
+too), each rank routes its DATA-LOCAL tokens and runs its E_local
+experts at its offset, and the partial is summed over "model". Capacity
+comes from the data-local token count, as inside the JAX module's
+``shard_map``: with data > 1 and a dropping capacity the drops differ
+from a one-device run's, as the reference's do. The routing weights and
+x enter the local pass through ``tp.copy_to_model`` (the router is
+replicated over "model"; the pass is not). ``moe_dispatch == "dense"``
+is the host rule over the GLOBAL tokens (GSPMD's partition of it in the
+JAX package): the rank gathers every data shard's tokens, routes and
+runs the pass over all of them, and keeps its own rows.
 """
 
 from __future__ import annotations
@@ -68,6 +80,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.function_table import DEFAULT_TABLE, FunctionTable
 from repro_torch.kernels.moe_experts import grouped_mm
 from repro_torch.kernels.ref import dot, softmax
+from repro_torch.models.layers import MeshInfo, _maybe
 from repro_torch.parallel import tp
 
 Tensor = torch.Tensor
@@ -91,15 +104,19 @@ def moe_param_shapes(cfg: ModelConfig) -> dict:
     return shapes
 
 
-def moe_param_pspecs(cfg: ModelConfig) -> dict:
-    """Model-only partitions (``attention.gqa_param_pspecs``): the router
-    replicated, the expert stacks over experts, the shared experts as a
-    column / row-parallel MLP."""
-    specs = {"router": (), "w_gate": ("model",), "w_up": ("model",),
-             "w_down": ("model",)}
+def moe_param_specs(cfg: ModelConfig, m: MeshInfo) -> dict:
+    """The description (``attention.gqa_param_specs``): the router
+    replicated over "model", the expert stacks over experts (EP) and
+    FSDP over d, the shared experts as a column / row-parallel MLP."""
+    fsdp = tuple(m.fsdp) or None
+    specs = {"router": _maybe(m, fsdp, None),
+             "w_gate": _maybe(m, "model", fsdp, None),
+             "w_up": _maybe(m, "model", fsdp, None),
+             "w_down": _maybe(m, "model", None, fsdp)}
     if cfg.num_shared_experts:
-        specs["shared"] = {"w_gate": (None, "model"),
-                           "w_up": (None, "model"), "w_down": ("model",)}
+        specs["shared"] = {"w_gate": _maybe(m, fsdp, "model"),
+                           "w_up": _maybe(m, fsdp, "model"),
+                           "w_down": _maybe(m, "model", fsdp)}
     return specs
 
 
@@ -274,13 +291,20 @@ def moe(params: dict, cfg: ModelConfig, x: Tensor, *,
     act = table.lookup(cfg.activation)
     b, s, d = x.shape
     x2 = x.reshape(b * s, d)
-    weights, ids = _route(x2, params["router"], cfg)
+    xm = tp.copy_to_model(x2)
+    # "dense" on a mesh: every data shard's tokens (identity elsewhere)
+    dense = cfg.moe_dispatch == "dense"
+    xt = tp.gather_rows(x2) if dense else x2
+    weights, ids = _route(xt, params["router"], cfg)
     # under TP: the rank's experts at its offset, a partial sum
-    y = _local_expert_pass(x2, weights, ids, params["w_gate"],
+    y = _local_expert_pass(tp.copy_to_model(xt) if dense else xm,
+                           tp.copy_to_model(weights), ids, params["w_gate"],
                            params["w_up"], params["w_down"], cfg, act,
-                           tp.shard_offset(params["w_gate"].shape[0])
-                           ).to(x.dtype)
+                           tp.shard_offset(params["w_gate"].shape[0]))
+    if dense:
+        y = tp.fsdp_rows(y)
+    y = y.to(x.dtype)
     if cfg.num_shared_experts:
         sh = params["shared"]
-        y = y + _expert_mlp(x2, sh["w_gate"], sh["w_up"], sh["w_down"], act)
+        y = y + _expert_mlp(xm, sh["w_gate"], sh["w_up"], sh["w_down"], act)
     return tp.psum_partial(y).reshape(b, s, d)

@@ -32,6 +32,9 @@ class ModelApi:
     # families whose tensor-parallel serving is not ported
     param_pspecs: Callable | None = None
     cache_pspecs: Callable | None = None
+    # the two-axis description training on a mesh shards by
+    # (``transformer.param_specs(cfg, minfo)``), None with the above
+    param_specs: Callable | None = None
 
 
 def _api(mod, *, rowwise_decode_pos: bool = False) -> ModelApi:
@@ -47,6 +50,7 @@ def _api(mod, *, rowwise_decode_pos: bool = False) -> ModelApi:
         rowwise_decode_pos=rowwise_decode_pos,
         param_pspecs=getattr(mod, "param_pspecs", None),
         cache_pspecs=getattr(mod, "cache_pspecs", None),
+        param_specs=getattr(mod, "param_specs", None),
     )
 
 

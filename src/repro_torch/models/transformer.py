@@ -51,15 +51,18 @@ import functools
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import tree
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.function_table import DEFAULT_TABLE
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as L
-from repro_torch.models.mlp import mlp, mlp_param_pspecs, mlp_param_shapes
-from repro_torch.models.moe import moe, moe_param_pspecs, moe_param_shapes
-from repro_torch.parallel import tp
+from repro_torch.models.layers import MeshInfo, _maybe
+from repro_torch.models.mlp import mlp, mlp_param_shapes, mlp_param_specs
+from repro_torch.models.moe import moe, moe_param_shapes, moe_param_specs
+from repro_torch.parallel import hints, tp
+from repro_torch.parallel.hints import constrain
 
 Tensor = torch.Tensor
 
@@ -133,27 +136,39 @@ def param_shapes(cfg: ModelConfig) -> dict:
     }
 
 
-def param_pspecs(cfg: ModelConfig) -> dict:
-    """The sharding description of ``param_shapes``, leaf for leaf: the
-    model-only partition of each tensor (the vocab-row-sharded embedding,
-    column / row-parallel attention and MLPs, experts over "model";
-    norms and gates replicated)."""
+def param_specs(cfg: ModelConfig, m: MeshInfo) -> dict:
+    """The sharding description of ``param_shapes``, leaf for leaf (the
+    JAX package's ``param_specs(cfg, minfo)`` without the stacked layer
+    axes): the vocab-row-sharded embedding FSDP-sharded over d, column /
+    row-parallel attention and MLPs, experts over "model", each
+    FSDP-sharded on its other dim; norms and gates replicated."""
     check_family(cfg)
+    fsdp = tuple(m.fsdp) or None
 
     def block(kind):
-        out = {"attn_norm": (), "mlp_norm": (),
-               "attn": attn_lib.attn_param_pspecs(cfg)}
+        out = {"attn_norm": (None,), "mlp_norm": (None,),
+               "attn": attn_lib.attn_param_specs(cfg, m)}
         if kind == "moe":
-            out["moe"] = moe_param_pspecs(cfg)
+            out["moe"] = moe_param_specs(cfg, m)
         else:
-            out["mlp"] = mlp_param_pspecs(cfg)
+            out["mlp"] = mlp_param_specs(cfg, m)
         if kind == "cross":
-            out["xattn"] = attn_lib.gqa_param_pspecs(cfg)
-            out.update(xattn_norm=(), xattn_gate=(), xmlp_gate=())
+            out["xattn"] = attn_lib.gqa_param_specs(cfg, m)
+            out.update(xattn_norm=(None,), xattn_gate=(None,),
+                       xmlp_gate=(None,))
         return out
 
-    return {"embed": ("model",), "final_norm": (),
+    return {"embed": _maybe(m, "model", fsdp), "final_norm": (None,),
             "layers": [block(kind) for kind in layer_kinds(cfg)]}
+
+
+def param_pspecs(cfg: ModelConfig) -> dict:
+    """The serving description: ``param_specs`` on the ("data",
+    "model") mesh projected onto "model" (``tp.model_only_pspec``), so
+    serving and training cannot drift."""
+    specs = param_specs(cfg, L.SINGLE_POD)
+    return tree.map_with_spec(lambda s, _: tp.model_only_pspec(s), specs,
+                              specs)
 
 
 def cache_pspecs(cfg: ModelConfig) -> list:
@@ -181,9 +196,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 
 
 def _block(i, p, cfg, x, positions, *, table, cache, cache_pos,
-           block_tables, memory=None):
-    """Decoder layer ``i``, under its ``layer_scope``."""
+           block_tables, memory=None, spec=None):
+    """Decoder layer ``i``, under its ``layer_scope``. Training on a
+    mesh, ``spec`` is the layer's description: its fsdp-sharded leaves
+    are gathered here (ZeRO-3), inside the remat region, so a backward
+    recompute gathers them again."""
     with kops.layer_scope(i):
+        p = tp.gather_params(p, spec)
+        x = constrain(x, ("batch", None, None))
         h = L.rms_norm(x, p["attn_norm"], cfg.norm_eps)
         a, _ = attn_lib.attention(p["attn"], cfg, h, positions, cache=cache,
                                   cache_pos=cache_pos,
@@ -207,17 +227,29 @@ def _block(i, p, cfg, x, positions, *, table, cache, cache_pos,
 def _run_stack(params, cfg, x, positions, *, table, caches=None,
                cache_pos=None, block_tables=None, memory=None):
     remat = L.remat_kwargs(cfg) if caches is None else None
+    specs = _train_specs()
     for i, p in enumerate(params["layers"]):
         kw = dict(table=table,
                   cache=caches[i] if caches is not None else None,
                   cache_pos=cache_pos, block_tables=block_tables,
-                  memory=memory)
+                  memory=memory,
+                  spec=specs["layers"][i] if specs is not None else None)
         if remat is None:
             x = _block(i, p, cfg, x, positions, **kw)
         else:
-            x = checkpoint(functools.partial(_block, i, **kw), p, cfg, x,
-                           positions, **remat)
+            # the recompute may run in autograd's device thread: it
+            # carries the tp context and the hints of the forward
+            fn = hints.carried(tp.carried(functools.partial(_block, i,
+                                                            **kw)))
+            x = checkpoint(fn, p, cfg, x, positions, **remat)
     return x
+
+
+def _train_specs():
+    """The rank's parameter description while training on a mesh (the
+    ambient ``tp`` context's), else None."""
+    ctx = tp.active()
+    return None if ctx is None else ctx.specs
 
 
 def forward(params, cfg: ModelConfig, batch: dict, *,
@@ -230,13 +262,16 @@ def forward(params, cfg: ModelConfig, batch: dict, *,
     otherwise)."""
     tokens = batch["tokens"]
     b, s = tokens.shape
-    x = L.embed_lookup(params["embed"], tokens,
-                       sharded=tp.active() is not None)
+    specs = _train_specs() or {"embed": None, "final_norm": None}
+    # on a mesh the table is gathered at each use (ZeRO-3)
+    x = L.embed_lookup(tp.gather_params(params["embed"], specs["embed"]),
+                       tokens, sharded=tp.active() is not None)
     positions = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
     x = _run_stack(params, cfg, x, positions, table=table,
                    memory=batch.get("image_embeds"))
-    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return L.unembed(x, params["embed"])
+    x = L.rms_norm(x, tp.gather_params(params["final_norm"],
+                                       specs["final_norm"]), cfg.norm_eps)
+    return L.unembed(x, tp.gather_params(params["embed"], specs["embed"]))
 
 
 def next_token_loss(cfg: ModelConfig, logits: Tensor,

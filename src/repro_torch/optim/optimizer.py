@@ -10,6 +10,15 @@ alone is 1.57 B parameters, and the JAX formulation's whole-leaf fp32
 temporaries (gradient, both moments, the update) would need ~30 GB
 beside the 28 GB of parameters, gradients and moments. The arithmetic
 is elementwise, so the chunks give the same numbers as whole leaves.
+
+On a mesh (inside a training ``parallel.tp`` context) every tree holds
+the rank's shards: the moments are sharded like their parameters
+(``state_shardings``), the update runs on the shard, and
+``global_norm`` covers the whole tree: each leaf's local sum of squares
+is divided by the number of ranks holding the same shard (a leaf
+replicated over an axis is counted once, not once a rank), and the sum
+is all-reduced over the fsdp and "model" groups. Clipping and the
+``grad_norm`` metric then equal the one-device values.
 """
 
 from __future__ import annotations
@@ -20,6 +29,7 @@ import torch
 
 from repro_torch import tree
 from repro_torch.configs.base import TrainConfig
+from repro_torch.parallel import tp
 
 Tensor = torch.Tensor
 
@@ -59,12 +69,34 @@ def _chunks(t: Tensor) -> tuple[Tensor, ...]:
     return t.reshape(-1).split(CHUNK)
 
 
+def state_shardings(param_shardings, mesh) -> AdamState:
+    """The optimizer state's placement mirrors the parameters' (ZeRO):
+    the step is replicated (None), each moment placed like its
+    parameter."""
+    return AdamState(step=None, mu=param_shardings, nu=param_shardings)
+
+
+def _replicas(spec, ctx) -> int:
+    """How many ranks of the mesh hold the same shard of a leaf."""
+    n = 1 if tp.fsdp_dim(spec) is not None else ctx.fsdp_size
+    return n if "model" in tuple(spec) else n * ctx.size
+
+
 def global_norm(grads) -> Tensor:
-    """sqrt of the sum over leaves of each leaf's fp32 sum of squares."""
+    """sqrt of the sum over leaves of each leaf's fp32 sum of squares
+    (of the whole leaf, on a mesh)."""
+    ctx = tp.active()
+    specs = None if ctx is None else ctx.specs
+    reps = ([1] * len(tree.leaves(grads)) if specs is None else
+            [_replicas(s, ctx) for s in tree.leaf_specs(grads, specs)])
     total = None
-    for g in tree.leaves(grads):
+    for g, n in zip(tree.leaves(grads), reps):
         sq = sum(torch.sum(torch.square(c.float())) for c in _chunks(g))
+        if n > 1:
+            sq = sq / n
         total = sq if total is None else total + sq
+    if specs is not None:
+        total = tp.all_reduce(tp.all_reduce(total, "fsdp"), "model")
     return torch.sqrt(total)
 
 

@@ -52,3 +52,24 @@ def map_leaves(fn: Callable, tree, *rest) -> Any:
     (same structure), leaf by leaf."""
     return unflatten(tree, [fn(*xs) for xs in zip(
         leaves(tree), *(leaves(r) for r in rest))])
+
+
+def map_with_spec(fn: Callable, tree, specs) -> Any:
+    """``fn(leaf, spec)`` over a tree of dicts and lists and a tree
+    ``specs`` of the same dicts and lists whose leaves may be tuples (a
+    sharding description), driven by ``tree``."""
+    if isinstance(tree, dict):
+        return {k: map_with_spec(fn, v, specs[k]) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [map_with_spec(fn, v, s) for v, s in zip(tree, specs)]
+    return fn(tree, specs)
+
+
+def leaf_specs(tree, specs) -> list:
+    """The leaves of ``specs`` (tuples kept whole), a tree shaped like
+    ``tree``, in ``tree``'s leaf order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in leaf_specs(tree[k], specs[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for t, s in zip(tree, specs) for x in leaf_specs(t, s)]
+    return [specs]

@@ -72,7 +72,9 @@ def test_scan_sees_the_whole_port():
             "launch/faults.py", "core/sidebar.py", "launch/spec.py",
             "retrieval/__init__.py", "retrieval/index.py",
             "retrieval/rag.py", "core/engine.py", "core/energy.py",
-            "core/policy.py", "core/constants.py", "models/lenet.py"} <= names
+            "core/policy.py", "core/constants.py", "models/lenet.py",
+            "parallel/tp.py", "parallel/hints.py", "launch/mesh.py",
+            "launch/input_specs.py"} <= names
 
 
 def test_import_needs_no_nvcc_no_triton_and_builds_nothing(tmp_path):

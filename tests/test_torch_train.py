@@ -51,6 +51,7 @@ from repro_torch.data import pipeline
 from repro_torch.ft.watchdog import StragglerWatchdog, Verdict
 from repro_torch.launch.train import Trainer, make_train_step
 from repro_torch.models import transformer as T
+from repro_torch.models.layers import HOST
 from repro_torch.models.registry import get_model
 from repro_torch.optim import compression
 from repro_torch.optim.optimizer import (
@@ -297,7 +298,7 @@ def test_train_step_with_microbatches_matches_jax(weights):
     jcell, cell = (JShapeCell("smoke", 32, 4, "train"),
                    ShapeCell("smoke", 32, 4, "train"))
     jstep, jn, _ = jmake_train_step(cj, jt, jget(cj), jL.HOST, None, jcell)
-    tstep, tn, _ = make_train_step(ct, tt, get_model(ct), cell)
+    tstep, tn, _ = make_train_step(ct, tt, get_model(ct), HOST, None, cell)
     assert jn == tn == 2
     jstep = jax.jit(jstep)
     sj, st = jopt.init_state(pj, jt), init_state(pt, tt)

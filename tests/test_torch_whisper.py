@@ -338,6 +338,7 @@ def test_train_step_hands_frames_to_the_loss(weights):
     the batch (two microbatches of one row)."""
     from repro_torch.configs.base import TrainConfig
     from repro_torch.launch.train import make_train_step
+    from repro_torch.models.layers import HOST
     from repro_torch.optim.optimizer import init_state
     from repro_torch import tree
 
@@ -347,7 +348,8 @@ def test_train_step_hands_frames_to_the_loss(weights):
     cell = ShapeCell("s", 12, 2, "train")
     batch = pipeline.make_batch(ct, cell, 0, device="cpu")
     tcfg = TrainConfig(microbatch_per_device=1)
-    step, n_micro, _ = make_train_step(ct, tcfg, get_model(ct), cell)
+    step, n_micro, _ = make_train_step(ct, tcfg, get_model(ct), HOST,
+                                       None, cell)
     assert n_micro == 2
     with torch.no_grad():
         want = np.mean([float(whisper.loss(pt, ct, {
